@@ -24,9 +24,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    finals and of the metrics, at the slice's shapes.
 7. idle: the device idle share of one attack call, from a torch.profiler
    trace.
+8. train: the self-supervised stereo training step (BASELINE config 2)
+   through HardeningTrainer.selfsup_frames_step at the CLI's defaults
+   (Monodepth2-18, 4 scales, 1024x320, batch 32, frames ("0", "s"),
+   375x1242 synthetic frames whose "s" eye is a column-shifted copy,
+   Adam at lr 1e-5, from a seeded from-scratch init): first one small
+   step on the card against the same step on the CPU's plain versions;
+   then 2 warm-up steps and 5 timed steps, with every launch counter
+   reset before the timed steps and read after; checks that the loss is finite, the weights and BatchNorm
+   statistics moved and the step count rose; then that steps on one
+   fixed batch at lr 1e-4 lower the loss; then the median CUDA-event ms
+   of batch building, model forward, losses, backward and optimizer
+   step, and the idle share of one step.
 
-Prints one JSON line of kernel results, then, as the last line,
-{"ok": true, "device": {...}}. Needs no network and no jax.
+Each path's kernels must launch during its own run (counters set to 0
+just before it, read just after). Prints one JSON line of kernel
+results, then, as the last line, {"ok": true, "device": {...}}. Needs no
+network and no jax.
 """
 
 from __future__ import annotations
@@ -55,12 +69,27 @@ from depthmodelhardening_tpu_torch.models.convert import (
 from depthmodelhardening_tpu_torch.models.wrappers import (
     make_monodepth2, predictor_from,
 )
-from depthmodelhardening_tpu_torch.ops import _build, pool, warp
+from depthmodelhardening_tpu_torch.ops import _build, pool, reproj, warp
+from depthmodelhardening_tpu_torch.training.config import (
+    HardeningConfig, SelfSupConfig,
+)
+from depthmodelhardening_tpu_torch.training.hardening import HardeningTrainer
+from depthmodelhardening_tpu_torch.training.selfsup import (
+    compute_selfsup_losses,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 GOLDEN_RTOL, GOLDEN_ATOL = 5e-4, 2e-4  # tests/test_golden_fixtures.py
 WARP_FWD_ATOL, WARP_BWD_ATOL = 1e-5, 1e-4
+# kernel C adds and rounds as its plain version does, so both directions
+# must be bit-exact (tighter than the JAX package's interpret-vs-jnp 2e-6,
+# tests/test_pallas_reproj.py:38, and 1e-5 on unit cotangents backward)
+REPROJ_FWD_ATOL, REPROJ_BWD_ATOL = 0.0, 0.0
+SLICE1_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
+                  "maxpool3x3s2_fwd", "maxpool3x3s2_bwd")
+TRAIN_KERNELS = ("maxpool3x3s2_fwd", "maxpool3x3s2_bwd", "reproj_loss_fwd",
+                 "reproj_loss_bwd_q", "reproj_loss_bwd_grad")
 
 
 def log(msg: str) -> None:
@@ -190,7 +219,60 @@ def phase_kernels(dev) -> dict:
             row(pool.BWD, e_b,
                 cuda_ms(lambda: pool.maxpool3x3s2_bwd_cuda(x, g)),
                 cuda_ms(lambda: pool.maxpool3x3s2_backward_plain(x, g)))
+
+    # kernel C at the training step's shape, a ragged one and H or W = 2
+    # (reflect edges); y equals x on a band of rows and on scattered
+    # pixels, so the clip's 0.5 and |.|''s +1 tie rules are exercised
+    for shape in ((32, 3, 320, 1024), (3, 3, 37, 53), (2, 3, 2, 41),
+                  (2, 3, 23, 2)):
+        x, y = _reproj_inputs(gen, dev, shape)
+        g = torch.randn((shape[0],) + shape[2:], generator=gen).to(dev)
+        out_k = reproj.reproj_loss_fwd_cuda(x, y)
+        out_p = reproj.reproj_loss_plain(x, y)
+        dx_k, dy_k = reproj.reproj_loss_bwd_cuda(x, y, g)
+        dx_p, dy_p = reproj.reproj_loss_backward_plain(x, y, g)
+        torch.cuda.synchronize()
+        e_f = float((out_k - out_p).abs().max())
+        e_b = max(float((dx_k - dx_p).abs().max()),
+                  float((dy_k - dy_p).abs().max()))
+        log(f"reproj {shape}: fwd err {e_f:.3e} (atol {REPROJ_FWD_ATOL}), "
+            f"bwd err {e_b:.3e} (atol {REPROJ_BWD_ATOL}), ties "
+            f"{int((x == y).sum())} of {x.numel()}")
+        if not (e_f <= REPROJ_FWD_ATOL and e_b <= REPROJ_BWD_ATOL):
+            raise AssertionError(f"reproj kernel disagrees at {shape}")
+        if shape[0] == 32:
+            B, C, H, W = shape
+            q = torch.empty((B, 4 * C, H, W), device=dev)
+            dx = torch.empty_like(x)
+            stream = _build.stream_handle(x)
+            plain_bwd = cuda_ms(lambda: reproj.reproj_loss_backward_plain(
+                x, y, g, need_dy=False), reps=5)
+            row(reproj.FWD, e_f,
+                cuda_ms(lambda: reproj.reproj_loss_fwd_cuda(x, y)),
+                cuda_ms(lambda: reproj.reproj_loss_plain(x, y), reps=5))
+            # the plain backward has no split: both rows carry its time
+            row(reproj.BWD_Q, e_b,
+                cuda_ms(lambda: reproj.BWD_Q.launch(
+                    x.data_ptr(), y.data_ptr(), g.data_ptr(), q.data_ptr(),
+                    B, C, H, W, stream)), plain_bwd)
+            row(reproj.BWD_GRAD, e_b,
+                cuda_ms(lambda: reproj.BWD_GRAD.launch(
+                    x.data_ptr(), y.data_ptr(), g.data_ptr(), q.data_ptr(),
+                    dx.data_ptr(), 0, B, C, H, W, stream)), plain_bwd)
+            log(f"  (the backward rows' plain time is the whole plain "
+                f"backward, d_pred only; kernels with no d_target)")
     return rows
+
+
+def _reproj_inputs(gen, dev, shape):
+    x = torch.rand(shape, generator=gen)
+    y = torch.rand(shape, generator=gen)
+    H = shape[2]
+    band = slice(H // 4, H // 4 + max(3, H // 3))
+    y[:, :, band] = x[:, :, band]
+    eq = torch.rand(shape, generator=gen) < 0.05
+    y[eq] = x[eq]
+    return x.to(dev), y.to(dev)
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -272,7 +354,7 @@ def phase_slice(dev):
         f"(host clock around {CFG.eval_count} batches, synchronised)")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
     log(f"  launches {json.dumps(launches)}")
-    bad = [n for n, c in launches.items() if c <= 0]
+    bad = [n for n in SLICE1_KERNELS if launches[n] <= 0]
     if bad:
         raise AssertionError(f"kernels never launched on the main path: {bad}")
     vals = list(res["mean"].values()) + list(res["max"].values())
@@ -356,36 +438,222 @@ def phase_breakdown(attack, predictor, scenes, rows) -> None:
 
 
 def phase_idle(attack, scenes) -> None:
-    """Device idle share of one attack call (10 PGD steps + finals):
-    the union of the card's kernel and copy intervals in a torch.profiler
-    trace, against the host clock around the call."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device idle share of one attack call (10 PGD steps + finals)."""
     draws = attack.draw(torch.Generator().manual_seed(SEED + 11),
                         CFG.batch_size)
+    busy_ms, wall_ms, n, _ = device_busy(
+        lambda: attack(scenes, CFG.batch_size, eval_mode=True, draws=draws))
+    log(f"idle: one attack call (PGD-{CFG.step} + finals) under the "
+        f"profiler: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms host "
+        f"wall, idle share {1.0 - busy_ms / wall_ms:.4f}, "
+        f"{n} device activities")
+
+
+def device_busy(fn):
+    """(busy ms, host wall ms, device activities, ms by activity name) of
+    one call of fn: the union of the card's kernel and copy intervals in
+    a torch.profiler trace, against the host clock around the call."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        attack(scenes, CFG.batch_size, eval_mode=True, draws=draws)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and not e.name.startswith(("Buffer Flush", "Activity Buffer")))
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(("Buffer Flush", "Activity Buffer"))]
+    if not events:
+        raise AssertionError("the profiler saw no device activity")
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
             busy_us += e - max(s, end)
             end = e
-    busy_ms = busy_us / 1e3
-    log(f"idle: one attack call (PGD-{CFG.step} + finals) under the "
-        f"profiler: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms host "
-        f"wall, idle share {1.0 - busy_ms / wall_ms:.4f}, "
-        f"{len(spans)} device activities")
-    if not spans:
-        raise AssertionError("the profiler saw no device activity")
+    return busy_us / 1e3, wall_ms, len(spans), by_name
+
+
+# -- phase 8 -----------------------------------------------------------------
+TRAIN_CFG = HardeningConfig(
+    selfsup=SelfSupConfig(height=320, width=1024, frame_ids=("0", "s")),
+    supervised_adv=False, contrastive_learning=False, batch_size=32,
+    learning_rate=1e-5)
+TRAIN_WARMUP, TRAIN_TIMED, CONVERGE_STEPS, CONVERGE_LR = 2, 5, 6, 1e-4
+
+
+def _train_inputs(dev):
+    """Synthetic 375x1242 frames: "s" is "0" shifted by 12 columns, so
+    the stereo warp has real signal; sides and flips mixed over the
+    batch."""
+    B = TRAIN_CFG.batch_size
+    f0 = torch.from_numpy(make_scene(B, TRAIN_CFG.adv.ori_h,
+                                     TRAIN_CFG.adv.ori_w, seed=SEED + 20))
+    frames = {"0": f0.to(dev), "s": torch.roll(f0, 12, dims=2).to(dev)}
+    side = torch.arange(B, device=dev) % 2 == 0
+    flip = torch.arange(B, device=dev) % 4 < 2
+    return frames, side, flip
+
+
+def _moved(before, after):
+    return [k for k in before if not torch.equal(before[k], after[k])]
+
+
+def phase_train(dev):
+    """The self-supervised stereo step at full width; returns the launch
+    counts of the timed steps."""
+    phase_train_parity(dev)
+    ss = TRAIN_CFG.selfsup
+    B = TRAIN_CFG.batch_size
+    frames, side, flip = _train_inputs(dev)
+    trainer = HardeningTrainer(TRAIN_CFG, torch.Generator().manual_seed(SEED),
+                               device=dev)
+    state = trainer.make_state()
+    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        state, m = trainer.selfsup_frames_step(state, frames, side, flip)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED):
+        state, m = trainer.selfsup_frames_step(state, frames, side, flip)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / TRAIN_TIMED
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    losses = [float(v) for v in losses]
+
+    log(f"train: HardeningTrainer.selfsup_frames_step, Monodepth2-"
+        f"{TRAIN_CFG.num_layers} from scratch, {ss.width}x{ss.height} f32, "
+        f"scales {ss.scales}, frames {ss.frame_ids}, batch {B} of "
+        f"{TRAIN_CFG.adv.ori_w}x{TRAIN_CFG.adv.ori_h} frames, Adam lr "
+        f"{TRAIN_CFG.learning_rate}")
+    log(f"  seconds per step {secs:.4f} (host clock around {TRAIN_TIMED} "
+        f"steps after {TRAIN_WARMUP} warm-up, synchronised)")
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
+    log(f"  losses {json.dumps(losses)}")
+    log(f"  launches {json.dumps(launches)} (per step: reproj fwd "
+        f"{launches['reproj_loss_fwd'] / TRAIN_TIMED:g}, bwd "
+        f"{launches['reproj_loss_bwd_q'] / TRAIN_TIMED:g})")
+    bad = [n for n in TRAIN_KERNELS if launches[n] <= 0]
+    if bad:
+        raise AssertionError(f"kernels never launched in training: {bad}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if state.step != TRAIN_WARMUP + TRAIN_TIMED:
+        raise AssertionError(f"step count {state.step}")
+    moved = _moved(start, state.model.state_dict())
+    params = [n for n, _ in state.model.named_parameters()]
+    stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
+    if set(params) - set(moved) or set(stats) - set(moved):
+        raise AssertionError("some weights or BatchNorm statistics did not "
+                             "move: " + str(sorted((set(params) | set(stats))
+                                                   - set(moved))[:5]))
+    log(f"  moved: all {len(params)} parameters and {len(stats)} running "
+        f"statistics; step {state.step}")
+    phase_train_breakdown(trainer, state, frames, side, flip)
+    del state
+    phase_converge(dev, frames, side, flip)
+    return launches
+
+
+def phase_train_breakdown(trainer, state, frames, side, flip) -> None:
+    """Median CUDA-event ms of the parts of one step, and the idle share
+    of one whole step."""
+    ss = TRAIN_CFG.selfsup
+    names = ("batch", "model_forward", "losses_forward", "backward",
+             "optimizer_step")
+    times = {n: [] for n in names}
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        batch = trainer.plain_batch(frames, side, flip)
+        noise = trainer.draw_identity_noise(TRAIN_CFG.batch_size)
+        ev[1].record()
+        disps = trainer.disparities(state.model, batch)
+        ev[2].record()
+        loss, _ = compute_selfsup_losses(disps, batch, {}, noise, ss)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        trainer._apply_grads(state)
+        ev[5].record()
+        ev[5].synchronize()
+        for i, n in enumerate(names):
+            times[n].append(ev[i].elapsed_time(ev[i + 1]))
+    log(f"train breakdown at batch {TRAIN_CFG.batch_size}, "
+        f"{ss.width}x{ss.height} (median CUDA-event ms of 5):")
+    for n in names:
+        log(f"  {n}: {float(np.median(times[n])):.3f}")
+    busy_ms, wall_ms, n, by_name = device_busy(
+        lambda: trainer.selfsup_frames_step(state, frames, side, flip))
+    log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
+        f"ms of {wall_ms:.3f} ms host wall, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
+    log("  device ms of the step by kernel (top 10):")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {ms:9.3f}  {name[:110]}")
+
+
+def phase_train_parity(dev) -> None:
+    """One step at 64x128, batch 2, on the card (the kernels) and on the
+    CPU (the plain versions), from the same weights, frames and noise:
+    loss within 1e-5 relative; parameters within 2.5 lr after Adam,
+    whose first step moves each by about lr * sign(g)."""
+    ss = dataclasses.replace(TRAIN_CFG.selfsup, height=64, width=128)
+    adv = dataclasses.replace(TRAIN_CFG.adv, ori_h=96, ori_w=320)
+    cfg = dataclasses.replace(TRAIN_CFG, selfsup=ss, adv=adv, batch_size=2,
+                              learning_rate=CONVERGE_LR)
+    f0 = torch.from_numpy(make_scene(2, 96, 320, seed=SEED + 30))
+    frames = {"0": f0, "s": torch.roll(f0, 6, dims=2)}
+    side, flip = torch.tensor([True, False]), torch.tensor([False, True])
+    noise = torch.randn((2, 64, 128, 1),
+                        generator=torch.Generator().manual_seed(SEED + 31))
+    def step_on(d):
+        trainer = HardeningTrainer(
+            cfg, torch.Generator().manual_seed(SEED + 32), device=d)
+        state, m = trainer.selfsup_frames_step(
+            trainer.make_state(), {k: v.to(d) for k, v in frames.items()},
+            side.to(d), flip.to(d), identity_noise=noise.to(d))
+        return float(m["loss"]), state.model
+
+    (l_cpu, m_cpu), (l_gpu, m_gpu) = step_on(torch.device("cpu")), step_on(dev)
+    worst = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(m_gpu.parameters(), m_cpu.parameters()))
+    log(f"train parity: one step at 64x128 batch 2, card {l_gpu:.8f} vs "
+        f"CPU {l_cpu:.8f} loss (rel {abs(l_gpu - l_cpu) / l_cpu:.3e}), "
+        f"max |param difference| {worst / CONVERGE_LR:.3f} lr")
+    if abs(l_gpu - l_cpu) > 1e-5 * l_cpu or worst > 2.5 * CONVERGE_LR:
+        raise AssertionError("the card's training step disagrees with the "
+                             "plain versions on the CPU")
+
+
+def phase_converge(dev, frames, side, flip) -> None:
+    """Steps on one fixed batch at Monodepth2's own lr 1e-4 lower the
+    loss below step 0's."""
+    cfg = dataclasses.replace(TRAIN_CFG, learning_rate=CONVERGE_LR)
+    trainer = HardeningTrainer(cfg, torch.Generator().manual_seed(SEED + 1),
+                               device=dev)
+    state = trainer.make_state()
+    losses = []
+    for _ in range(CONVERGE_STEPS + 1):
+        state, m = trainer.selfsup_frames_step(state, frames, side, flip)
+        losses.append(float(m["loss"]))
+    log(f"converge: lr {CONVERGE_LR}, one fixed batch, losses "
+        f"{json.dumps(losses)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{CONVERGE_STEPS} steps did not lower the "
+                             "loss")
 
 
 def main() -> int:
@@ -398,8 +666,11 @@ def main() -> int:
     phase_cost(attack, scenes)
     phase_breakdown(attack, predictor, scenes, rows)
     phase_idle(attack, scenes)
+    del attack, predictor, scenes
+    torch.cuda.empty_cache()
+    train_launches = phase_train(dev)
     for name, r in rows.items():
-        r["launches"] = launches[name]
+        r["launches"] = launches[name] + train_launches[name]
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "plain_ms")}

@@ -65,7 +65,7 @@ class PhysObjAttackConfig:
     attack_view_dtype: str = "float32"
 
     def __post_init__(self):
-        later = "is not ported yet (ROADMAP Queue 1, slice 2)"
+        later = "is not ported yet (ROADMAP Queue 1, slice 3)"
         if self.attack_crop_w is not None or self.attack_crop_h is not None:
             raise NotImplementedError(
                 f"attack_crop_w/attack_crop_h: the cropped objective {later}")

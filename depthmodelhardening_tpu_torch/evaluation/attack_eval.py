@@ -31,18 +31,18 @@ METRIC_NAMES = ("abs_err", "abs_rel", "sq_rel", "rmse", "rmse_log",
 
 # norm types of the JAX package that the port does not have yet, and the
 # ROADMAP item that brings each
-_SLICE5 = "Queue 1, slice 5 (the other attacks and evaluations)"
+_SLICE6 = "Queue 1, slice 6 (the other attacks and evaluations)"
 _LATER = {
-    "l_0": "Queue 1, slice 3 (L0 attack)",
-    "image": _SLICE5,
-    "l_2": _SLICE5,
-    "arbi": _SLICE5,
-    "guassian": _SLICE5,
-    "light": _SLICE5,
-    "vanila": _SLICE5,
-    "physical": _SLICE5,
-    "APGD": _SLICE5,
-    "Square": _SLICE5,
+    "l_0": "Queue 1, slice 4 (L0 attack)",
+    "image": _SLICE6,
+    "l_2": _SLICE6,
+    "arbi": _SLICE6,
+    "guassian": _SLICE6,
+    "light": _SLICE6,
+    "vanila": _SLICE6,
+    "physical": _SLICE6,
+    "APGD": _SLICE6,
+    "Square": _SLICE6,
 }
 
 

@@ -3,7 +3,10 @@
 (a) `from_jax_variables`: the JAX package's flax variables of a
     MonodepthModel, as a tree of numpy arrays (HWIO kernels, BatchNorm
     scale/bias/mean/var, decoder modules named as in
-    `depthmodelhardening_tpu/models/depth_decoder.py:374`).
+    `depthmodelhardening_tpu/models/depth_decoder.py:374`); a tree of
+    gradients, {"params": grads}, converts the same way.
+    `from_jax_train_state` takes the JAX trainer's collections
+    ({"params": {"depth": ...}, "batch_stats": {"depth": ...}}).
 (b) `load_reference_state_dict`: the reference checkpoints'
     `encoder.pth` / `depth.pth` key layout ("encoder."-prefixed
     torchvision trunk with fc head and metadata keys; "decoder.<idx>"
@@ -88,6 +91,17 @@ def from_jax_variables(variables: Mapping,
         key = f"decoder.decoder.{index[path[0]]}.{inner}.{leaf}"
         sd[key] = _kernel(v) if leaf == "weight" else _t(v)
     return sd
+
+
+def from_jax_train_state(variables: Mapping,
+                         scales: Sequence[int] = (0, 1, 2, 3)
+                         ) -> Dict[str, torch.Tensor]:
+    """The student of a JAX `HardeningTrainer` state, {"params": {"depth":
+    ...}, "batch_stats": {"depth": ...}} as numpy, -> the port's state
+    dict."""
+    return from_jax_variables(
+        {"params": variables["params"]["depth"],
+         "batch_stats": variables["batch_stats"]["depth"]}, scales)
 
 
 def load_reference_state_dict(encoder_sd: Mapping, decoder_sd: Mapping

@@ -16,6 +16,8 @@ import torch.nn as nn
 from .depth_decoder import DepthDecoder
 from .resnet import ResnetEncoder
 
+LECUN_TRUNC_STD = 0.87962566103423978
+
 
 class MonodepthModel(nn.Module):
     """encoder + depth decoder; forward(images NHWC) -> disp0 NHWC."""
@@ -65,14 +67,18 @@ def make_monodepth2(num_layers: int = 18,
 def init_monodepth2(generator: torch.Generator, num_layers: int = 18,
                     scales: Sequence[int] = (0, 1, 2, 3)) -> MonodepthModel:
     """A MonodepthModel with flax's default initialisation drawn from
-    `generator`: lecun-normal conv kernels, zero biases, identity
-    BatchNorm (scale 1, bias 0, running mean 0, running var 1)."""
+    `generator`: lecun-normal conv kernels (`nn.initializers.
+    lecun_normal()`: a normal truncated at +-2 std, its std raised so the
+    variance stays 1 / fan_in), zero biases, identity BatchNorm (scale 1,
+    bias 0, running mean 0, running var 1)."""
     model = make_monodepth2(num_layers, scales)
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.weight[0].numel()
-            w = torch.randn(m.weight.shape, generator=generator)
-            m.weight.copy_(w / math.sqrt(fan_in))
+            # the std of a unit normal truncated at +-2 is 0.87962566...
+            std = 1.0 / math.sqrt(fan_in) / LECUN_TRUNC_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std,
+                                  b=2.0 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):

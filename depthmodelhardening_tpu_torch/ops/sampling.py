@@ -1,10 +1,18 @@
-"""Bilinear sampling at pixel coordinates, NHWC.
+"""Bilinear sampling, NHWC.
 
-Counterpart of `depthmodelhardening_tpu/ops/sampling.py:35`
-(`bilinear_sample_pixels`, "zeros" and "border" padding): four gathers
-and a weighted sum, differentiable w.r.t. the image through autograd.
-"zeros" is the zero-filled resampling inside torchvision's perspective()
-that the EoT finals reproduce.
+Counterpart of `depthmodelhardening_tpu/ops/sampling.py`:
+
+* `bilinear_sample_pixels` (:35, "zeros" and "border" padding): four
+  gathers and a weighted sum, differentiable through autograd. "zeros"
+  is the zero-filled resampling inside torchvision's perspective() that
+  the EoT finals reproduce.
+* `grid_sample` (:293): F.grid_sample's bilinear mode on normalised
+  coordinates, align_corners=True (the reprojection warp's).
+* `bilinear_sample_rows` (:173-278): the rectified-stereo warp, each
+  output row resampled from its own source row, with the JAX package's
+  tap split and coordinate gradient.
+
+All plain PyTorch: in the JAX package these are XLA, not kernels.
 """
 
 from __future__ import annotations
@@ -64,3 +72,63 @@ def bilinear_sample_pixels(img, x, y, padding_mode: str = "border"):
         w10 = w10 * (vx0 & vy1).to(img.dtype)[..., None]
         w11 = w11 * (vx1 & vy1).to(img.dtype)[..., None]
     return v00 * w00 + v01 * w01 + v10 * w10 + v11 * w11
+
+
+def grid_sample(img, grid):
+    """torch.nn.functional.grid_sample (bilinear, border padding,
+    align_corners=True) for NHWC img (B, H, W, C) at grid (B, Ho, Wo, 2)
+    of normalised (x, y) in [-1, 1]; returns (B, Ho, Wo, C)."""
+    H, W = img.shape[1:3]
+    x = (grid[..., 0] + 1.0) * 0.5 * (W - 1)
+    y = (grid[..., 1] + 1.0) * 0.5 * (H - 1)
+    return bilinear_sample_pixels(img, x, y, padding_mode="border")
+
+
+def _row_taps(x, W: int):
+    """Left tap index i = clip(floor(xc), 0, W-2) and weight frac = xc - i
+    of the border-clamped column xc = clip(x, 0, W-1)."""
+    xc = x.clamp(0.0, W - 1)
+    i = torch.floor(xc).clamp(0.0, W - 2)
+    return i.to(torch.int64), xc - i
+
+
+def _gather_cols(img, idx):
+    """img (B, H, W, C), idx (B, H, Xo) -> img[b, h, idx, :]."""
+    return torch.gather(img, 2, idx[..., None].expand(-1, -1, -1,
+                                                      img.shape[-1]))
+
+
+class _SampleRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, x):
+        W = img.shape[2]
+        idx, frac = _row_taps(x, W)
+        ctx.save_for_backward(img, x, idx, frac)
+        a0, a1 = _gather_cols(img, idx), _gather_cols(img, idx + 1)
+        f = frac[..., None]
+        return a0 * (1.0 - f) + a1 * f
+
+    @staticmethod
+    def backward(ctx, g):
+        img, x, idx, frac = ctx.saved_tensors
+        W = img.shape[2]
+        d_img = d_x = None
+        if ctx.needs_input_grad[0]:
+            f = frac[..., None]
+            e = idx[..., None].expand_as(g)
+            d_img = torch.zeros_like(img)
+            d_img.scatter_add_(2, e, g * (1.0 - f))
+            d_img.scatter_add_(2, e + 1, g * f)
+        if ctx.needs_input_grad[1]:
+            # the right-derivative at integer columns; no gradient where
+            # the column was clamped to the border (the clip's transpose)
+            a0, a1 = _gather_cols(img, idx), _gather_cols(img, idx + 1)
+            d_x = ((a1 - a0) * g).sum(dim=-1)
+            d_x = torch.where((x >= 0) & (x <= W - 1), d_x, 0.0)
+        return d_img, d_x
+
+
+def bilinear_sample_rows(img, x):
+    """out[b, h, xo] interpolates img[b, h] (B, H, W, C) at column
+    x[b, h, xo] (B, H, Xo), border clamp; needs W >= 2."""
+    return _SampleRows.apply(img, x)

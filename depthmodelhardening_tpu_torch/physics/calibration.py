@@ -3,7 +3,7 @@
 A copy of the part of `depthmodelhardening_tpu/physics/calibration.py`
 the attack path reads (the default calibration, whose camera-2
 projection P2 places the EoT quad); reading calib files waits for the
-KITTI loaders (ROADMAP Queue 1, slice 6). Held
+KITTI loaders (ROADMAP Queue 1, slice 7). Held
 array-equal to it by tests/test_torch_package.py. Reference:
 preprocessing/kitti_util.py:24-185.
 """

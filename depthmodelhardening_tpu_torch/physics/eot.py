@@ -62,6 +62,18 @@ ANGLE_RANGE = np.arange(-30, 31, 5, dtype=np.float32)
 _F32 = torch.float32
 
 
+def monodepth2_K(width: int = ORI_W, height: int = ORI_H) -> np.ndarray:
+    """The normalized Monodepth2 intrinsics scaled to a resolution
+    (mono_dataset.py:170-175)."""
+    K = np.array([[0.58, 0, 0.5, 0],
+                  [0, 1.92, 0.5, 0],
+                  [0, 0, 1, 0],
+                  [0, 0, 0, 1]], dtype=np.float32)
+    K[0, :] *= width
+    K[1, :] *= height
+    return K
+
+
 def quad_corners_world(z0, alpha_deg, veh_w: float = VEH_W,
                        veh_h: float = VEH_H, cam_h: float = CAM_H):
     """(B,) distances and yaws -> (B, 4, 3) rect-camera corners in the

@@ -1,0 +1,119 @@
+"""Typed training configuration (counterpart of `depthmodelhardening_tpu/
+training/config.py:16-147`; reference monodepth2/options.py and the
+adv-train dicts of monodepth2/trainer.py:199-223).
+
+Same fields and defaults as the JAX package's dataclasses, less the TPU
+layout rewrites (`s2d_stem`, `wpack_*`, `fuse_upconv`, `packed_decoder`)
+and the eval-clone BatchNorm fold (`fold_bn`): the port runs the plain
+path, so passing one of them is a TypeError. `compute_dtype` other than
+float32 raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SelfSupConfig:
+    """Self-supervised monodepth training options (monodepth2/options.py).
+
+    frame_ids are strings so "s" (stereo) can join temporal offsets,
+    e.g. ("0", "s") for stereo training or ("0", "-1", "1") for mono.
+    """
+
+    height: int = 320
+    width: int = 1024
+    scales: Tuple[int, ...] = (0, 1, 2, 3)
+    frame_ids: Tuple[str, ...] = ("0", "s")
+    min_depth: float = 0.1
+    max_depth: float = 100.0
+    disparity_smoothness: float = 1e-3
+    no_ssim: bool = False
+    avg_reprojection: bool = False
+    disable_automasking: bool = False
+    v1_multiscale: bool = False
+    # The stereo warp takes the row-resample path
+    # (ops/sampling.py:bilinear_sample_rows), exact only when stereo_T is
+    # a rectified pure x-translation; every stereo_T is checked
+    # (training/selfsup.py:_stereo_is_pure_x). False forces the general
+    # 2-D sampler.
+    rectified_stereo: bool = True
+
+    @property
+    def use_stereo(self) -> bool:
+        return "s" in self.frame_ids
+
+    @property
+    def source_frame_ids(self) -> Tuple[str, ...]:
+        return tuple(f for f in self.frame_ids if f != "0")
+
+    @property
+    def temporal_source_ids(self) -> Tuple[str, ...]:
+        return tuple(f for f in self.frame_ids if f not in ("0", "s"))
+
+    @property
+    def use_pose_net(self) -> bool:
+        # monodepth2/trainer.py:64: pose net iff mono frames present
+        return len(self.temporal_source_ids) > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AdvSynthConfig:
+    """Adversarial batch-synthesis options (trainer.py:199-223 args dict
+    + mono_dataset.py:147-175 set_adv_train)."""
+
+    norm_type: str = "l_0"  # {"l_inf", "l_0"}
+    epsilon: float = 0.1  # l_inf budget (trainer.py:205)
+    alpha: float = 0.005  # l_inf step (trainer.py:206)
+    steps: int = 10  # attack steps (trainer.py:207)
+    adam_lr: float = 0.5
+    mask_wt: float = 0.05
+    l0_thresh: float = 0.1
+    attack_batch_size: int = 16  # args['batch_size'] used by the attack
+    color_aug: bool = False  # adv_args['color_aug'] (mono_dataset.py:297)
+    attack_crop_w: Optional[int] = None
+    attack_crop_h: Optional[int] = None
+    attack_scale: int = 0
+    attack_scale_fine_steps: int = 1
+    attack_view_dtype: str = "float32"
+    tile_h: int = 256
+    tile_w: int = 256
+    half_no_synthesis: bool = False
+    obj_name: str = "BMW"
+    baseline: float = 0.54  # stereo extrinsic (mono_dataset.py:116)
+    ori_h: int = 375  # native KITTI scene size (my_utils.py:12-13)
+    ori_w: int = 1242
+
+
+@dataclasses.dataclass(frozen=True)
+class HardeningConfig:
+    """Full ICLR'23 hardening recipe (monodepth2/trainer.py)."""
+
+    selfsup: SelfSupConfig = SelfSupConfig()
+    adv: AdvSynthConfig = AdvSynthConfig()
+    supervised_adv: bool = True
+    contrastive_learning: bool = True
+    contras_loss_wt: float = 1.0  # 0.1 for depth-hints (trainer.py:617)
+    sup_loss_wt: float = 1.0
+    no_original_train: bool = False
+    gt_depth: bool = False
+    learning_rate: float = 1e-5  # hardening recipe (README.md:87-103)
+    scheduler_step_size: int = 15  # epochs (options.py:142-145)
+    scheduler_gamma: float = 0.1
+    num_layers: int = 18
+    batch_size: int = 32
+    compute_dtype: str = "float32"
+    # DepthHints family (depth-hints/trainer.py:541-591)
+    use_depth_hints: bool = False
+    # "monodepth2" | "manydepth" (manydepth2/trainer.py:345-386)
+    model_family: str = "monodepth2"
+    manydepth_num_depth_bins: int = 96
+    manydepth_real_lookup: bool = False
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={self.compute_dtype!r}: the port trains in "
+                "float32 only (the reference's precision)")

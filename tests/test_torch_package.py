@@ -2,8 +2,8 @@
 
 * Every module imports with jax, flax, optax and the JAX package blocked:
   the GPU machine has none of them.
-* The numpy copies (synthetic fixtures, KITTI calibration) equal the
-  JAX package's originals.
+* The numpy copies (synthetic fixtures, KITTI calibration, Monodepth2's
+  intrinsics) equal the JAX package's originals.
 * There is no CPU fallback for a kernel: `require_cuda()` raises here,
   each kernel entry point raises on a CPU tensor instead of computing,
   and `chip_smoke.py` exits non-zero without printing its result line.
@@ -24,6 +24,7 @@ import torch
 import depthmodelhardening_tpu_torch as port
 from depthmodelhardening_tpu.data import synthetic as j_synthetic
 from depthmodelhardening_tpu.physics import calibration as j_calibration
+from depthmodelhardening_tpu.physics import eot as j_eot
 from depthmodelhardening_tpu_torch.attacks.base import PhysObjAttackConfig
 from depthmodelhardening_tpu_torch.data import synthetic
 from depthmodelhardening_tpu_torch.device import require_cuda
@@ -33,8 +34,8 @@ from depthmodelhardening_tpu_torch.evaluation.attack_eval import (
 from depthmodelhardening_tpu_torch.models.wrappers import (
     init_monodepth2, predictor_from,
 )
-from depthmodelhardening_tpu_torch.ops import pool, warp
-from depthmodelhardening_tpu_torch.physics import calibration
+from depthmodelhardening_tpu_torch.ops import pool, reproj, warp
+from depthmodelhardening_tpu_torch.physics import calibration, eot
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(port.__file__)
@@ -94,6 +95,12 @@ def test_calibration_equals_the_original():
                                       getattr(want, name))
 
 
+@pytest.mark.parametrize("wh", [(1242, 375), (1024, 320), (128, 64)])
+def test_monodepth2_K_equals_the_original(wh):
+    np.testing.assert_array_equal(eot.monodepth2_K(*wh),
+                                  j_eot.monodepth2_K(*wh))
+
+
 def test_require_cuda_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -116,13 +123,19 @@ def _kernel_calls():
         "maxpool3x3s2_fwd": lambda: pool.maxpool3x3s2_fwd_cuda(x),
         "maxpool3x3s2_bwd": lambda: pool.maxpool3x3s2_bwd_cuda(
             x, torch.rand(1, 2, 5, 6)),
+        "reproj_loss_fwd": lambda: reproj.reproj_loss_fwd_cuda(x, x),
+        "reproj_loss_bwd_q": lambda: reproj.reproj_loss_bwd_cuda(
+            x, x, torch.rand(1, 9, 11)),
+        "reproj_loss_bwd_grad": lambda: reproj.reproj_loss_bwd_cuda(
+            x, x, torch.rand(1, 9, 11), need_dy=False),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_kernel_calls()))
 def test_kernel_entry_point_refuses_cpu_tensors(name):
     """A kernel is launched on a CUDA tensor or not at all."""
-    kernel = next(k for k in (warp.FWD, warp.BWD, pool.FWD, pool.BWD)
+    kernel = next(k for k in (warp.FWD, warp.BWD, pool.FWD, pool.BWD,
+                              reproj.FWD, reproj.BWD_Q, reproj.BWD_GRAD)
                   if k.name == name)
     before = kernel.launches
     with pytest.raises(RuntimeError, match="CUDA tensor"):
@@ -153,9 +166,9 @@ def tiny_predictor():
     return predictor_from(init_monodepth2(torch.Generator().manual_seed(0)))
 
 
-@pytest.mark.parametrize("norm,item", [("l_0", "slice 3"),
-                                       ("l_2", "slice 5"),
-                                       ("Square", "slice 5")])
+@pytest.mark.parametrize("norm,item", [("l_0", "slice 4"),
+                                       ("l_2", "slice 6"),
+                                       ("Square", "slice 6")])
 def test_unported_norms_raise_and_name_their_roadmap_item(
         tiny_predictor, norm, item):
     obj, mask = synthetic.make_car_object(60, 40)
