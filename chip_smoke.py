@@ -8,10 +8,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    power limit as nvidia-smi reports them, switch to plain float32
    numerics (TF32 off, cuDNN off: `device.use_f32_numerics`).
 2. build: compile every kernel in depthmodelhardening_tpu_torch/csrc/
-   with nvcc into build/torch_kernels/.
+   with nvcc into build/torch_kernels/, one nvcc per source, in
+   parallel.
 3. kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the attack-eval slice gives it: max abs error and
-   median CUDA-event time of both.
+   at the shapes its main path gives it: max abs error, median
+   CUDA-event time of both and of the one PyTorch library call that
+   computes the same function (where there is one), and the least time
+   the card could take (bytes over 3.35 TB/s, operations over 67
+   TFLOP/s float32, the larger). Kernel D (the decoder's narrow 3x3
+   convs) at the four convs of the scale-0 path at batch 32, 1024x320:
+   forward, forward with bias + ELU, and input gradient.
 4. golden: the port's Monodepth2-18 at 96x320 with the deterministic
    reference-layout weights of tests/golden_common.py against the
    frozen PyTorch-reference outputs in tests/golden/monodepth2_rand.npz.
@@ -36,6 +42,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fixed batch at lr 1e-4 lower the loss; then the median CUDA-event ms
    of batch building, model forward, losses, backward and optimizer
    step, and the idle share of one step.
+9. distill: the distillation step (BASELINE config 3) through
+   DistillTrainer.train_step at the DistillConfig defaults (Monodepth2-18
+   at 1024x320 float32, L-inf PGD-10 object attack, eps 0.1, alpha
+   0.005, full-frame objective, Adam lr 1e-4) at batch 32, teacher and
+   student from the golden weights, synthetic 375x1242 scenes and the
+   300x200 car: first one small step on the card against the same step
+   on the CPU's plain versions; then 2 warm-up and 5 timed steps with
+   every launch counter reset before the timed steps and read after
+   (kernel D must launch 48 times forward and 44 times backward per
+   step, and compute weight gradients for the student only); checks
+   that the loss is finite, the weights and BatchNorm statistics moved
+   and the unused disparity heads did not; that Adam steps on one fixed
+   adversarial batch lower the MSE; one step with the cropped objective
+   (320x256) launches D at the crop's shape; then the breakdown of a
+   step, its device ms by kernel and its idle share.
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -45,6 +66,7 @@ network and no jax.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -55,6 +77,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from depthmodelhardening_tpu_torch.data.synthetic import (
     make_car_object, make_scene,
@@ -69,10 +92,11 @@ from depthmodelhardening_tpu_torch.models.convert import (
 from depthmodelhardening_tpu_torch.models.wrappers import (
     make_monodepth2, predictor_from,
 )
-from depthmodelhardening_tpu_torch.ops import _build, pool, reproj, warp
+from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
 from depthmodelhardening_tpu_torch.training.config import (
-    HardeningConfig, SelfSupConfig,
+    DistillConfig, HardeningConfig, SelfSupConfig,
 )
+from depthmodelhardening_tpu_torch.training.distill import DistillTrainer
 from depthmodelhardening_tpu_torch.training.hardening import HardeningTrainer
 from depthmodelhardening_tpu_torch.training.selfsup import (
     compute_selfsup_losses,
@@ -86,10 +110,18 @@ WARP_FWD_ATOL, WARP_BWD_ATOL = 1e-5, 1e-4
 # must be bit-exact (tighter than the JAX package's interpret-vs-jnp 2e-6,
 # tests/test_pallas_reproj.py:38, and 1e-5 on unit cotangents backward)
 REPROJ_FWD_ATOL, REPROJ_BWD_ATOL = 0.0, 0.0
+# kernel D sums its products in another order than im2col + SGEMM: its
+# error is held to 1e-5 of the plain output's largest magnitude
+CONV_RTOL = 1e-5
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s
+# and float32 FLOP/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+CONV_KERNELS = ("conv3x3_fwd", "conv3x3_dgrad")
 SLICE1_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
-                  "maxpool3x3s2_fwd", "maxpool3x3s2_bwd")
+                  "maxpool3x3s2_fwd", "maxpool3x3s2_bwd") + CONV_KERNELS
 TRAIN_KERNELS = ("maxpool3x3s2_fwd", "maxpool3x3s2_bwd", "reproj_loss_fwd",
-                 "reproj_loss_bwd_q", "reproj_loss_bwd_grad")
+                 "reproj_loss_bwd_q", "reproj_loss_bwd_grad") + CONV_KERNELS
+DISTILL_KERNELS = SLICE1_KERNELS
 
 
 def log(msg: str) -> None:
@@ -152,18 +184,50 @@ def _warp_inputs(gen, dev, Bn, C, OH, TH, TW, ragged: bool):
     return inter, A.to(dev), B.to(dev)
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_: float, flops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take
+    to read and write `nbytes_` bytes and do `flops` float32 operations,
+    at its published peaks."""
+    t_bytes = nbytes_ / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def cudnn_on():
+    """cuDNN on with TF32 still off, then `use_f32_numerics` again."""
+    torch.backends.cudnn.enabled = True
+    try:
+        yield
+    finally:
+        use_f32_numerics()
+
+
 def phase_kernels(dev) -> dict:
-    """Each kernel vs its plain version; returns name -> result row."""
+    """Each kernel vs its plain version; returns name -> result row.
+    `work` is (bytes read and written, float32 operations) of the timed
+    call, each input read once and each output written once, or its
+    bound already summed over several calls, (ms, "bytes" | "operations").
+    """
     gen = torch.Generator().manual_seed(SEED)
     rows = {}
 
-    def row(kernel, err, ms, plain_ms):
+    def row(kernel, err, ms, plain_ms, library_ms, work):
+        bound_ms, bound_by = work if isinstance(work[1], str) else \
+            bound(*work)
         rows[kernel.name] = dict(
             name=kernel.name, route="cuda", source=kernel.source_path,
             replaces=kernel.replaces, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms)
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"  {kernel.name}: max|kernel-plain| {err:.3e}  "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
 
     for label, shape, ragged in (
             ("slice", (12, 4, 200, 256, 256), False),
@@ -184,16 +248,22 @@ def phase_kernels(dev) -> dict:
         if not (e_f <= WARP_FWD_ATOL and e_b <= WARP_BWD_ATOL):
             raise AssertionError(f"warp kernel disagrees at {shape}")
         if label == "slice":
+            # no library call: A's two taps with their own validity
+            # masks are not F.grid_sample's edge rule. Operations: two
+            # products, a sum and the 1 - w weight per output (forward),
+            # two products and two sums per cotangent (adjoint)
             row(warp.FWD, e_f,
                 cuda_ms(lambda: warp.vertical_resample_fwd_cuda(
                     inter, A, B, TH)),
                 cuda_ms(lambda: warp.vertical_resample_plain(
-                    inter, A, B, TH)))
+                    inter, A, B, TH)), None,
+                (nbytes(inter, A, B, out_k), 4 * out_k.numel()))
             row(warp.BWD, e_b,
                 cuda_ms(lambda: warp.vertical_resample_bwd_cuda(
                     g, A, B, OH)),
                 cuda_ms(lambda: warp.vertical_resample_adjoint_plain(
-                    g, A, B, OH)))
+                    g, A, B, OH)), None,
+                (nbytes(g, A, B, d_k), 4 * g.numel()))
 
     # the stem pool sees relu outputs: many exact zeros, so ties are the
     # rule and the equality routing must agree with the plain version
@@ -213,12 +283,21 @@ def phase_kernels(dev) -> dict:
         if not exact:
             raise AssertionError(f"pool kernel is not bit-exact at {shape}")
         if shape[1] == 64:
+            # library: F.max_pool2d and its autograd backward (which
+            # routes a tie to one input, B2 to all). Operations: 8 max
+            # per window; backward 8 max, 9 tests, 9 sums per window
+            _, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
             row(pool.FWD, e_f,
                 cuda_ms(lambda: pool.maxpool3x3s2_fwd_cuda(x)),
-                cuda_ms(lambda: pool.maxpool3x3s2_plain(x)))
+                cuda_ms(lambda: pool.maxpool3x3s2_plain(x)),
+                cuda_ms(lambda: F.max_pool2d(x, 3, 2, 1)),
+                (nbytes(x, y_k), 8 * y_k.numel()))
             row(pool.BWD, e_b,
                 cuda_ms(lambda: pool.maxpool3x3s2_bwd_cuda(x, g)),
-                cuda_ms(lambda: pool.maxpool3x3s2_backward_plain(x, g)))
+                cuda_ms(lambda: pool.maxpool3x3s2_backward_plain(x, g)),
+                cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)),
+                (nbytes(x, g, dx_k), 26 * g.numel()))
 
     # kernel C at the training step's shape, a ragged one and H or W = 2
     # (reflect edges); y equals x on a band of rows and on scattered
@@ -247,21 +326,122 @@ def phase_kernels(dev) -> dict:
             stream = _build.stream_handle(x)
             plain_bwd = cuda_ms(lambda: reproj.reproj_loss_backward_plain(
                 x, y, g, need_dy=False), reps=5)
+            # no library call computes SSIM. Operations per pixel and
+            # channel, about: 9 taps x (5 sums + 3 products) of the
+            # moments, the SSIM quotient, clip and L1 (100 forward); the
+            # moment derivatives (120); the pool and pad adjoints (72)
             row(reproj.FWD, e_f,
                 cuda_ms(lambda: reproj.reproj_loss_fwd_cuda(x, y)),
-                cuda_ms(lambda: reproj.reproj_loss_plain(x, y), reps=5))
+                cuda_ms(lambda: reproj.reproj_loss_plain(x, y), reps=5),
+                None, (nbytes(x, y, out_k), 100 * x.numel()))
             # the plain backward has no split: both rows carry its time
             row(reproj.BWD_Q, e_b,
                 cuda_ms(lambda: reproj.BWD_Q.launch(
                     x.data_ptr(), y.data_ptr(), g.data_ptr(), q.data_ptr(),
-                    B, C, H, W, stream)), plain_bwd)
+                    B, C, H, W, stream)), plain_bwd, None,
+                (nbytes(x, y, g, q), 120 * x.numel()))
             row(reproj.BWD_GRAD, e_b,
                 cuda_ms(lambda: reproj.BWD_GRAD.launch(
                     x.data_ptr(), y.data_ptr(), g.data_ptr(), q.data_ptr(),
-                    dx.data_ptr(), 0, B, C, H, W, stream)), plain_bwd)
+                    dx.data_ptr(), 0, B, C, H, W, stream)), plain_bwd, None,
+                (nbytes(x, y, g, q, dx), 72 * x.numel()))
             log(f"  (the backward rows' plain time is the whole plain "
                 f"backward, d_pred only; kernels with no d_target)")
+    phase_conv_kernels(dev, gen, row)
     return rows
+
+
+# the convs that kernel D takes on the distillation step's scale-0 path
+# at 1024x320: (name, Cin, Co, H, W of the output)
+CONV_SHAPES = (("upconv_1_0", 64, 32, 80, 256),
+               ("upconv_0_0", 32, 16, 160, 512),
+               ("upconv_0_1", 16, 16, 320, 1024),
+               ("dispconv_0", 16, 1, 320, 1024))
+CONV_BATCH = 32
+
+
+def phase_conv_kernels(dev, gen, row) -> None:
+    """Kernel D at the four convs of one decoder pass: each against its
+    plain version, forward (with and without bias + ELU) and input
+    gradient. A row's times and work are those of the whole pass (the
+    upconvs with bias + ELU, the head with a bias, as the decoder runs
+    them); the library call is F.conv2d (forward, without the ELU) and
+    its input gradient `conv2d_input`, timed with cuDNN off (as the port
+    runs) and on with TF32 off (the row's `library_ms`)."""
+    tot = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, lib_off=0.0, lib_on=0.0,
+                   bytes=0.0, operations=0.0) for n in CONV_KERNELS}
+    for name, cin, co, h, w in CONV_SHAPES:
+        xp = torch.rand((CONV_BATCH, cin, h + 2, w + 2), generator=gen).to(dev)
+        wt = (torch.randn((co, cin, 3, 3), generator=gen)
+              / (3.0 * cin ** 0.5)).to(dev)
+        b = (0.1 * torch.randn((co,), generator=gen)).to(dev)
+        g = torch.randn((CONV_BATCH, co, h, w), generator=gen).to(dev)
+        elu = co > 1
+        pairs = {
+            "fwd": (lambda: conv.conv3x3_valid_cuda(xp, wt),
+                    lambda: conv.conv3x3_valid_plain(xp, wt)),
+            "fwd bias+elu": (lambda: conv.conv3x3_valid_cuda(xp, wt, b, True),
+                             lambda: conv.conv3x3_valid_plain(xp, wt, b,
+                                                              True)),
+            "dgrad": (lambda: conv.conv3x3_dgrad_cuda(g, wt),
+                      lambda: conv.conv3x3_dgrad_plain(g, wt)),
+        }
+        msg = []
+        for label, (kernel_fn, plain_fn) in pairs.items():
+            out_k, out_p = kernel_fn(), plain_fn()
+            torch.cuda.synchronize()
+            err = float((out_k - out_p).abs().max())
+            tol = CONV_RTOL * float(out_p.abs().max())
+            msg.append(f"{label} err {err:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"conv kernel {label} disagrees at "
+                                     f"{name}: {err} > {tol}")
+            which = "conv3x3_dgrad" if label == "dgrad" else "conv3x3_fwd"
+            tot[which]["err"] = max(tot[which]["err"], err)
+            del out_k, out_p
+        log(f"conv {name} ({CONV_BATCH}, {cin}->{co}, {h}x{w}): "
+            + ", ".join(msg))
+        timed = {  # the forward's output has g's shape
+            "conv3x3_fwd": (
+                lambda: conv.conv3x3_valid_cuda(xp, wt, b, elu),
+                lambda: conv.conv3x3_valid_plain(xp, wt, b, elu),
+                lambda: F.conv2d(xp, wt, b),
+                (nbytes(xp, wt, b, g),
+                 2 * g.numel() * cin * 9 + (3 if elu else 1) * g.numel())),
+            "conv3x3_dgrad": (
+                lambda: conv.conv3x3_dgrad_cuda(g, wt),
+                lambda: conv.conv3x3_dgrad_plain(g, wt),
+                lambda: torch.nn.grad.conv2d_input(xp.shape, wt, g),
+                (nbytes(g, wt, xp), 2 * g.numel() * cin * 9)),
+        }
+        for which, (kernel_fn, plain_fn, lib_fn, work) in timed.items():
+            t = tot[which]
+            k_ms = cuda_ms(kernel_fn, reps=10)
+            p_ms = cuda_ms(plain_fn, reps=10)
+            off_ms = cuda_ms(lib_fn, reps=10)
+            with cudnn_on():
+                on_ms = cuda_ms(lib_fn, reps=10)
+            bound_ms, bound_by = bound(*work)
+            log(f"  {which} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f}, "
+                f"library cuDNN off {off_ms:.4f}, cuDNN on (TF32 off) "
+                f"{on_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+            t["ms"] += k_ms
+            t["plain_ms"] += p_ms
+            t["lib_off"] += off_ms
+            t["lib_on"] += on_ms
+            t[bound_by] += bound_ms
+        del xp, g
+    for which, kernel in (("conv3x3_fwd", conv.FWD),
+                          ("conv3x3_dgrad", conv.DGRAD)):
+        t = tot[which]
+        log(f"  {which}, one decoder pass ({len(CONV_SHAPES)} convs): "
+            f"library cuDNN off "
+            f"{t['lib_off']:.4f} ms")
+        # the pass's bound: the sum of its convs', named after the kind
+        # that bounds most of it
+        row(kernel, t["err"], t["ms"], t["plain_ms"], t["lib_on"],
+            (t["bytes"] + t["operations"],
+             max(("bytes", "operations"), key=t.get)))
 
 
 def _reproj_inputs(gen, dev, shape):
@@ -543,7 +723,9 @@ def phase_train(dev):
     log(f"  losses {json.dumps(losses)}")
     log(f"  launches {json.dumps(launches)} (per step: reproj fwd "
         f"{launches['reproj_loss_fwd'] / TRAIN_TIMED:g}, bwd "
-        f"{launches['reproj_loss_bwd_q'] / TRAIN_TIMED:g})")
+        f"{launches['reproj_loss_bwd_q'] / TRAIN_TIMED:g}; conv fwd "
+        f"{launches['conv3x3_fwd'] / TRAIN_TIMED:g}, dgrad "
+        f"{launches['conv3x3_dgrad'] / TRAIN_TIMED:g})")
     bad = [n for n in TRAIN_KERNELS if launches[n] <= 0]
     if bad:
         raise AssertionError(f"kernels never launched in training: {bad}")
@@ -605,11 +787,41 @@ def phase_train_breakdown(trainer, state, frames, side, flip) -> None:
         log(f"    {ms:9.3f}  {name[:110]}")
 
 
+# card-vs-CPU parity of a step's weight gradients: relative L2 error per
+# tensor and over all of them (the CPU tests' tolerances against JAX, in
+# tests/test_torch_distill.py); a wrong or sign-flipped gradient is off
+# by about 1 or more, which the 2.5 lr rule on parameters cannot see
+GRAD_L2, GRAD_L2_ALL = 2e-2, 1e-2
+
+
+def grad_l2(model, ref_model):
+    """(worst per-tensor, overall) relative L2 error of `model`'s .grad
+    to `ref_model`'s, over the parameters that have one; the two must
+    agree on which do."""
+    worst, num, den = 0.0, 0.0, 0.0
+    for p, q in zip(model.parameters(), ref_model.parameters()):
+        if (p.grad is None) != (q.grad is None):
+            raise AssertionError("the card and the CPU differ in which "
+                                 "parameters got a gradient")
+        if q.grad is None:
+            continue
+        want = q.grad.double()
+        err = float((p.grad.detach().cpu().double() - want).norm())
+        ref = float(want.norm())
+        worst = max(worst, err / ref)
+        num, den = num + err ** 2, den + ref ** 2
+    return worst, (num / den) ** 0.5
+
+
 def phase_train_parity(dev) -> None:
     """One step at 64x128, batch 2, on the card (the kernels) and on the
     CPU (the plain versions), from the same weights, frames and noise:
-    loss within 1e-5 relative; parameters within 2.5 lr after Adam,
-    whose first step moves each by about lr * sign(g)."""
+    loss within 1e-5 relative (kernel D sums in another order than the
+    CPU's conv, so the bits may differ); weight gradients within GRAD_L2
+    per tensor and GRAD_L2_ALL overall; parameters within 2.5 lr after
+    Adam: its first step moves each by less than lr, so a sign split
+    comes within a hair of 2 lr, and a parameter near 1 (the BatchNorm
+    scales) rounds by up to 1.2e-3 lr more."""
     ss = dataclasses.replace(TRAIN_CFG.selfsup, height=64, width=128)
     adv = dataclasses.replace(TRAIN_CFG.adv, ori_h=96, ori_w=320)
     cfg = dataclasses.replace(TRAIN_CFG, selfsup=ss, adv=adv, batch_size=2,
@@ -630,10 +842,13 @@ def phase_train_parity(dev) -> None:
     (l_cpu, m_cpu), (l_gpu, m_gpu) = step_on(torch.device("cpu")), step_on(dev)
     worst = max(float((p.detach().cpu() - q.detach()).abs().max())
                 for p, q in zip(m_gpu.parameters(), m_cpu.parameters()))
+    g_worst, g_all = grad_l2(m_gpu, m_cpu)
     log(f"train parity: one step at 64x128 batch 2, card {l_gpu:.8f} vs "
         f"CPU {l_cpu:.8f} loss (rel {abs(l_gpu - l_cpu) / l_cpu:.3e}), "
+        f"gradient rel L2 {g_worst:.3e} worst tensor, {g_all:.3e} overall, "
         f"max |param difference| {worst / CONVERGE_LR:.3f} lr")
-    if abs(l_gpu - l_cpu) > 1e-5 * l_cpu or worst > 2.5 * CONVERGE_LR:
+    if (abs(l_gpu - l_cpu) > 1e-5 * l_cpu or worst > 2.5 * CONVERGE_LR
+            or g_worst > GRAD_L2 or g_all > GRAD_L2_ALL):
         raise AssertionError("the card's training step disagrees with the "
                              "plain versions on the CPU")
 
@@ -656,6 +871,272 @@ def phase_converge(dev, frames, side, flip) -> None:
                              "loss")
 
 
+# -- phase 9 -----------------------------------------------------------------
+DISTILL_CFG = DistillConfig(batch_size=32)
+DISTILL_WARMUP, DISTILL_TIMED, DISTILL_FIT_STEPS = 2, 5, 6
+# kernel D per step: the 4 convs of the scale-0 path forward in the 10
+# attack passes, the teacher's and the student's; their input gradients
+# in the attack's passes and the student's; weight gradients only in the
+# student's backward (the attack runs on detached weights)
+D_FWD_PER_STEP = 4 * (DISTILL_CFG.steps + 2)
+D_DGRAD_PER_STEP = 4 * (DISTILL_CFG.steps + 1)
+D_WGRAD_PER_STEP = 4
+DISTILL_CROP = dict(attack_crop_w=320, attack_crop_h=256)  # bench.py's
+# the disparity heads at scales 1..3, which the step never evaluates
+UNUSED_HEADS = tuple(f"decoder.decoder.{i}.conv.{p}" for i in (11, 12, 13)
+                     for p in ("weight", "bias"))
+# small-step parity: texels whose PGD sign may split between the card
+# and the CPU (a gradient near 0 at a kink of the model, where rounding
+# decides; the JAX package's jitted and eager attacks split 2.6% of the
+# texture on the CPU test's fixture)
+DISTILL_SPLIT_MAX = 0.05
+
+
+@contextlib.contextmanager
+def counting_weight_grads():
+    """Counts kernel D's weight-gradient convs while active."""
+    calls = []
+    orig = conv.weight_grad
+    conv.weight_grad = lambda *a: calls.append(1) or orig(*a)
+    try:
+        yield calls
+    finally:
+        conv.weight_grad = orig
+
+
+@contextlib.contextmanager
+def recording_conv_shapes():
+    """Records (B, Cin, H + 2, W + 2, Co) of each kernel D forward launch
+    while active; the launches still count."""
+    shapes = []
+    orig = conv.FWD.launch
+
+    def launch(*args):
+        orig(*args)
+        shapes.append(tuple(args[4:9]))
+
+    conv.FWD.launch = launch
+    try:
+        yield shapes
+    finally:
+        del conv.FWD.launch
+
+
+def _distill_trainer(dev, cfg, sd, obj, mask, seed):
+    teacher = make_monodepth2()
+    teacher.load_state_dict(sd)
+    return DistillTrainer(cfg, torch.Generator().manual_seed(seed), obj,
+                          mask, predictor_from(teacher.to(dev)), device=dev,
+                          init_state_dict=sd)
+
+
+def phase_distill(dev):
+    """The distillation step at config 3; returns the launch counts of
+    the timed steps."""
+    phase_distill_parity(dev)
+    cfg = DISTILL_CFG
+    B = cfg.batch_size
+    _, sd = _golden_weights()
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    scenes = torch.from_numpy(make_scene(B, cfg.ori_h, cfg.ori_w,
+                                         seed=SEED + 40)).to(dev)
+    trainer = _distill_trainer(dev, cfg, sd, obj, mask, SEED)
+    state = trainer.make_state()
+    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    losses = []
+    for _ in range(DISTILL_WARMUP):
+        state, m = trainer.train_step(state, scenes)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    with counting_weight_grads() as wgrads:
+        t0 = time.perf_counter()
+        for _ in range(DISTILL_TIMED):
+            state, m = trainer.train_step(state, scenes)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / DISTILL_TIMED
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    losses = [float(v) for v in losses]
+
+    log(f"distill: DistillTrainer.train_step, Monodepth2-18 teacher and "
+        f"student from the golden weights, {cfg.scene_w}x{cfg.scene_h} f32, "
+        f"L-inf PGD-{cfg.steps} object attack eps {cfg.epsilon} alpha "
+        f"{cfg.alpha}, full-frame objective, batch {B} of "
+        f"{cfg.ori_w}x{cfg.ori_h} scenes, car 300x200, Adam lr "
+        f"{cfg.learning_rate}")
+    log(f"  seconds per step {secs:.4f} (host clock around {DISTILL_TIMED} "
+        f"steps after {DISTILL_WARMUP} warm-up, synchronised)")
+    log(f"  max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
+    log(f"  losses {json.dumps(losses)}")
+    per_step = {n: launches[n] / DISTILL_TIMED for n in CONV_KERNELS}
+    log(f"  launches {json.dumps(launches)} (per step: conv fwd "
+        f"{per_step['conv3x3_fwd']:g}, dgrad {per_step['conv3x3_dgrad']:g}, "
+        f"weight gradients {len(wgrads) / DISTILL_TIMED:g}; predicted "
+        f"{D_FWD_PER_STEP}, {D_DGRAD_PER_STEP}, {D_WGRAD_PER_STEP})")
+    bad = [n for n in DISTILL_KERNELS if launches[n] <= 0]
+    if bad:
+        raise AssertionError(f"kernels never launched in distillation: {bad}")
+    if (per_step["conv3x3_fwd"] != D_FWD_PER_STEP
+            or per_step["conv3x3_dgrad"] != D_DGRAD_PER_STEP
+            or len(wgrads) != D_WGRAD_PER_STEP * DISTILL_TIMED):
+        raise AssertionError("kernel D did not launch as predicted")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite distillation loss: {losses}")
+    end = state.model.state_dict()
+    moved = set(_moved(start, end))
+    params = [n for n, _ in state.model.named_parameters()]
+    stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
+    still = (set(params) | set(stats)) - moved - set(UNUSED_HEADS)
+    if still or moved & set(UNUSED_HEADS):
+        raise AssertionError(f"not moved: {sorted(still)[:5]}; unused heads "
+                             f"moved: {sorted(moved & set(UNUSED_HEADS))}")
+    log(f"  moved: {len(params) - len(UNUSED_HEADS)} parameters and "
+        f"{len(stats)} running statistics; the {len(UNUSED_HEADS)} "
+        f"parameters of the unused heads bit-unchanged; step {state.step}")
+    phase_distill_breakdown(trainer, state, scenes)
+    del state
+    torch.cuda.empty_cache()
+    phase_distill_fit(trainer, scenes)
+    phase_distill_crop(dev, sd, obj, mask, scenes)
+    return launches
+
+
+def phase_distill_parity(dev) -> None:
+    """One small step (375x1242 scenes, the model at 96x320, a 40x60
+    car, batch 2, PGD-2) on the card and on the CPU's plain versions,
+    from the same weights and draws: the attacked textures split on at
+    most DISTILL_SPLIT_MAX of the texels; then the training half on the
+    CPU's composites: loss within 1e-5 relative, weight gradients and
+    parameters as phase 8's parity."""
+    _, sd = _golden_weights()
+    cfg = dataclasses.replace(DISTILL_CFG, batch_size=2, steps=2,
+                              scene_h=96, scene_w=320)
+    obj, mask = make_car_object(60, 40, seed=SEED)
+    scenes = torch.from_numpy(make_scene(2, cfg.ori_h, cfg.ori_w,
+                                         seed=SEED + 43))
+    runs = []  # the CPU's, then the card's
+    for d in (torch.device("cpu"), dev):
+        trainer = _distill_trainer(d, cfg, sd, obj, mask, SEED + 44)
+        draws = trainer.attack.draw(torch.Generator().manual_seed(SEED + 45),
+                                    2)
+        state = trainer.make_state()
+        runs.append((trainer, state, trainer.attack_student(state)(
+            scenes.to(d), 2, eval_mode=False, draws=draws)))
+    adv, ben, _, obj_cpu = runs[0][2]
+    split = float(((runs[1][2][3].cpu() - obj_cpu).abs() > 1e-6)
+                  .float().mean())
+    out = []
+    for trainer, state, _ in runs:
+        state, m = trainer.distill_step(state, adv.to(trainer.device),
+                                        ben.to(trainer.device))
+        out.append((float(m["loss"]), state.model))
+    (l_cpu, m_cpu), (l_gpu, m_gpu) = out
+    worst = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for p, q in zip(m_gpu.parameters(), m_cpu.parameters()))
+    g_worst, g_all = grad_l2(m_gpu, m_cpu)
+    lr = cfg.learning_rate
+    log(f"distill parity: one step at 96x320 batch 2 PGD-2: texture "
+        f"sign splits {split:.4%} (max {DISTILL_SPLIT_MAX:.0%}); on the "
+        f"CPU's composites card {l_gpu:.8e} vs CPU {l_cpu:.8e} loss (rel "
+        f"{abs(l_gpu - l_cpu) / l_cpu:.3e}), gradient rel L2 "
+        f"{g_worst:.3e} worst tensor, {g_all:.3e} overall, max |param "
+        f"difference| {worst / lr:.3f} lr")
+    if (split > DISTILL_SPLIT_MAX or abs(l_gpu - l_cpu) > 1e-5 * l_cpu
+            or worst > 2.5 * lr or g_worst > GRAD_L2
+            or g_all > GRAD_L2_ALL):
+        raise AssertionError("the card's distillation step disagrees with "
+                             "the plain versions on the CPU")
+
+
+def phase_distill_breakdown(trainer, state, scenes) -> None:
+    """Median CUDA-event ms of the parts of one step (3 steps), then one
+    whole step under the profiler: idle share, device ms by kernel and
+    kernel D's share."""
+    B = DISTILL_CFG.batch_size
+    names = ("attack (PGD-10: views, forwards, input gradients)",
+             "finals (tiled pair warp)", "teacher_forward",
+             "student_forward_and_loss", "backward", "adam")
+    times = {n: [] for n in names}
+    gen = torch.Generator().manual_seed(SEED + 42)
+    for _ in range(3):
+        draws = trainer.attack.draw(gen, B)
+        atk = trainer.attack_student(state)
+        full = atk._replicate(scenes, B)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        obj_adv = atk._optimize(full, draws)
+        ev[1].record()
+        adv, ben, _ = atk._final_outputs(full, obj_adv, draws.final_z0s,
+                                         draws.final_alphas, False)
+        ev[2].record()
+        disp_gt = trainer.teacher_disp(ben)
+        ev[3].record()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = torch.mean((disp_gt - trainer.student_disp(state, adv)) ** 2)
+        ev[4].record()
+        loss.backward()
+        ev[5].record()
+        state.optimizer.step()
+        ev[6].record()
+        ev[6].synchronize()
+        for i, n in enumerate(names):
+            times[n].append(ev[i].elapsed_time(ev[i + 1]))
+    log(f"distill breakdown at batch {B}, {DISTILL_CFG.scene_w}x"
+        f"{DISTILL_CFG.scene_h} (median CUDA-event ms of 3):")
+    for n in names:
+        log(f"  {n}: {float(np.median(times[n])):.3f}")
+    busy_ms, wall_ms, n, by_name = device_busy(
+        lambda: trainer.train_step(state, scenes))
+    d_ms = sum(ms for k, ms in by_name.items() if "conv3x3_kernel" in k)
+    log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
+        f"ms of {wall_ms:.3f} ms host wall, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
+    log(f"  kernel D: {d_ms:.3f} device ms of the step, "
+        f"{d_ms / busy_ms:.4f} of its busy time")
+    log("  device ms of the step by kernel (top 12):")
+    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {ms:9.3f}  {k[:110]}")
+
+
+def phase_distill_fit(trainer, scenes) -> None:
+    """Adam steps on one fixed adversarial batch lower the student's MSE
+    against the teacher."""
+    B = DISTILL_CFG.batch_size
+    state = trainer.make_state()
+    adv, ben, _, _ = trainer.attack_student(state)(
+        scenes, B, torch.Generator().manual_seed(SEED + 41))
+    losses = []
+    for _ in range(DISTILL_FIT_STEPS + 1):
+        state, m = trainer.distill_step(state, adv, ben)
+        losses.append(float(m["loss"]))
+    log(f"distill fit: {DISTILL_FIT_STEPS} Adam steps on one adversarial "
+        f"batch, MSE {json.dumps(losses)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("Adam steps did not lower the distillation MSE")
+
+
+def phase_distill_crop(dev, sd, obj, mask, scenes) -> None:
+    """One untimed step with the cropped objective launches kernel D at
+    the crop's shape (upconv_0_1 on a 256x320 window)."""
+    cfg = dataclasses.replace(DISTILL_CFG, **DISTILL_CROP)
+    trainer = _distill_trainer(dev, cfg, sd, obj, mask, SEED + 46)
+    state = trainer.make_state()
+    with recording_conv_shapes() as shapes:
+        state, m = trainer.train_step(state, scenes)
+        torch.cuda.synchronize()
+    want = (cfg.batch_size, 16, cfg.attack_crop_h + 2, cfg.attack_crop_w + 2,
+            16)
+    log(f"distill crop: attack_crop {cfg.attack_crop_w}x{cfg.attack_crop_h}, "
+        f"loss {float(m['loss']):.6e}, {shapes.count(want)} of "
+        f"{len(shapes)} D forward launches at {want}")
+    if not math.isfinite(float(m["loss"])) or shapes.count(want) != \
+            cfg.steps:
+        raise AssertionError("the cropped objective did not run kernel D "
+                             "at the crop's shape once per PGD step")
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -669,11 +1150,15 @@ def main() -> int:
     del attack, predictor, scenes
     torch.cuda.empty_cache()
     train_launches = phase_train(dev)
+    torch.cuda.empty_cache()
+    distill_launches = phase_distill(dev)
     for name, r in rows.items():
-        r["launches"] = launches[name] + train_launches[name]
+        r["launches"] = (launches[name] + train_launches[name]
+                         + distill_launches[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms")}
+                           "launches", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
         for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev),

@@ -58,23 +58,39 @@ class PhysObjAttackConfig:
     exact_composite: bool = False
     tile_h: int = 256
     tile_w: int = 256
-    # Not ported yet: any other value than the default raises.
+    # The cropped objective: the inner loop's model runs on a (crop_h,
+    # crop_w) window centred on the object mask, its cost rescaled to the
+    # full-frame mean. None (or >= the scene size) keeps the full frame.
+    # Finals are never cropped.
     attack_crop_w: Optional[int] = None
     attack_crop_h: Optional[int] = None
+    # Not ported yet: any other value than the default raises.
     attack_scale: int = 0
     attack_view_dtype: str = "float32"
 
     def __post_init__(self):
-        later = "is not ported yet (ROADMAP Queue 1, slice 3)"
-        if self.attack_crop_w is not None or self.attack_crop_h is not None:
-            raise NotImplementedError(
-                f"attack_crop_w/attack_crop_h: the cropped objective {later}")
+        later = ("is not ported yet (ROADMAP Queue 1, slice 3b: the "
+                 "coarse-scale objective and the bfloat16 model path)")
         if self.attack_scale:
             raise NotImplementedError(
                 f"attack_scale > 0: the coarse-scale objective {later}")
         if self.attack_view_dtype != "float32":
             raise NotImplementedError(
                 f"attack_view_dtype={self.attack_view_dtype!r} {later}")
+        # the JAX package's checks (attacks/base.py:126-141)
+        for name, crop, full, tile in (
+                ("attack_crop_w", self.attack_crop_w, self.scene_w,
+                 self.tile_w),
+                ("attack_crop_h", self.attack_crop_h, self.scene_h,
+                 self.tile_h)):
+            if crop is not None and crop < full:
+                if crop < min(tile, full):
+                    raise ValueError(
+                        f"{name}={crop} is smaller than the object tile "
+                        f"({tile}); the mask would be truncated")
+                if crop % 32:
+                    raise ValueError(f"{name}={crop} must be a multiple of "
+                                     "32 (the encoder halves it 5 times)")
 
     def make_eot(self) -> EoTCompositor:
         P = self.projection
@@ -181,9 +197,45 @@ class PhysObjAttack:
     def _targeted_cost(self, adv_scenes, masks):
         """Targeted zero-disparity masked MSE of the disp0 head,
         mean((disp * mask)^2) over full-frame composites
-        (phy_obj_atk.py:94)."""
+        (phy_obj_atk.py:94). With the cropped objective the composites
+        are cut to the window first and the mean is rescaled to the
+        full frame's (JAX `attacks/base.py:383-404`)."""
+        _, H, W, _ = adv_scenes.shape
+        cw, ch = self.cfg.attack_crop_w, self.cfg.attack_crop_h
+        cw = cw if cw is not None and cw < W else None
+        ch = ch if ch is not None and ch < H else None
+        scale = 1.0
+        if cw is not None or ch is not None:
+            adv_scenes, masks, scale = self._crop_to_object(
+                adv_scenes, masks, cw or W, ch or H)
         disp = self.predictor(adv_scenes)
-        return torch.mean((disp.float() * masks.float()) ** 2)
+        return torch.mean((disp.float() * masks.float()) ** 2) * scale
+
+    @staticmethod
+    def _crop_to_object(adv_scenes, masks, cw: int, ch: int):
+        """Cut each sample to (ch, cw) centred on its mask's centre of
+        mass (the frame centre for an empty mask), offsets rounded half
+        to even and clipped into the frame, as JAX's `_crop_to_object`
+        (`attacks/base.py:407-433`); the offsets carry no gradient.
+        Returns (adv, masks, ch * cw / (H * W))."""
+        B, H, W, _ = adv_scenes.shape
+        with torch.no_grad():
+            m = masks[..., 0].float()
+            total = m.sum(dim=(1, 2))
+            denom = total.clamp(min=1e-6)
+            xs = torch.arange(W, dtype=torch.float32, device=m.device)
+            ys = torch.arange(H, dtype=torch.float32, device=m.device)
+            cx = torch.where(total > 0, (m * xs).sum(dim=(1, 2)) / denom,
+                             torch.full_like(total, W / 2.0))
+            cy = torch.where(total > 0,
+                             (m * ys[:, None]).sum(dim=(1, 2)) / denom,
+                             torch.full_like(total, H / 2.0))
+            x0 = torch.round(cx - cw / 2).to(torch.int64).clamp(0, W - cw)
+            y0 = torch.round(cy - ch / 2).to(torch.int64).clamp(0, H - ch)
+        offsets = list(zip(y0.tolist(), x0.tolist()))
+        crop = lambda t: torch.stack([t[b, oy:oy + ch, ox:ox + cw]
+                                      for b, (oy, ox) in enumerate(offsets)])
+        return crop(adv_scenes), crop(masks), (ch * cw) / (H * W)
 
     def objective_and_grad(self, scenes_full, obj, z0s, alphas,
                            scenes_model=None):

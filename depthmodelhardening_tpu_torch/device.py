@@ -33,6 +33,14 @@ def require_cuda(device=None) -> torch.device:
     return torch.device("cuda", index)
 
 
+def resolve_device(device=None) -> torch.device:
+    """A trainer's device: the given one, or else the current CUDA card.
+    A CUDA device goes through `require_cuda`, which raises without a
+    card. The CPU is taken only when asked for, as the tests do."""
+    dev = torch.device("cuda" if device is None else device)
+    return require_cuda(dev) if dev.type == "cuda" else dev
+
+
 def use_f32_numerics() -> None:
     """Run convolutions and matmuls in plain float32, as the reference
     does. Process-wide: call it once before running a model on the card.

@@ -6,7 +6,8 @@
     `depthmodelhardening_tpu/models/depth_decoder.py:374`); a tree of
     gradients, {"params": grads}, converts the same way.
     `from_jax_train_state` takes the JAX trainer's collections
-    ({"params": {"depth": ...}, "batch_stats": {"depth": ...}}).
+    ({"params": {"depth": ...}, "batch_stats": {"depth": ...}});
+    `from_jax_distill_state` a JAX `DistillState` with its Adam moments.
 (b) `load_reference_state_dict`: the reference checkpoints'
     `encoder.pth` / `depth.pth` key layout ("encoder."-prefixed
     torchvision trunk with fc head and metadata keys; "decoder.<idx>"
@@ -102,6 +103,27 @@ def from_jax_train_state(variables: Mapping,
     return from_jax_variables(
         {"params": variables["params"]["depth"],
          "batch_stats": variables["batch_stats"]["depth"]}, scales)
+
+
+def from_jax_distill_state(state, scales: Sequence[int] = (0, 1, 2, 3)
+                           ) -> Dict[str, object]:
+    """A JAX `DistillState` (params, batch_stats, `optax.adam`'s opt_state
+    and step; arrays or numpy) -> {"model": the port's state dict,
+    "adam": {parameter name: torch.optim.Adam state}, "step": int}, for
+    `DistillTrainer.make_state(resume=...)`. optax keeps one step count
+    for all parameters, torch one per parameter: each gets the count."""
+    adam = state.opt_state[0]  # optax.adam = chain(scale_by_adam, lr)
+    count = torch.tensor(float(np.asarray(adam.count)))
+    mu = from_jax_variables({"params": adam.mu}, scales)
+    nu = from_jax_variables({"params": adam.nu}, scales)
+    return {
+        "model": from_jax_variables({"params": state.params,
+                                     "batch_stats": state.batch_stats},
+                                    scales),
+        "adam": {name: {"step": count.clone(), "exp_avg": mu[name],
+                        "exp_avg_sq": nu[name]} for name in mu},
+        "step": int(np.asarray(state.step)),
+    }
 
 
 def load_reference_state_dict(encoder_sd: Mapping, decoder_sd: Mapping

@@ -8,17 +8,24 @@ encoder skips and float32 sigmoid disparity heads at the requested
 scales. The `decoder` ModuleList follows the reference's construction
 order (upconv 4..0 x {0, 1}, then dispconv per scale), so a reference
 `depth.pth` loads key for key.
+
+The convolutions go through `ops/conv.py`'s dispatch: those with at
+most 64 input and output channels (upconv_2..0's narrow ones and the
+scale-0..2 heads) run kernel D on the card, with the ConvBlock's bias
+and ELU in its epilogue. `forward(features, scales=(0,))` evaluates only
+the requested heads (the JAX package's `scales=(0,)` twin,
+`training/distill.py:98-111`): the others are skipped, so they get no
+gradient and an optimizer step leaves them as they were.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from ..ops.padding import conv3x3_reflect
+from ..ops.conv import conv3x3_reflect
 from ..ops.resize import nearest_upsample2
 from .resnet import ENCODER_CHANNELS
 
@@ -32,19 +39,19 @@ class Conv3x3(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 3)
 
-    def forward(self, x):
-        return conv3x3_reflect(x, self.conv.weight, self.conv.bias)
+    def forward(self, x, elu: bool = False):
+        return conv3x3_reflect(x, self.conv.weight, self.conv.bias, elu)
 
 
 class ConvBlock(nn.Module):
-    """Conv3x3 + ELU (layers.py:106-118)."""
+    """Conv3x3 + ELU (layers.py:106-118), the ELU fused into the conv."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = Conv3x3(cin, cout)
 
     def forward(self, x):
-        return F.elu(self.conv(x))
+        return self.conv(x, elu=True)
 
 
 def decoder_module_names(scales: Sequence[int]) -> Tuple[str, ...]:
@@ -56,7 +63,8 @@ def decoder_module_names(scales: Sequence[int]) -> Tuple[str, ...]:
 
 
 class DepthDecoder(nn.Module):
-    """forward(features) -> {("disp", s): (B, 1, H/2^s, W/2^s)}."""
+    """forward(features, scales=None) -> {("disp", s): (B, 1, H/2^s,
+    W/2^s)} for every s of `scales` (default: all the decoder's)."""
 
     def __init__(self, scales: Sequence[int] = (0, 1, 2, 3),
                  num_output_channels: int = 1,
@@ -73,7 +81,12 @@ class DepthDecoder(nn.Module):
             layers.append(Conv3x3(NUM_CH_DEC[s], num_output_channels))
         self.decoder = nn.ModuleList(layers)
 
-    def forward(self, features) -> Dict[Tuple[str, int], torch.Tensor]:
+    def forward(self, features, scales: Optional[Sequence[int]] = None
+                ) -> Dict[Tuple[str, int], torch.Tensor]:
+        heads = self.scales if scales is None else tuple(scales)
+        if not set(heads) <= set(self.scales):
+            raise ValueError(f"scales {heads} not among the decoder's "
+                             f"{self.scales}")
         outputs = {}
         x = features[-1]
         for n, i in enumerate(range(4, -1, -1)):
@@ -82,7 +95,7 @@ class DepthDecoder(nn.Module):
             if i > 0:
                 x = torch.cat([x, features[i - 1]], dim=1)
             x = self.decoder[2 * n + 1](x)
-            if i in self.scales:
+            if i in heads:
                 head = self.decoder[10 + self.scales.index(i)]
                 outputs[("disp", i)] = torch.sigmoid(head(x).float())
         return outputs

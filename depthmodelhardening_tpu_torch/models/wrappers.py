@@ -28,13 +28,15 @@ class MonodepthModel(nn.Module):
         self.encoder = ResnetEncoder(num_layers)
         self.decoder = DepthDecoder(scales=scales)
 
-    def features_and_disps(self, images):
-        """(features NCHW, {("disp", s): NCHW}) for images (B, H, W, 3)."""
+    def features_and_disps(self, images, scales=None):
+        """(features NCHW, {("disp", s): NCHW}) for images (B, H, W, 3),
+        at `scales` (default: all the decoder's heads)."""
         features = self.encoder(images.permute(0, 3, 1, 2))
-        return features, self.decoder(features)
+        return features, self.decoder(features, scales)
 
     def forward(self, images):
-        _, disps = self.features_and_disps(images)
+        """disp0 (B, H, W, 1); the other heads are not evaluated."""
+        _, disps = self.features_and_disps(images, scales=(0,))
         return disps[("disp", 0)].permute(0, 2, 3, 1)
 
 
@@ -56,6 +58,36 @@ class DepthPredictor:
 
     def __call__(self, images):
         return self.model(images)
+
+
+class EvalView:
+    """Eval-mode predictor over a trainable model's current weights:
+    images (B, H, W, 3) -> disp0 (B, H, W, 1), BatchNorm on running
+    statistics, as `DepthPredictor`, but the model stays trainable.
+
+    Each call runs the model through `torch.func.functional_call` with
+    its parameters detached, so a backward through it computes only the
+    input gradient and leaves the parameters' `.grad` alone. (A custom
+    `autograd.Function` such as kernel D's fixes `needs_input_grad` when
+    its forward runs: with trainable weights every attack pass would
+    compute a weight gradient for nothing.) The model's train/eval mode
+    is restored after the call. `model` may be rebound: the distillation
+    trainer points it at the student of the state it steps.
+    """
+
+    def __init__(self, device, model: MonodepthModel = None):
+        self.device = torch.device(device)
+        self.model = model
+
+    def __call__(self, images):
+        model = self.model
+        was_training = model.training
+        model.eval()
+        try:
+            params = {n: p.detach() for n, p in model.named_parameters()}
+            return torch.func.functional_call(model, params, (images,))
+        finally:
+            model.train(was_training)
 
 
 def make_monodepth2(num_layers: int = 18,

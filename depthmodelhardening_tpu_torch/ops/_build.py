@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -62,24 +63,28 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
+def _compile(source: str) -> Path:
+    """Build `csrc/<source>` unless its library exists; its path."""
+    out = library_path(source)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}."
+                            f"{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Build `csrc/<source>` if its library is missing, then load it."""
     with _lock:
         lib = _libs.get(source)
-        if lib is not None:
-            return lib
-        out = library_path(source)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {source}:\n"
-                                   f"{' '.join(cmd)}\n{proc.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        _libs[source] = lib
+        if lib is None:
+            lib = _libs[source] = ctypes.CDLL(str(_compile(source)))
         return lib
 
 
@@ -135,8 +140,12 @@ def reset_launches() -> None:
 
 
 def build_all() -> float:
-    """Build and load every registered kernel's library; seconds taken."""
+    """Build every registered kernel's library, one nvcc per source, all
+    started together, then load and bind them; seconds taken."""
     t0 = time.perf_counter()
+    sources = sorted({k.source for k in KERNELS})
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(_compile, sources))
     for k in KERNELS:
         k._fn or k._bind()
     return time.perf_counter() - t0

@@ -1,0 +1,161 @@
+"""3x3 convolutions of the depth decoder, with kernel D for narrow layers.
+
+Counterpart of `depthmodelhardening_tpu/ops/pallas_conv.py`:
+`conv3x3_valid` (:137) is a 3x3 VALID convolution of a pre-padded
+input whose forward is kernel D and whose input gradient is kernel D
+again, with the weights flipped in both spatial axes and their in/out
+channels transposed, on the cotangent zero-padded by 2 (:146-152). The
+weight gradient is an ordinary convolution, as the JAX package leaves it
+to XLA (:154-160). The bias and the ELU of the decoder's ConvBlock are
+fused into D's epilogue (the function of the prototype P3,
+`scripts/proto_pallas_wconv.py:40`); the ELU's backward multiplies the
+cotangent by (y > 0 ? 1 : y + 1) from the saved output.
+
+`conv3x3_reflect` is the dispatch (`pallas_conv.py:167-188`): a conv
+with at most 64 input and 64 output channels (`small_c`, :175) runs
+`conv3x3_valid`, any other runs `F.conv2d`. The choice is made by shape
+alone. The TPU-only alignment rule (:176, H % 8 and W % 128) is dropped:
+nothing on the card needs it, and it would exclude the 320-wide attack
+crop. On a CUDA tensor `conv3x3_valid` launches the kernels of
+`csrc/conv3x3.cu` or raises; on a CPU tensor it runs the plain versions
+below. Layout: NCHW / OIHW.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ._build import (
+    INT, POINTER, check_cuda_tensor, on_cuda, register, stream_handle,
+)
+from .padding import reflect_pad1
+
+SMALL_C = 64  # pallas_conv.py:175
+
+FWD = register(
+    "conv3x3_fwd", "conv3x3.cu",
+    [POINTER, POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT,
+     POINTER],
+    replaces="depthmodelhardening_tpu/ops/pallas_conv.py:42")
+DGRAD = register(
+    "conv3x3_dgrad", "conv3x3.cu",
+    [POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, POINTER],
+    replaces="depthmodelhardening_tpu/ops/pallas_conv.py:42")
+
+
+def takes_kernel(cin: int, co: int) -> bool:
+    """Whether `conv3x3_reflect` routes a Cin -> Co conv to kernel D."""
+    return cin <= SMALL_C and co <= SMALL_C
+
+
+def _epilogue(out, elu: bool):
+    return F.elu(out) if elu else out
+
+
+# -- plain PyTorch versions --------------------------------------------------
+def conv3x3_valid_plain(xp, w, bias=None, elu: bool = False):
+    """(B, Cin, H + 2, W + 2), (Co, Cin, 3, 3) -> (B, Co, H, W)."""
+    return _epilogue(F.conv2d(xp, w, bias), elu)
+
+
+def conv3x3_dgrad_plain(g, w):
+    """Gradient with respect to xp of `conv3x3_valid_plain(xp, w)` for the
+    cotangent g (B, Co, H, W): the VALID conv of g zero-padded by 2 with
+    the flipped, transposed weights -> (B, Cin, H + 2, W + 2)."""
+    return F.conv2d(F.pad(g, (2, 2, 2, 2)), w.flip((2, 3)).transpose(0, 1))
+
+
+def weight_grad(xp, w, g):
+    """Gradient with respect to w (an ordinary convolution)."""
+    return torch.nn.grad.conv2d_weight(xp, w.shape, g)
+
+
+# -- CUDA kernels ------------------------------------------------------------
+def _check_weight(w, cin: int, device):
+    check_cuda_tensor("w", w, 4, device)
+    if w.shape[1:] != (cin, 3, 3):
+        raise ValueError(f"w must be (Co, {cin}, 3, 3), got {tuple(w.shape)}")
+
+
+def conv3x3_valid_cuda(xp, w, bias=None, elu: bool = False):
+    check_cuda_tensor("xp", xp, 4)
+    B, Cin, Hp, Wp = xp.shape
+    _check_weight(w, Cin, xp.device)
+    Co = w.shape[0]
+    if bias is not None:
+        check_cuda_tensor("bias", bias, 1, xp.device)
+        if bias.shape[0] != Co:
+            raise ValueError(f"bias must be ({Co},), got {tuple(bias.shape)}")
+    out = torch.empty((B, Co, Hp - 2, Wp - 2), dtype=xp.dtype,
+                      device=xp.device)
+    FWD.launch(xp.data_ptr(), w.data_ptr(),
+               None if bias is None else bias.data_ptr(), out.data_ptr(),
+               B, Cin, Hp, Wp, Co, int(elu), stream_handle(xp))
+    return out
+
+
+def conv3x3_dgrad_cuda(g, w):
+    check_cuda_tensor("g", g, 4)
+    B, Co, H, W = g.shape
+    check_cuda_tensor("w", w, 4, g.device)
+    if w.shape[0] != Co or w.shape[2:] != (3, 3):
+        raise ValueError(f"w must be ({Co}, Cin, 3, 3), got "
+                         f"{tuple(w.shape)}")
+    Cin = w.shape[1]
+    dxp = torch.empty((B, Cin, H + 2, W + 2), dtype=g.dtype, device=g.device)
+    DGRAD.launch(g.data_ptr(), w.data_ptr(), dxp.data_ptr(), B, Co, H, W,
+                 Cin, stream_handle(g))
+    return dxp
+
+
+# -- autograd ----------------------------------------------------------------
+class _Conv3x3Valid(torch.autograd.Function):
+    """Kernel D forward and input gradient; the weight gradient by
+    `weight_grad`. Saves xp only when the weights need a gradient, and
+    the output only for the ELU's backward."""
+
+    @staticmethod
+    def forward(ctx, xp, w, bias, elu):
+        if on_cuda(xp, "conv3x3_valid"):
+            out = conv3x3_valid_cuda(xp, w, bias, elu)
+        else:
+            out = conv3x3_valid_plain(xp, w, bias, elu)
+        ctx.elu = elu
+        ctx.save_for_backward(xp if ctx.needs_input_grad[1] else None, w,
+                              out if elu else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w, out = ctx.saved_tensors
+        if ctx.elu:
+            # d elu(z) / dz = 1 above 0, exp(z) = y + 1 at or below it
+            g = torch.addcmul(g, g, out.clamp(max=0.0))
+        g = g.contiguous()
+        dxp = dw = db = None
+        if ctx.needs_input_grad[0]:
+            if on_cuda(g, "conv3x3_valid"):
+                dxp = conv3x3_dgrad_cuda(g, w)
+            else:
+                dxp = conv3x3_dgrad_plain(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(xp, w, g)
+        if ctx.needs_input_grad[2]:
+            db = g.sum((0, 2, 3))
+        return dxp, dw, db, None
+
+
+def conv3x3_valid(xp, w, bias=None, elu: bool = False):
+    """3x3 VALID conv of a pre-padded (B, Cin, H + 2, W + 2) float32 map
+    with (Co, Cin, 3, 3) weights, plus an optional bias and ELU."""
+    return _Conv3x3Valid.apply(xp.contiguous(), w.contiguous(), bias, elu)
+
+
+def conv3x3_reflect(x, w, bias=None, elu: bool = False):
+    """Reflect-pad(1) + 3x3 conv (+ bias, + ELU), NCHW / OIHW: kernel D
+    when `takes_kernel(Cin, Co)`, else `F.conv2d`."""
+    xp = reflect_pad1(x)
+    if takes_kernel(x.shape[1], w.shape[0]):
+        return conv3x3_valid(xp, w, bias, elu)
+    return _epilogue(F.conv2d(xp, w, bias), elu)

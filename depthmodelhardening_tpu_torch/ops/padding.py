@@ -1,9 +1,10 @@
-"""Reflection-padded 3x3 convolution of the depth decoder.
+"""Reflection padding of the depth decoder's 3x3 convolutions.
 
-Counterpart of `depthmodelhardening_tpu/ops/padding.py:53`
-(`conv3x3_reflect_same`; reference layers.py:121-136). Reflect padding
-follows numpy's rule, under which a size-1 axis is its own reflection,
-so the deepest decoder maps of small test inputs match the JAX package.
+Counterpart of `depthmodelhardening_tpu/ops/padding.py` (`reflect_pad1`
+and `conv3x3_reflect_same` :53; reference layers.py:121-136). Reflect
+padding follows numpy's rule, under which a size-1 axis is its own
+reflection, so the deepest decoder maps of small test inputs match the
+JAX package. The convolution itself is `ops/conv.py:conv3x3_reflect`.
 """
 
 from __future__ import annotations
@@ -26,8 +27,3 @@ def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
         return F.pad(x, (1, 1, 1, 1), mode="reflect")
     x = x.index_select(2, _reflect_index(H, x.device))
     return x.index_select(3, _reflect_index(W, x.device))
-
-
-def conv3x3_reflect(x, weight, bias=None):
-    """Reflect-pad(1) + 3x3 VALID convolution, NCHW / OIHW."""
-    return F.conv2d(reflect_pad1(x), weight, bias)

@@ -1,12 +1,19 @@
 """Typed training configuration (counterpart of `depthmodelhardening_tpu/
-training/config.py:16-147`; reference monodepth2/options.py and the
-adv-train dicts of monodepth2/trainer.py:199-223).
+training/config.py:16-189`; reference monodepth2/options.py, the
+adv-train dicts of monodepth2/trainer.py:199-223 and
+simple_adv_training.py).
 
 Same fields and defaults as the JAX package's dataclasses, less the TPU
 layout rewrites (`s2d_stem`, `wpack_*`, `fuse_upconv`, `packed_decoder`)
-and the eval-clone BatchNorm fold (`fold_bn`): the port runs the plain
+and the eval-clone BatchNorm fold (`fold_bn`, a speed rewrite of
+eval-mode BatchNorm, not a change of semantics): the port runs the plain
 path, so passing one of them is a TypeError. `compute_dtype` other than
-float32 raises.
+float32 raises. `DistillConfig` also leaves out the options that only
+unported code reads (`adam_lr`, `mask_wt`, `l0_thresh`: the L0 attack;
+`epochs`, `obj_name`: the CLI; `attack_scale_fine_steps`: the
+coarse-scale objective); its `attack_scale` and `attack_view_dtype`
+away from their defaults raise when the attack is built
+(`attacks/base.py:PhysObjAttackConfig`).
 """
 
 from __future__ import annotations
@@ -113,7 +120,38 @@ class HardeningConfig:
     manydepth_real_lookup: bool = False
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the port trains in "
-                "float32 only (the reference's precision)")
+        _refuse_compute_dtype(self.compute_dtype)
+
+
+def _refuse_compute_dtype(compute_dtype: str) -> None:
+    if compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype!r}: the port trains in float32 "
+            "only (the reference's precision)")
+
+
+@dataclasses.dataclass(frozen=True)
+class DistillConfig:
+    """simple_adv_training.py distillation-only hardening (BASELINE
+    config 3: the L-inf object attack, batch 32)."""
+
+    adv_type: str = "object"  # {"object", "image", "object_l0"}
+    epsilon: float = 0.1
+    alpha: float = 0.005
+    steps: int = 10
+    batch_size: int = 16
+    learning_rate: float = 1e-4  # simple_adv_training.py:115
+    compute_dtype: str = "float32"
+    attack_crop_w: Optional[int] = None
+    attack_crop_h: Optional[int] = None
+    attack_scale: int = 0
+    attack_view_dtype: str = "float32"
+    tile_h: int = 256
+    tile_w: int = 256
+    scene_h: int = 320
+    scene_w: int = 1024
+    ori_h: int = 375
+    ori_w: int = 1242
+
+    def __post_init__(self):
+        _refuse_compute_dtype(self.compute_dtype)

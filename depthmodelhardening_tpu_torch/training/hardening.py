@@ -35,6 +35,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.wrappers import (
     MonodepthModel, init_monodepth2, make_monodepth2,
 )
@@ -94,16 +95,19 @@ class HardeningTrainer:
       (flax's: truncated lecun-normal kernels, identity BatchNorm) and the
       seed of the device generator that draws the automask tie-break
       noise.
+    device: where the state lives and the step runs; default the current
+      CUDA card (`device.require_cuda`, which raises without one). Tests
+      pass "cpu" to run the plain versions of the kernels.
     init_state_dict: the student's weights instead (e.g. converted with
       `models/convert.py`), as --fine-tune does.
     """
 
     def __init__(self, cfg: HardeningConfig, generator: torch.Generator,
-                 device="cpu", steps_per_epoch: int = 1000,
+                 device=None, steps_per_epoch: int = 1000,
                  init_state_dict: Optional[Mapping] = None):
         _refuse_unported(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         ss = cfg.selfsup
         if init_state_dict is None:
             model = init_monodepth2(generator, cfg.num_layers, ss.scales)

@@ -1,0 +1,192 @@
+"""Kernel D's plain versions and autograd against the JAX package.
+
+The port's `ops/conv.py` on CPU tensors (the plain versions the CUDA
+kernels are held to on the card) against `depthmodelhardening_tpu/ops/
+pallas_conv.py`'s Pallas kernel run in interpret mode, as
+tests/test_pallas_conv.py runs it, and against its XLA reference; the
+prototypes P1 and P2 of `scripts/bench_pallas_conv2.py` in interpret mode
+too. Inputs are made with jax.random at the JAX tests' scales and handed
+over as numpy. Tolerances are those of tests/test_pallas_conv.py:
+forward 3e-6, input gradient 1e-5, weight gradient 1e-4 (float32 sums
+of 72-144 products in another order).
+"""
+
+import importlib
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import linen as nn
+from jax.experimental import pallas as pl
+
+import depthmodelhardening_tpu.ops.pallas_conv as pc
+from depthmodelhardening_tpu.ops.padding import conv3x3_reflect_same
+from depthmodelhardening_tpu_torch.ops import conv
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FWD_ATOL, DX_ATOL, DW_ATOL = 3e-6, 1e-5, 1e-4
+
+
+def _interp(fn, *args):
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    pl.pallas_call = patched
+    try:
+        return fn(*args)
+    finally:
+        pl.pallas_call = orig
+
+
+def _nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(np.asarray(a), -1, 1)))
+
+
+def _oihw(k):
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(np.asarray(k), (3, 2, 0, 1))))
+
+
+def _nhwc(t):
+    return np.moveaxis(t.detach().numpy(), 1, -1)
+
+
+def _hwio(t):
+    return np.transpose(t.detach().numpy(), (2, 3, 1, 0))
+
+
+def _inputs(shape, cin_co, seed=0):
+    x = jax.random.uniform(jax.random.PRNGKey(seed), shape)
+    k = jax.random.normal(jax.random.PRNGKey(seed + 1), (3, 3) + cin_co) * 0.1
+    xp = jnp.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)), mode="reflect")
+    return x, k, xp
+
+
+@pytest.mark.parametrize("shape,cin_co", [((2, 32, 128, 16), (16, 8)),
+                                          ((1, 13, 21, 3), (3, 5))])
+def test_plain_matches_the_interpreted_kernel(shape, cin_co):
+    """The plain forward (and `conv3x3_valid` on the CPU) against kernel
+    D interpreted and against its XLA reference."""
+    _, k, xp = _inputs(shape, cin_co)
+    want = np.asarray(_interp(pc._pallas_conv3x3_valid, xp, k))
+    ref = np.asarray(pc._conv3x3_valid_ref(xp, k))
+    for got in (conv.conv3x3_valid_plain(_nchw(xp), _oihw(k)),
+                conv.conv3x3_valid(_nchw(xp), _oihw(k))):
+        np.testing.assert_allclose(_nhwc(got), want, atol=FWD_ATOL)
+        np.testing.assert_allclose(_nhwc(got), ref, atol=FWD_ATOL)
+
+
+def test_gradients_match_jax():
+    """Input and weight gradients of `_Conv3x3Valid` (the flipped,
+    transposed conv of the 2-padded cotangent; the weight conv) against
+    jax.grad of the interpreted `conv3x3_valid`."""
+    _, k, xp = _inputs((1, 16, 128, 8), (8, 8))
+    g = jax.random.normal(jax.random.PRNGKey(2), (1, 16, 128, 8))
+    gx = _interp(jax.grad(lambda a: jnp.sum(pc.conv3x3_valid(a, k) * g)), xp)
+    gk = _interp(jax.grad(lambda kk: jnp.sum(pc.conv3x3_valid(xp, kk) * g)),
+                 k)
+
+    xp_t = _nchw(xp).requires_grad_(True)
+    w_t = _oihw(k).requires_grad_(True)
+    out = conv.conv3x3_valid(xp_t, w_t)
+    assert type(out.grad_fn).__name__ == "_Conv3x3ValidBackward"
+    (out * _nchw(g)).sum().backward()
+    np.testing.assert_allclose(_nhwc(xp_t.grad), np.asarray(gx),
+                               atol=DX_ATOL)
+    np.testing.assert_allclose(_hwio(w_t.grad), np.asarray(gk), atol=DW_ATOL)
+    np.testing.assert_allclose(
+        _nhwc(conv.conv3x3_dgrad_plain(_nchw(g), _oihw(k))), np.asarray(gx),
+        atol=DX_ATOL)
+
+
+@pytest.mark.parametrize("cin_co", [(16, 16), (16, 1), (32, 16)])
+def test_bias_and_elu_epilogue_matches_jax(cin_co):
+    """`conv3x3_reflect(x, w, b, elu=True)` (kernel D's fused epilogue,
+    the decoder's ConvBlock) and the bias-only head against
+    nn.elu(pallas_conv.conv3x3_reflect(x, k, b)): values, and the
+    gradients of x, w and b."""
+    x, k, _ = _inputs((2, 12, 40) + cin_co[:1], cin_co, seed=3)
+    b = jax.random.normal(jax.random.PRNGKey(7), cin_co[1:]) * 0.5
+    g = jax.random.normal(jax.random.PRNGKey(8), (2, 12, 40, cin_co[1]))
+    for elu in (True, False):
+        act = nn.elu if elu else (lambda v: v)
+
+        def f(xx, kk, bb):
+            return act(pc.conv3x3_reflect(xx, kk, bb))
+
+        want = f(x, k, b)
+        gx, gk, gb = jax.grad(lambda *a: jnp.sum(f(*a) * g),
+                              argnums=(0, 1, 2))(x, k, b)
+        xt, wt = _nchw(x).requires_grad_(True), _oihw(k).requires_grad_(True)
+        bt = torch.from_numpy(np.array(b)).requires_grad_(True)
+        out = conv.conv3x3_reflect(xt, wt, bt, elu=elu)
+        (out * _nchw(g)).sum().backward()
+        np.testing.assert_allclose(_nhwc(out), np.asarray(want), atol=1e-5)
+        np.testing.assert_allclose(_nhwc(xt.grad), np.asarray(gx), atol=1e-5)
+        np.testing.assert_allclose(_hwio(wt.grad), np.asarray(gk), atol=1e-4)
+        np.testing.assert_allclose(bt.grad.numpy(), np.asarray(gb),
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("cin,co,kernel", [(64, 64, True), (16, 1, True),
+                                           (1, 16, True), (96, 32, False),
+                                           (64, 128, False), (65, 8, False)])
+def test_dispatch_by_shape(cin, co, kernel):
+    """Kernel D takes a conv with Cin <= 64 and Co <= 64 (pallas_conv.py
+    :175), at any map size; any other takes F.conv2d. Both compute the
+    same function."""
+    assert conv.takes_kernel(cin, co) is kernel
+    gen = torch.Generator().manual_seed(cin + co)
+    x = torch.rand((1, cin, 5, 7), generator=gen)
+    w = torch.randn((co, cin, 3, 3), generator=gen).requires_grad_(True)
+    out = conv.conv3x3_reflect(x, w, elu=True)
+    name = type(out.grad_fn).__name__
+    assert (name == "_Conv3x3ValidBackward") is kernel, name
+    want = torch.nn.functional.elu(torch.nn.functional.conv2d(
+        torch.nn.functional.pad(x, (1, 1, 1, 1), mode="reflect"), w))
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hw", [(1, 6), (5, 1), (1, 1), (2, 3)])
+def test_size_one_axes_reflect_as_numpy(hw):
+    """A size-1 axis is its own reflection (numpy's rule), as JAX's
+    `conv3x3_reflect_same`, on both routes of the dispatch. rtol 1e-5:
+    the JAX function adds the border as separate correction terms, whose
+    rounding grows with the 864 products of a 96-channel tap."""
+    for cin, co in ((4, 3), (96, 2)):
+        x, k, _ = _inputs((2,) + hw + (cin,), (cin, co), seed=11)
+        want = np.asarray(conv3x3_reflect_same(x, k))
+        got = conv.conv3x3_reflect(_nchw(x), _oihw(k))
+        np.testing.assert_allclose(_nhwc(got), want, atol=FWD_ATOL,
+                                   rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def p1_script():
+    """scripts/bench_pallas_conv2.py, imported with the JAX cache
+    directory it sets at import put back at once."""
+    cache_dir = jax.config.jax_compilation_cache_dir
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    try:
+        return importlib.import_module("bench_pallas_conv2")
+    finally:
+        sys.path.remove(os.path.join(REPO, "scripts"))
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
+
+
+@pytest.mark.parametrize("name", ["conv_pallas", "conv_pallas_whole"])
+def test_prototypes_p1_p2_compute_the_same_function(p1_script, name):
+    """P1 (one K = 9 Cin dot per row tile) and P2 (the whole image in
+    VMEM), interpreted at float32, equal the port's reflect conv."""
+    x, k, _ = _inputs((1, 16, 40, 8), (8, 4), seed=5)
+    got = _interp(getattr(p1_script, name), x, k)
+    want = conv.conv3x3_reflect(_nchw(x), _oihw(k))
+    np.testing.assert_allclose(np.asarray(got), _nhwc(want), atol=FWD_ATOL)

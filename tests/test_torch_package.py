@@ -5,9 +5,10 @@
 * The numpy copies (synthetic fixtures, KITTI calibration, Monodepth2's
   intrinsics) equal the JAX package's originals.
 * There is no CPU fallback for a kernel: `require_cuda()` raises here,
-  each kernel entry point raises on a CPU tensor instead of computing,
-  and `chip_smoke.py` exits non-zero without printing its result line.
-* The slice's unported options raise and name their ROADMAP item.
+  so does a trainer asked for "cuda", each kernel entry point raises on
+  a CPU tensor instead of computing, and `chip_smoke.py` exits non-zero
+  without printing its result line.
+* The slices' unported options raise and name their ROADMAP item.
 """
 
 import os
@@ -34,8 +35,13 @@ from depthmodelhardening_tpu_torch.evaluation.attack_eval import (
 from depthmodelhardening_tpu_torch.models.wrappers import (
     init_monodepth2, predictor_from,
 )
-from depthmodelhardening_tpu_torch.ops import pool, reproj, warp
+from depthmodelhardening_tpu_torch.ops import conv, pool, reproj, warp
 from depthmodelhardening_tpu_torch.physics import calibration, eot
+from depthmodelhardening_tpu_torch.training.config import (
+    DistillConfig, HardeningConfig,
+)
+from depthmodelhardening_tpu_torch.training.distill import DistillTrainer
+from depthmodelhardening_tpu_torch.training.hardening import HardeningTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(port.__file__)
@@ -50,6 +56,8 @@ def _port_modules():
 def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) >= 20
+    assert {"depthmodelhardening_tpu_torch.ops.conv",
+            "depthmodelhardening_tpu_torch.training.distill"} <= set(mods)
     code = "\n".join(
         ["import sys"]
         + [f"sys.modules[{m!r}] = None" for m in BLOCKED]
@@ -110,6 +118,26 @@ def test_require_cuda_raises_without_a_card():
         require_cuda("cpu")
 
 
+@pytest.mark.parametrize("device", [None, "cuda"])
+@pytest.mark.parametrize("make", ["hardening", "distill"])
+def test_trainers_run_on_the_card_or_raise(make, device):
+    """A trainer runs on the CUDA card unless given "cpu": without
+    `device=`, or asked for "cuda", it checks for the card before it
+    builds anything (`device.resolve_device`) and raises here."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    obj, mask = synthetic.make_car_object(width=60, height=40)
+    kw = {} if device is None else {"device": device}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if make == "hardening":
+            HardeningTrainer(HardeningConfig(supervised_adv=False,
+                                             contrastive_learning=False),
+                             torch.Generator().manual_seed(0), **kw)
+        else:
+            DistillTrainer(DistillConfig(), torch.Generator().manual_seed(0),
+                           obj, mask, None, **kw)
+
+
 def _kernel_calls():
     x = torch.rand(1, 2, 9, 11)
     inter = torch.rand(1, 3, 8, 5)
@@ -128,6 +156,10 @@ def _kernel_calls():
             x, x, torch.rand(1, 9, 11)),
         "reproj_loss_bwd_grad": lambda: reproj.reproj_loss_bwd_cuda(
             x, x, torch.rand(1, 9, 11), need_dy=False),
+        "conv3x3_fwd": lambda: conv.conv3x3_valid_cuda(
+            x, torch.rand(4, 2, 3, 3), torch.rand(4), elu=True),
+        "conv3x3_dgrad": lambda: conv.conv3x3_dgrad_cuda(
+            x, torch.rand(2, 4, 3, 3)),
     }
 
 
@@ -135,7 +167,8 @@ def _kernel_calls():
 def test_kernel_entry_point_refuses_cpu_tensors(name):
     """A kernel is launched on a CUDA tensor or not at all."""
     kernel = next(k for k in (warp.FWD, warp.BWD, pool.FWD, pool.BWD,
-                              reproj.FWD, reproj.BWD_Q, reproj.BWD_GRAD)
+                              reproj.FWD, reproj.BWD_Q, reproj.BWD_GRAD,
+                              conv.FWD, conv.DGRAD)
                   if k.name == name)
     before = kernel.launches
     with pytest.raises(RuntimeError, match="CUDA tensor"):
@@ -177,10 +210,9 @@ def test_unported_norms_raise_and_name_their_roadmap_item(
                      mask)
 
 
-@pytest.mark.parametrize("kw", [dict(attack_crop_w=320, attack_crop_h=256),
-                                dict(attack_scale=1),
+@pytest.mark.parametrize("kw", [dict(attack_scale=1),
                                 dict(attack_scale=2),
                                 dict(attack_view_dtype="bfloat16")])
 def test_unported_attack_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 3b"):
         PhysObjAttackConfig(obj_h=40, obj_w=60, **kw)

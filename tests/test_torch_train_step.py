@@ -158,7 +158,8 @@ def port_run(jax_run):
     moments (as state dicts) and the state dict after it."""
     cfg = HardeningConfig(selfsup=SelfSupConfig(height=H, width=W), **KW)
     trainer = HardeningTrainer(
-        cfg, torch.Generator().manual_seed(0), steps_per_epoch=1,
+        cfg, torch.Generator().manual_seed(0), device="cpu",
+        steps_per_epoch=1,
         init_state_dict=from_jax_train_state(jax_run[0]["before"]))
     state = trainer.make_state()
     frames = {k: torch.from_numpy(v) for k, v in _frames().items()}
@@ -297,7 +298,8 @@ def test_init_is_flax_truncated_lecun_normal():
 
 def _trainer(**kw):
     cfg = HardeningConfig(**{**KW, **kw})
-    return HardeningTrainer(cfg, torch.Generator().manual_seed(0))
+    return HardeningTrainer(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
 
 
 @pytest.mark.parametrize("kw,item", [
