@@ -15,9 +15,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CUDA-event time of both and of the one PyTorch library call that
    computes the same function (where there is one), and the least time
    the card could take (bytes over 3.35 TB/s, operations over 67
-   TFLOP/s float32, the larger). Kernel D (the decoder's narrow 3x3
-   convs) at the four convs of the scale-0 path at batch 32, 1024x320:
-   forward, forward with bias + ELU, and input gradient.
+   TFLOP/s float32, the larger; for kernel D also 3 TF32 operations per
+   float32 one over the tensor cores' 495 TFLOP/s, its row's bound). The
+   pool backward B2 bit for bit, also at the distillation step's shape
+   and at shapes that straddle its tiles. Kernel D (the decoder's narrow
+   3x3 convs) at the four convs of the scale-0 path at batch 32,
+   1024x320, at ragged shapes (1, 3, 13, 64 channels in and out, 37x53)
+   and at the 320x256 attack crop: forward, forward with bias + ELU, and
+   input gradient.
 4. golden: the port's Monodepth2-18 at 96x320 with the deterministic
    reference-layout weights of tests/golden_common.py against the
    frozen PyTorch-reference outputs in tests/golden/monodepth2_rand.npz.
@@ -113,9 +118,10 @@ REPROJ_FWD_ATOL, REPROJ_BWD_ATOL = 0.0, 0.0
 # kernel D sums its products in another order than im2col + SGEMM: its
 # error is held to 1e-5 of the plain output's largest magnitude
 CONV_RTOL = 1e-5
-# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s
-# and float32 FLOP/s outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_S = 3.35e12, 67e12
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores, dense TF32 FLOP/s of the
+# tensor cores
+PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
 CONV_KERNELS = ("conv3x3_fwd", "conv3x3_dgrad")
 SLICE1_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
                   "maxpool3x3s2_fwd", "maxpool3x3s2_bwd") + CONV_KERNELS
@@ -188,12 +194,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes_: float, flops: float):
+def bound(nbytes_: float, flops: float, tensor_cores: bool = False):
     """(ms, "bytes" | "operations"): the least time the card could take
     to read and write `nbytes_` bytes and do `flops` float32 operations,
-    at its published peaks."""
+    at its published peaks: on the CUDA cores, or with `tensor_cores` as
+    three TF32 operations each (the 3xTF32 split that keeps float32
+    accuracy)."""
     t_bytes = nbytes_ / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_S * 1e3
+    t_ops = (3 * flops / PEAK_TF32_S if tensor_cores
+             else flops / PEAK_F32_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -266,8 +275,12 @@ def phase_kernels(dev) -> dict:
                 (nbytes(g, A, B, d_k), 4 * g.numel()))
 
     # the stem pool sees relu outputs: many exact zeros, so ties are the
-    # rule and the equality routing must agree with the plain version
-    for shape in ((12, 64, 160, 512), (2, 3, 17, 23)):
+    # rule and the equality routing must agree with the plain version; at
+    # the attack's and the distillation step's shapes, and at ragged ones
+    # that straddle B2's 16 x 64-window tiles, with rows of whole 16-byte
+    # groups (W % 4 = 0) and without
+    for shape in ((12, 64, 160, 512), (32, 64, 160, 512), (2, 3, 17, 23),
+                  (1, 2, 66, 130), (1, 2, 67, 132)):
         x = torch.relu(torch.randn(shape, generator=gen)).to(dev)
         y_k = pool.maxpool3x3s2_fwd_cuda(x)
         y_p = pool.maxpool3x3s2_plain(x)
@@ -282,7 +295,7 @@ def phase_kernels(dev) -> dict:
             f"bit-exact {exact}")
         if not exact:
             raise AssertionError(f"pool kernel is not bit-exact at {shape}")
-        if shape[1] == 64:
+        if shape[0] == 12:
             # library: F.max_pool2d and its autograd backward (which
             # routes a tie to one input, B2 to all). Operations: 8 max
             # per window; backward 8 max, 9 tests, 9 sums per window
@@ -358,49 +371,76 @@ CONV_SHAPES = (("upconv_1_0", 64, 32, 80, 256),
                ("upconv_0_1", 16, 16, 320, 1024),
                ("dispconv_0", 16, 1, 320, 1024))
 CONV_BATCH = 32
+# checked only: shapes that miss every tile edge (the tensor-core
+# kernel's 8 or 16 rows x 32 columns x 8-channel K chunks and N tiles;
+# one channel in or out takes the CUDA-core kernel one way), and
+# upconv_0_1 on bench.py's 320x256 attack crop
+CONV_RAGGED = tuple((f"ragged {cin}->{co}", 2, cin, co, 37, 53)
+                    for cin in (1, 3, 13, 64) for co in (1, 3, 13, 64))
+CONV_CROP = ("crop upconv_0_1", CONV_BATCH, 16, 16, 256, 320)
+
+
+def _conv_inputs(gen, dev, B, cin, co, h, w):
+    xp = torch.rand((B, cin, h + 2, w + 2), generator=gen).to(dev)
+    wt = (torch.randn((co, cin, 3, 3), generator=gen)
+          / (3.0 * cin ** 0.5)).to(dev)
+    b = (0.1 * torch.randn((co,), generator=gen)).to(dev)
+    g = torch.randn((B, co, h, w), generator=gen).to(dev)
+    return xp, wt, b, g
+
+
+def check_conv(name, xp, wt, b, g) -> dict:
+    """Kernel D against its plain version: forward, forward + bias + ELU
+    and input gradient, each within CONV_RTOL of the plain output's
+    largest magnitude; the worst error of each entry point."""
+    pairs = {
+        "fwd": (lambda: conv.conv3x3_valid_cuda(xp, wt),
+                lambda: conv.conv3x3_valid_plain(xp, wt)),
+        "fwd bias+elu": (lambda: conv.conv3x3_valid_cuda(xp, wt, b, True),
+                         lambda: conv.conv3x3_valid_plain(xp, wt, b, True)),
+        "dgrad": (lambda: conv.conv3x3_dgrad_cuda(g, wt),
+                  lambda: conv.conv3x3_dgrad_plain(g, wt)),
+    }
+    errs, msg = {n: 0.0 for n in CONV_KERNELS}, []
+    for label, (kernel_fn, plain_fn) in pairs.items():
+        out_k, out_p = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        tol = CONV_RTOL * float(out_p.abs().max())
+        msg.append(f"{label} err {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"conv kernel {label} disagrees at {name}: "
+                                 f"{err} > {tol}")
+        which = "conv3x3_dgrad" if label == "dgrad" else "conv3x3_fwd"
+        errs[which] = max(errs[which], err)
+        del out_k, out_p
+    B, cin, co = xp.shape[0], xp.shape[1], wt.shape[0]
+    log(f"conv {name} ({B}, {cin}->{co}, {g.shape[2]}x{g.shape[3]}): "
+        + ", ".join(msg))
+    return errs
 
 
 def phase_conv_kernels(dev, gen, row) -> None:
-    """Kernel D at the four convs of one decoder pass: each against its
-    plain version, forward (with and without bias + ELU) and input
-    gradient. A row's times and work are those of the whole pass (the
-    upconvs with bias + ELU, the head with a bias, as the decoder runs
-    them); the library call is F.conv2d (forward, without the ELU) and
-    its input gradient `conv2d_input`, timed with cuDNN off (as the port
-    runs) and on with TF32 off (the row's `library_ms`)."""
+    """Kernel D at the four convs of one decoder pass, at ragged shapes
+    and at the attack crop: each against its plain version (`check_conv`).
+    A row's times and work are those of the whole pass (the upconvs with
+    bias + ELU, the head with a bias, as the decoder runs them); the
+    library call is F.conv2d (forward, without the ELU) and its input
+    gradient `conv2d_input`, timed with cuDNN off (as the port runs) and
+    on with TF32 off (the row's `library_ms`). Each conv's bound is given
+    twice: float32 operations on the CUDA cores, and on the tensor cores
+    as 3xTF32 (the row's `bound_ms`: the least time at float32
+    accuracy)."""
+    for name, *shape in CONV_RAGGED + (CONV_CROP,):
+        check_conv(name, *_conv_inputs(gen, dev, *shape))
     tot = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, lib_off=0.0, lib_on=0.0,
-                   bytes=0.0, operations=0.0) for n in CONV_KERNELS}
+                   f32=0.0, tc=0.0, bytes=0.0, operations=0.0)
+           for n in CONV_KERNELS}
     for name, cin, co, h, w in CONV_SHAPES:
-        xp = torch.rand((CONV_BATCH, cin, h + 2, w + 2), generator=gen).to(dev)
-        wt = (torch.randn((co, cin, 3, 3), generator=gen)
-              / (3.0 * cin ** 0.5)).to(dev)
-        b = (0.1 * torch.randn((co,), generator=gen)).to(dev)
-        g = torch.randn((CONV_BATCH, co, h, w), generator=gen).to(dev)
-        elu = co > 1
-        pairs = {
-            "fwd": (lambda: conv.conv3x3_valid_cuda(xp, wt),
-                    lambda: conv.conv3x3_valid_plain(xp, wt)),
-            "fwd bias+elu": (lambda: conv.conv3x3_valid_cuda(xp, wt, b, True),
-                             lambda: conv.conv3x3_valid_plain(xp, wt, b,
-                                                              True)),
-            "dgrad": (lambda: conv.conv3x3_dgrad_cuda(g, wt),
-                      lambda: conv.conv3x3_dgrad_plain(g, wt)),
-        }
-        msg = []
-        for label, (kernel_fn, plain_fn) in pairs.items():
-            out_k, out_p = kernel_fn(), plain_fn()
-            torch.cuda.synchronize()
-            err = float((out_k - out_p).abs().max())
-            tol = CONV_RTOL * float(out_p.abs().max())
-            msg.append(f"{label} err {err:.3e} (tol {tol:.3e})")
-            if not err <= tol:
-                raise AssertionError(f"conv kernel {label} disagrees at "
-                                     f"{name}: {err} > {tol}")
-            which = "conv3x3_dgrad" if label == "dgrad" else "conv3x3_fwd"
+        xp, wt, b, g = _conv_inputs(gen, dev, CONV_BATCH, cin, co, h, w)
+        for which, err in check_conv(name, xp, wt, b, g).items():
             tot[which]["err"] = max(tot[which]["err"], err)
-            del out_k, out_p
-        log(f"conv {name} ({CONV_BATCH}, {cin}->{co}, {h}x{w}): "
-            + ", ".join(msg))
+        elu = co > 1
         timed = {  # the forward's output has g's shape
             "conv3x3_fwd": (
                 lambda: conv.conv3x3_valid_cuda(xp, wt, b, elu),
@@ -421,27 +461,32 @@ def phase_conv_kernels(dev, gen, row) -> None:
             off_ms = cuda_ms(lib_fn, reps=10)
             with cudnn_on():
                 on_ms = cuda_ms(lib_fn, reps=10)
-            bound_ms, bound_by = bound(*work)
+            f32_ms, f32_by = bound(*work)
+            tc_ms, tc_by = bound(*work, tensor_cores=True)
             log(f"  {which} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f}, "
                 f"library cuDNN off {off_ms:.4f}, cuDNN on (TF32 off) "
-                f"{on_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+                f"{on_ms:.4f}, bound CUDA cores {f32_ms:.4f} ({f32_by}), "
+                f"tensor cores {tc_ms:.4f} ({tc_by})")
             t["ms"] += k_ms
             t["plain_ms"] += p_ms
             t["lib_off"] += off_ms
             t["lib_on"] += on_ms
-            t[bound_by] += bound_ms
+            t["f32"] += f32_ms
+            t["tc"] += tc_ms
+            t[tc_by] += tc_ms
         del xp, g
     for which, kernel in (("conv3x3_fwd", conv.FWD),
                           ("conv3x3_dgrad", conv.DGRAD)):
         t = tot[which]
         log(f"  {which}, one decoder pass ({len(CONV_SHAPES)} convs): "
-            f"library cuDNN off "
-            f"{t['lib_off']:.4f} ms")
-        # the pass's bound: the sum of its convs', named after the kind
-        # that bounds most of it
+            f"kernel {t['ms']:.4f} ms, library cuDNN off {t['lib_off']:.4f}, "
+            f"cuDNN on (TF32 off) {t['lib_on']:.4f}, bound CUDA cores "
+            f"{t['f32']:.4f}, tensor cores {t['tc']:.4f} "
+            f"({t['tc'] / t['ms']:.4f} of the kernel's time)")
+        # the pass's bound: the sum of its convs' tensor-core bounds,
+        # named after the kind that bounds most of it
         row(kernel, t["err"], t["ms"], t["plain_ms"], t["lib_on"],
-            (t["bytes"] + t["operations"],
-             max(("bytes", "operations"), key=t.get)))
+            (t["tc"], max(("bytes", "operations"), key=t.get)))
 
 
 def _reproj_inputs(gen, dev, shape):
@@ -1089,7 +1134,7 @@ def phase_distill_breakdown(trainer, state, scenes) -> None:
         log(f"  {n}: {float(np.median(times[n])):.3f}")
     busy_ms, wall_ms, n, by_name = device_busy(
         lambda: trainer.train_step(state, scenes))
-    d_ms = sum(ms for k, ms in by_name.items() if "conv3x3_kernel" in k)
+    d_ms = sum(ms for k, ms in by_name.items() if "conv3x3_" in k)
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
         f"ms of {wall_ms:.3f} ms host wall, idle share "
         f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")

@@ -13,32 +13,56 @@
 // and junk row are layout and do not carry over.
 //
 //   out[b, co, y, x] = epi(bias[co] + sum_{ci, dy, dx}
-//                          in[b, ci, y + dy - pad, x + dx - pad] * w'[co, ci, dy, dx])
+//                          in[b, ci, y + dy - pad, x + dx - pad] * w[co, ci, dy, dx])
 //
 // with in = 0 outside the map. conv3x3_fwd: pad 0 on the reflect-padded
-// input, w' = w. conv3x3_dgrad: the input gradient d xp of the forward,
-// pad 2 on the cotangent (bounds checks, nothing materialised) and
-// w'[ci, co, dy, dx] = w[co, ci, 2 - dy, 2 - dx] read in place.
+// input. conv3x3_dgrad: the input gradient d xp of the forward, pad 2 on
+// the cotangent (bounds checks, nothing materialised), with the caller's
+// flipped, in/out-transposed weights w[ci, co, 2 - dy, 2 - dx]
+// (ops/conv.py:dgrad_weights).
 //
-// What bounds it on an H100: operations. The decoder's 16- and 32-channel
-// maps at batch 32 do 24-48 GFLOP per conv over 0.3-0.7 GB, about 70
-// flop per byte, above the card's float32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 flop/byte); the 16 -> 1 disparity head alone is bound by
-// bytes. The design keeps the CUDA cores busy without tensor cores: a
-// block stages an (8 channels, 34, 34) input patch and the matching
-// weights in shared memory and computes a 32 x 32 output tile for 8
-// output channels; each thread holds 4 rows x 8 channels of float32
-// accumulators, so every input value read from shared memory feeds 24
-// FMAs and every weight (a broadcast read) feeds 4. Output-channel groups
-// are the fastest grid index, so the groups of one tile reuse its input
-// from L2. Products are summed with explicit fmaf (the build's
-// -fmad=false does not apply), in another order than im2col + SGEMM, so
-// kernel and plain version agree to rounding, not bit for bit.
+// What bounds it on an H100: at float32 accuracy, the tensor cores'
+// operations for the 32- and 64-channel convs and bytes for the rest. The
+// decoder's convs at batch 32 do 24-48 GFLOP over 0.26-1.35 GB; on the
+// CUDA cores (67 TFLOP/s) every conv but the 16 -> 1 head is bound by
+// operations, on the tensor cores at three TF32 products per float32 one
+// (3 x flops over 495 TFLOP/s) only the 64 -> 32 conv still is.
+//
+// The design, for Co >= 2 (conv3x3_mma): an implicit GEMM on the tensor
+// cores with warp-level mma.sync.m16n8k8 TF32. M is a block's tile of
+// output pixels (8 warps, each WR rows x 32 columns, two m16 tiles a
+// row), N its group of 8 NT output channels (zero-padded), K = 9 Cin
+// taken as chunks of 8 input channels, one k8 step per tap. TF32 alone
+// keeps about 3 decimal digits, so each operand is split in registers as
+// it is loaded into big = tf32(a) and small = tf32(a - big) (to nearest,
+// ties away, as cvt.rna), and each product is small*big + big*small +
+// big*big in three MMAs with float32 accumulation ("3xTF32"; only
+// small*small, about 2^-22 of the product, is dropped). Shared memory
+// holds float32 only: the (8 channels, rows + 2, 34) input chunk and its
+// (9 taps, 8 channels, 8 NT) weights, double-buffered and filled by
+// 4-byte cp.async with zero fill at the borders, so chunk k + 1 loads
+// while chunk k multiplies. The channel and weight-row strides are
+// 8 mod 16 floats, so the fragment loads of a warp (lane = 4 g + t reads
+// [t * stride + g]) hit 32 distinct banks. A staged row's fragment is
+// split once per column shift and feeds the up to three output rows that
+// read it. Two blocks an SM (at most 128 registers a thread, 64 of them
+// accumulators) are what keeps the tensor cores fed between the barriers
+// of a chunk. The 16 -> 1 head (Co = 1, conv3x3_co1) is bound by bytes
+// and stays on the CUDA cores: a block stages an (8 channels, 34, 34)
+// patch and computes a 32 x 32 tile, 4 rows per thread.
+//
+// Products are summed in another order than im2col + SGEMM (and in
+// three parts on the tensor cores), so kernel and plain version agree to
+// rounding, not bit for bit. The build's -fmad=false keeps the split's
+// subtraction and the CUDA-core route's explicit fmaf as written.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
+// -- Co = 1: CUDA cores ------------------------------------------------------
 constexpr int kTW = 32;             // output columns per block: one warp
 constexpr int kWarps = 8;           // warps per block, stacked in rows
 constexpr int kPY = 4;              // output rows per thread
@@ -48,27 +72,22 @@ constexpr int kSH = kTH + 2;        // staged rows
 constexpr int kSW = kTW + 2;        // staged columns
 constexpr int kThreads = kTW * kWarps;
 
-template <int COB>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ out,
-               int Cin, int Hin, int Win, int Co, int H, int W, int pad,
-               int transposed, int elu, int groups) {
+conv3x3_co1(const float* __restrict__ in, const float* __restrict__ w,
+            const float* __restrict__ bias, float* __restrict__ out,
+            int Cin, int Hin, int Win, int H, int W, int pad, int elu) {
   __shared__ float sx[kCIC][kSH][kSW];
-  __shared__ __align__(16) float sw[kCIC][9][COB];
+  __shared__ float sw[kCIC][9];
 
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kTW + tx;
-  const int co0 = (blockIdx.x % groups) * COB;
-  const int x0 = (blockIdx.x / groups) * kTW;
+  const int x0 = blockIdx.x * kTW;
   const int y0 = blockIdx.y * kTH;
   const int b = blockIdx.z;
 
-  float acc[kPY][COB];
+  float acc[kPY];
 #pragma unroll
-  for (int p = 0; p < kPY; ++p)
-#pragma unroll
-    for (int k = 0; k < COB; ++k) acc[p][k] = 0.0f;
+  for (int p = 0; p < kPY; ++p) acc[p] = 0.0f;
 
   const float* inb = in + (long long)b * Cin * Hin * Win;
   for (int c0 = 0; c0 < Cin; c0 += kCIC) {
@@ -84,19 +103,8 @@ conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ w,
       }
       sx[ci][r][c] = v;
     }
-    for (int i = tid; i < cn * 9 * COB; i += kThreads) {
-      const int k = i % COB;
-      const int t = (i / COB) % 9;
-      const int ci = i / (9 * COB);
-      const int co = co0 + k;
-      float v = 0.0f;
-      if (co < Co) {
-        // forward: w[co][ci][t]; input gradient: the forward's weights
-        // (Cin_fwd = Co here, Co_fwd = Cin here) transposed and flipped
-        v = transposed ? w[((long long)(c0 + ci) * Co + co) * 9 + 8 - t]
-                       : w[((long long)co * Cin + c0 + ci) * 9 + t];
-      }
-      sw[ci][t][k] = v;
+    for (int i = tid; i < cn * 9; i += kThreads) {
+      sw[i / 9][i % 9] = w[c0 * 9 + i];
     }
     __syncthreads();
     for (int ci = 0; ci < cn; ++ci) {
@@ -107,14 +115,9 @@ conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ w,
         for (int r = 0; r < kPY + 2; ++r) col[r] = sx[ci][ty * kPY + r][tx + dx];
 #pragma unroll
         for (int dy = 0; dy < 3; ++dy) {
-          float wv[COB];
+          const float wv = sw[ci][dy * 3 + dx];
 #pragma unroll
-          for (int k = 0; k < COB; ++k) wv[k] = sw[ci][dy * 3 + dx][k];
-#pragma unroll
-          for (int p = 0; p < kPY; ++p)
-#pragma unroll
-            for (int k = 0; k < COB; ++k)
-              acc[p][k] = fmaf(col[p + dy], wv[k], acc[p][k]);
+          for (int p = 0; p < kPY; ++p) acc[p] = fmaf(col[p + dy], wv, acc[p]);
         }
       }
     }
@@ -127,39 +130,261 @@ conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ w,
   for (int p = 0; p < kPY; ++p) {
     const int yo = y0 + ty * kPY + p;
     if (yo >= H) break;
+    float v = acc[p];
+    if (bias != nullptr) v += bias[0];
+    if (elu) v = v > 0.0f ? v : expm1f(v);
+    out[((long long)b * H + yo) * W + xo] = v;
+  }
+}
+
+// -- Co >= 2: tensor cores, 3xTF32 --------------------------------------------
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kTileW = 32;          // output columns per block: two m16 tiles
+constexpr int kStW = kTileW + 2;    // staged columns
+constexpr int kK = 8;               // input channels per chunk: the MMA's k
+
+// the least n' >= n with n' = 8 (mod 16): lanes t = 0..3 at t * n' start
+// 8 banks apart (mod 32), so [t * n' + g], g = 0..7, are 32 banks
+__host__ __device__ constexpr int bank_stride(int n) {
+  return n + (24 - n % 16) % 16;
+}
+
+// A block: 8 warps of WR output rows x 32 columns, 8 NT output channels
+template <int NT, int WR>
+struct MmaTile {
+  static constexpr int kTH = kMmaWarps * WR;           // output rows
+  static constexpr int kStH = kTH + 2;                 // staged rows
+  static constexpr int kCS = bank_stride(kStH * kStW); // staged channel stride
+  static constexpr int kNS = bank_stride(8 * NT);      // weight row stride
+  static constexpr int kXs = kK * kCS;                 // staged input floats
+  static constexpr int kStage = kXs + 9 * kK * kNS;    // floats per stage
+  static constexpr int kSmem = 2 * kStage * (int)sizeof(float);
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero: add half
+// a TF32 ulp to the magnitude, drop the 13 low bits) in two integer
+// operations; cvt.rna itself compiles to these plus a NaN/Inf test
+__device__ __forceinline__ uint32_t to_tf32(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+}
+
+// a = big + small, both TF32, to about 2^-22 of a
+__device__ __forceinline__ void split(float a, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(a);
+  small = to_tf32(a - __uint_as_float(big));
+}
+
+// c += a b: a 16 x 8 (row g / g + 8, column t / t + 4 of lane 4 g + t),
+// b 8 x 8 (row t / t + 4, column g), c 16 x 8 (row g / g + 8, columns 2t,
+// 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Grid (W / 32 x groups, H / kTH, B), rounded up, with the channel groups
+// of 8 NT fastest (the groups of one tile share its input in L2);
+// kMmaThreads threads and MmaTile::kSmem bytes of dynamic shared memory a
+// block. Warp v computes output rows y0 + v WR .. + WR - 1, columns x0 ..
+// x0 + 31, channels co0 .. co0 + 8 NT - 1.
+template <int NT, int WR>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+conv3x3_mma(const float* __restrict__ in, const float* __restrict__ w,
+            const float* __restrict__ bias, float* __restrict__ out,
+            int Cin, int Hin, int Win, int Co, int H, int W, int pad,
+            int elu, int groups) {
+  using T = MmaTile<NT, WR>;
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int co0 = (blockIdx.x % groups) * 8 * NT;
+  const int x0 = (blockIdx.x / groups) * kTileW, y0 = blockIdx.y * T::kTH;
+  const int b = blockIdx.z;
+  const float* inb = in + (long long)b * Cin * Hin * Win;
+  const int chunks = (Cin + kK - 1) / kK;
+
+  // chunk c (input channels 8c .. 8c + 7) into stage buf: the input as
+  // sx[ci][r][col] = in[8c + ci, y0 + r - pad, x0 + col - pad] and the
+  // weights as sw[tap][ci][n] = w[co0 + n, 8c + ci, tap]; zero outside
+  // the map and the channels
+  auto stage = [&](int c, int buf) {
+    float* sx = smem + buf * T::kStage;
+    float* sw = sx + T::kXs;
+    const int c0 = c * kK;
+    for (int i = tid; i < kK * T::kStH * kStW; i += kMmaThreads) {
+      const int row = i / kStW, col = i - row * kStW;
+      const int ci = row / T::kStH, r = row - ci * T::kStH;
+      const int gy = y0 + r - pad, gx = x0 + col - pad;
+      const bool ok = c0 + ci < Cin && gy >= 0 && gy < Hin && gx >= 0 &&
+                      gx < Win;
+      cp_async4(sx + ci * T::kCS + r * kStW + col,
+                ok ? inb + ((long long)(c0 + ci) * Hin + gy) * Win + gx : in,
+                ok);
+    }
+    for (int i = tid; i < 8 * NT * kK; i += kMmaThreads) {
+      const int n = i / kK, ci = i % kK;
+      const bool ok = co0 + n < Co && c0 + ci < Cin;
+      const float* src = w + ((long long)(co0 + n) * Cin + c0 + ci) * 9;
 #pragma unroll
-    for (int k = 0; k < COB; ++k) {
-      const int co = co0 + k;
-      if (co >= Co) break;
-      float v = acc[p][k];
-      if (bias != nullptr) v += bias[co];
-      if (elu) v = v > 0.0f ? v : expm1f(v);
-      out[(((long long)b * Co + co) * H + yo) * W + xo] = v;
+      for (int tap = 0; tap < 9; ++tap) {
+        cp_async4(sw + (tap * kK + ci) * T::kNS + n, ok ? src + tap : w, ok);
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2 * WR][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2 * WR; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][n][j] = 0.0f;
+
+  stage(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage(c + 1, (c + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sx = smem + (c & 1) * T::kStage;
+    const float* sw = sx + T::kXs;
+    // column shift dx: the B fragments of its three taps, then each staged
+    // row the warp reads, split once and used by every output row it
+    // feeds (row sr - dy for tap (dy, dx)): WR + 2 fragment loads where a
+    // loop over the taps would make 3 WR
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      uint32_t bb[3][NT][2], bs[3][NT][2];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float* q = sw + ((dy * 3 + dx) * kK + t) * T::kNS + n * 8 + g;
+          split(q[0], bb[dy][n][0], bs[dy][n][0]);
+          split(q[4 * T::kNS], bb[dy][n][1], bs[dy][n][1]);
+        }
+      }
+#pragma unroll
+      for (int sr = 0; sr < WR + 2; ++sr) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          // pixel row g of the m-tile is output column 16 half + g
+          const float* p = sx + t * T::kCS + (warp * WR + sr) * kStW +
+                           half * 16 + g + dx;
+          uint32_t ab[4], as[4];
+          split(p[0], ab[0], as[0]);
+          split(p[8], ab[1], as[1]);
+          split(p[4 * T::kCS], ab[2], as[2]);
+          split(p[4 * T::kCS + 8], ab[3], as[3]);
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const int r = sr - dy;
+            if (r < 0 || r >= WR) continue;
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              mma_tf32(acc[2 * r + half][n], as, bb[dy][n]);
+              mma_tf32(acc[2 * r + half][n], ab, bs[dy][n]);
+              mma_tf32(acc[2 * r + half][n], ab, bb[dy][n]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int m = 0; m < 2 * WR; ++m) {
+    const int y = y0 + warp * WR + m / 2;
+    if (y >= H) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int x = x0 + (m % 2) * 16 + g + 8 * h;
+      if (x >= W) continue;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int co = co0 + n * 8 + 2 * t + j;
+          if (co >= Co) continue;
+          float v = acc[m][n][2 * h + j];
+          if (bias != nullptr) v += bias[co];
+          if (elu) v = v > 0.0f ? v : expm1f(v);
+          out[(((long long)b * Co + co) * H + y) * W + x] = v;
+        }
+      }
     }
   }
 }
 
+template <int NT, int WR>
+int launch_mma(const float* in, const float* w, const float* bias,
+               float* out, int B, int Cin, int Hin, int Win, int Co, int H,
+               int W, int pad, int elu, cudaStream_t stream) {
+  using T = MmaTile<NT, WR>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_mma<NT, WR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int groups = (Co + 8 * NT - 1) / (8 * NT);
+  const dim3 grid(((W + kTileW - 1) / kTileW) * groups,
+                  (H + T::kTH - 1) / T::kTH, B);
+  conv3x3_mma<NT, WR><<<grid, kMmaThreads, T::kSmem, stream>>>(
+      in, w, bias, out, Cin, Hin, Win, Co, H, W, pad, elu, groups);
+  return (int)cudaGetLastError();
+}
+
+// mma != 0: the tensor-core kernel (any Co <= 64); else the CUDA-core
+// kernel, which takes Co = 1 only. ops/conv.py chooses by Co.
 int launch(const float* in, const float* w, const float* bias, float* out,
-           int B, int Cin, int Hin, int Win, int Co, int pad, int transposed,
-           int elu, cudaStream_t stream) {
+           int B, int Cin, int Hin, int Win, int Co, int pad, int elu,
+           int mma, cudaStream_t stream) {
   const int H = Hin + 2 * pad - 2, W = Win + 2 * pad - 2;
-  if (B <= 0 || Cin <= 0 || Co <= 0 || H <= 0 || W <= 0) {
+  if (B <= 0 || Cin <= 0 || Co <= 0 || Co > 64 || H <= 0 || W <= 0 ||
+      B > 65535 || (!mma && Co != 1)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 block(kTW, kWarps);
-  if (Co == 1) {
+  if (!mma) {
     const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-    conv3x3_kernel<1><<<grid, block, 0, stream>>>(
-        in, w, bias, out, Cin, Hin, Win, Co, H, W, pad, transposed, elu, 1);
-  } else {
-    constexpr int kCOB = 8;
-    const int groups = (Co + kCOB - 1) / kCOB;
-    const dim3 grid(((W + kTW - 1) / kTW) * groups, (H + kTH - 1) / kTH, B);
-    conv3x3_kernel<kCOB><<<grid, block, 0, stream>>>(
-        in, w, bias, out, Cin, Hin, Win, Co, H, W, pad, transposed, elu,
-        groups);
+    conv3x3_co1<<<grid, dim3(kTW, kWarps), 0, stream>>>(
+        in, w, bias, out, Cin, Hin, Win, H, W, pad, elu);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  // at most 128 registers a thread (two blocks an SM) hold 64 float32
+  // accumulators: 32 rows x 16 channels, or 16 rows x 32 channels in one
+  // or two channel groups
+  if (Co <= 16) {
+    return launch_mma<2, 4>(in, w, bias, out, B, Cin, Hin, Win, Co, H, W,
+                            pad, elu, stream);
+  }
+  return launch_mma<4, 2>(in, w, bias, out, B, Cin, Hin, Win, Co, H, W, pad,
+                          elu, stream);
 }
 
 }  // namespace
@@ -168,15 +393,16 @@ int launch(const float* in, const float* w, const float* bias, float* out,
 // out (B, Co, H, W); elu != 0 applies ELU after the bias.
 extern "C" int conv3x3_fwd(const float* xp, const float* w,
                            const float* bias, float* out, int B, int Cin,
-                           int Hp, int Wp, int Co, int elu,
+                           int Hp, int Wp, int Co, int elu, int mma,
                            cudaStream_t stream) {
-  return launch(xp, w, bias, out, B, Cin, Hp, Wp, Co, 0, 0, elu, stream);
+  return launch(xp, w, bias, out, B, Cin, Hp, Wp, Co, 0, elu, mma, stream);
 }
 
-// g (B, Co, H, W), the forward's w (Co, Cin, 3, 3) -> dxp
-// (B, Cin, H + 2, W + 2), the gradient with respect to the forward's xp.
-extern "C" int conv3x3_dgrad(const float* g, const float* w, float* dxp,
-                             int B, int Co, int H, int W, int Cin,
+// g (B, Co, H, W), wt (Cin, Co, 3, 3) the forward's weights flipped and
+// in/out-transposed -> dxp (B, Cin, H + 2, W + 2), the gradient with
+// respect to the forward's xp.
+extern "C" int conv3x3_dgrad(const float* g, const float* wt, float* dxp,
+                             int B, int Co, int H, int W, int Cin, int mma,
                              cudaStream_t stream) {
-  return launch(g, w, nullptr, dxp, B, Co, H, W, Cin, 2, 1, 0, stream);
+  return launch(g, wt, nullptr, dxp, B, Co, H, W, Cin, 2, 0, mma, stream);
 }

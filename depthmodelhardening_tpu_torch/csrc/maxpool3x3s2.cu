@@ -18,13 +18,19 @@
 // forward; one read of x and g and one write of dx backward; no
 // arithmetic to speak of). The forward is one thread per output, with
 // neighbouring threads on neighbouring output columns. The backward is
-// the gather form, one thread per input element: it visits the <= 2x2
-// windows that cover the element, recomputes each window's max from x
-// (the nine reads of a window hit L1/L2, shared with the neighbouring
-// threads), and adds g where the element equals it. No atomics, so the
-// result is deterministic, and windows are visited in the same order
-// (row-major over (oy, ox)) as the plain version (ops/pool.py) adds
-// them, so the two agree bit for bit.
+// tiled: a block owns kBY x kBX windows and writes the input rows and
+// columns those windows start (2 oy, 2 oy + 1 and the same for columns).
+// It stages the x region its windows and the next tile's first row and
+// column of windows read, halo included, in shared memory with 16-byte
+// loads where the rows are 16-byte aligned, then computes each window's
+// max once, with its cotangent beside it. Each input element then checks
+// its <= 2x2 covering windows in shared memory and dx is written once.
+// No atomics, so the result is deterministic, and windows are visited in
+// the same order (row-major over (oy, ox)) as the plain version
+// (ops/pool.py) adds them, so the two agree bit for bit.
+
+#include <algorithm>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -32,6 +38,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBY = 16, kBX = 64;  // windows per backward block
+constexpr int kXR = 2 * kBY + 3;   // staged rows: 2 oy0 - 1 .. 2 (oy0 + kBY) + 1
+constexpr int kXC = 2 * kBX + 8;   // staged columns: 2 ox0 - 4 .. 2 (ox0 + kBX) + 3
 
 __device__ __forceinline__ float window_max(const float* __restrict__ p,
                                             int H, int W, int oy, int ox) {
@@ -60,32 +69,98 @@ __global__ void pool_fwd(const float* __restrict__ x, float* __restrict__ y,
   y[i] = window_max(x + plane * H * W, H, W, oy, ox);
 }
 
-__global__ void pool_bwd(const float* __restrict__ x,
-                         const float* __restrict__ g,
-                         float* __restrict__ dx, long long planes, int H,
-                         int W, int Ho, int Wo) {
-  const long long n = planes * H * W;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int w = (int)(i % W);
-  const long long t = i / W;
-  const int h = (int)(t % H);
-  const long long plane = t / H;
+// Grid (Wo / kBX, Ho / kBY, planes), rounded up; vec: W % 4 == 0 and x,
+// dx 16-byte aligned, so every staged or written group of 4 columns is
+// one aligned float4 that lies wholly inside or outside the row.
+__global__ void __launch_bounds__(kThreads)
+pool_bwd(const float* __restrict__ x, const float* __restrict__ g,
+         float* __restrict__ dx, int H, int W, int Ho, int Wo, int vec) {
+  __shared__ __align__(16) float sx[kXR][kXC];
+  __shared__ float smax[kBY + 1][kBX + 1];  // -inf outside the map
+  __shared__ float sg[kBY + 1][kBX + 1];
+
+  const int tid = threadIdx.x;
+  const int ox0 = blockIdx.x * kBX, oy0 = blockIdx.y * kBY;
+  const long long plane = blockIdx.z;
   const float* xp = x + plane * H * W;
   const float* gp = g + plane * Ho * Wo;
-  const float v = x[i];
-  // windows covering row h: oy in [h >> 1, (h + 1) >> 1], within [0, Ho)
-  const int oy0 = h >> 1, oy1 = min((h + 1) >> 1, Ho - 1);
-  const int ox0 = w >> 1, ox1 = min((w + 1) >> 1, Wo - 1);
-  float acc = 0.0f;
-  for (int oy = oy0; oy <= oy1; ++oy) {
-    for (int ox = ox0; ox <= ox1; ++ox) {
-      if (v == window_max(xp, H, W, oy, ox)) {
-        acc += gp[(long long)oy * Wo + ox];
+  float* dxp = dx + plane * H * W;
+  const int h0 = 2 * oy0 - 1, w0 = 2 * ox0 - 4;
+
+  for (int i = tid; i < kXR * (kXC / 4); i += kThreads) {
+    const int r = i / (kXC / 4), c = (i % (kXC / 4)) * 4;
+    const int h = h0 + r, w = w0 + c;
+    float4 v = make_float4(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
+                           -CUDART_INF_F);
+    if (h >= 0 && h < H) {
+      const float* row = xp + (long long)h * W;
+      if (vec && w >= 0 && w < W) {
+        v = *reinterpret_cast<const float4*>(row + w);
+      } else if (!vec) {
+        if (w >= 0 && w < W) v.x = row[w];
+        if (w + 1 >= 0 && w + 1 < W) v.y = row[w + 1];
+        if (w + 2 >= 0 && w + 2 < W) v.z = row[w + 2];
+        if (w + 3 >= 0 && w + 3 < W) v.w = row[w + 3];
       }
     }
+    *reinterpret_cast<float4*>(&sx[r][c]) = v;
   }
-  dx[i] = acc;
+  for (int i = tid; i < (kBY + 1) * (kBX + 1); i += kThreads) {
+    const int wy = i / (kBX + 1), wx = i % (kBX + 1);
+    const bool ok = oy0 + wy < Ho && ox0 + wx < Wo;
+    sg[wy][wx] = ok ? gp[(long long)(oy0 + wy) * Wo + ox0 + wx] : 0.0f;
+  }
+  __syncthreads();
+
+  // window (oy0 + wy, ox0 + wx) reads staged rows 2 wy .. 2 wy + 2 and
+  // columns 2 wx + 3 .. 2 wx + 5
+  for (int i = tid; i < (kBY + 1) * (kBX + 1); i += kThreads) {
+    const int wy = i / (kBX + 1), wx = i % (kBX + 1);
+    float m = -CUDART_INF_F;
+    if (oy0 + wy < Ho && ox0 + wx < Wo) {
+      for (int dy = 0; dy < 3; ++dy)
+        for (int dxx = 0; dxx < 3; ++dxx)
+          m = fmaxf(m, sx[2 * wy + dy][2 * wx + 3 + dxx]);
+    }
+    smax[wy][wx] = m;
+  }
+  __syncthreads();
+
+  // input (2 oy0 + r, 2 ox0 + c), 4 columns per thread; it is covered by
+  // window (r >> 1, c >> 1), by the next column's if c is odd and by the
+  // next row's if r is odd, where those windows exist
+  for (int i = tid; i < 2 * kBY * (2 * kBX / 4); i += kThreads) {
+    const int r = i / (2 * kBX / 4), c0 = (i % (2 * kBX / 4)) * 4;
+    const int h = 2 * oy0 + r;
+    if (h >= H) continue;
+    const int wy = r >> 1;
+    const bool row2 = (r & 1) && oy0 + wy + 1 < Ho;
+    float out[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + j, wx = c >> 1;
+      const bool col2 = (c & 1) && ox0 + wx + 1 < Wo;
+      const float v = sx[r + 1][c + 4];
+      float acc = 0.0f;
+      if (v == smax[wy][wx]) acc += sg[wy][wx];
+      if (col2 && v == smax[wy][wx + 1]) acc += sg[wy][wx + 1];
+      if (row2 && v == smax[wy + 1][wx]) acc += sg[wy + 1][wx];
+      if (row2 && col2 && v == smax[wy + 1][wx + 1]) {
+        acc += sg[wy + 1][wx + 1];
+      }
+      out[j] = acc;
+    }
+    float* row = dxp + (long long)h * W;
+    const int w = 2 * ox0 + c0;
+    if (vec && w < W) {
+      *reinterpret_cast<float4*>(row + w) =
+          make_float4(out[0], out[1], out[2], out[3]);
+    } else if (!vec) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (w + j < W) row[w + j] = out[j];
+    }
+  }
 }
 
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
@@ -108,10 +183,17 @@ extern "C" int maxpool3x3s2_bwd(const float* x, const float* g, float* dx,
                                 int B, int C, int H, int W, int Ho, int Wo,
                                 cudaStream_t stream) {
   const long long planes = (long long)B * C;
-  const long long n = planes * H * W;
-  if (n > 0) {
-    pool_bwd<<<blocks_for(n), kThreads, 0, stream>>>(x, g, dx, planes, H, W,
-                                                     Ho, Wo);
+  if (planes > 0 && H > 0 && W > 0) {
+    const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+    constexpr long long kMaxZ = 65535;  // the grid's z limit
+    for (long long p0 = 0; p0 < planes; p0 += kMaxZ) {
+      const dim3 grid((Wo + kBX - 1) / kBX, (Ho + kBY - 1) / kBY,
+                      (unsigned)std::min(kMaxZ, planes - p0));
+      pool_bwd<<<grid, kThreads, 0, stream>>>(
+          x + p0 * H * W, g + p0 * Ho * Wo, dx + p0 * H * W, H, W, Ho, Wo,
+          vec);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,11 @@ alone. The TPU-only alignment rule (:176, H % 8 and W % 128) is dropped:
 nothing on the card needs it, and it would exclude the 320-wide attack
 crop. On a CUDA tensor `conv3x3_valid` launches the kernels of
 `csrc/conv3x3.cu` or raises; on a CPU tensor it runs the plain versions
-below. Layout: NCHW / OIHW.
+below. Inside D, the output channels of a launch alone choose the route
+(`uses_tensor_cores`): the 3xTF32 tensor-core kernel, or the CUDA-core
+one for a single output channel. The input gradient's flipped, transposed
+weights are made here (`dgrad_weights`), not read in place by the kernel.
+Layout: NCHW / OIHW.
 """
 
 from __future__ import annotations
@@ -35,18 +39,31 @@ SMALL_C = 64  # pallas_conv.py:175
 
 FWD = register(
     "conv3x3_fwd", "conv3x3.cu",
-    [POINTER, POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT,
+    [POINTER, POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT, INT,
      POINTER],
     replaces="depthmodelhardening_tpu/ops/pallas_conv.py:42")
 DGRAD = register(
     "conv3x3_dgrad", "conv3x3.cu",
-    [POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, POINTER],
+    [POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT, POINTER],
     replaces="depthmodelhardening_tpu/ops/pallas_conv.py:42")
 
 
 def takes_kernel(cin: int, co: int) -> bool:
     """Whether `conv3x3_reflect` routes a Cin -> Co conv to kernel D."""
     return cin <= SMALL_C and co <= SMALL_C
+
+
+def uses_tensor_cores(co: int) -> bool:
+    """Kernel D's route for a launch with `co` output channels: the 3xTF32
+    tensor-core kernel for Co >= 2; the CUDA-core kernel for Co = 1 (the
+    16 -> 1 disparity head forward, bound by bytes)."""
+    return co >= 2
+
+
+def dgrad_weights(w):
+    """The input gradient's weights (Cin, Co, 3, 3): w flipped in both
+    spatial axes, in and out channels transposed (`pallas_conv.py:149`)."""
+    return w.flip((2, 3)).transpose(0, 1).contiguous()
 
 
 def _epilogue(out, elu: bool):
@@ -91,7 +108,8 @@ def conv3x3_valid_cuda(xp, w, bias=None, elu: bool = False):
                       device=xp.device)
     FWD.launch(xp.data_ptr(), w.data_ptr(),
                None if bias is None else bias.data_ptr(), out.data_ptr(),
-               B, Cin, Hp, Wp, Co, int(elu), stream_handle(xp))
+               B, Cin, Hp, Wp, Co, int(elu), int(uses_tensor_cores(Co)),
+               stream_handle(xp))
     return out
 
 
@@ -103,9 +121,10 @@ def conv3x3_dgrad_cuda(g, w):
         raise ValueError(f"w must be ({Co}, Cin, 3, 3), got "
                          f"{tuple(w.shape)}")
     Cin = w.shape[1]
+    wt = dgrad_weights(w)
     dxp = torch.empty((B, Cin, H + 2, W + 2), dtype=g.dtype, device=g.device)
-    DGRAD.launch(g.data_ptr(), w.data_ptr(), dxp.data_ptr(), B, Co, H, W,
-                 Cin, stream_handle(g))
+    DGRAD.launch(g.data_ptr(), wt.data_ptr(), dxp.data_ptr(), B, Co, H, W,
+                 Cin, int(uses_tensor_cores(Cin)), stream_handle(g))
     return dxp
 
 

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from flax import linen as nn
 from jax.experimental import pallas as pl
 
@@ -29,6 +30,7 @@ from depthmodelhardening_tpu_torch.ops import conv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FWD_ATOL, DX_ATOL, DW_ATOL = 3e-6, 1e-5, 1e-4
+CONV_RTOL = 1e-5  # chip_smoke.py's hold on kernel D: of the plain max
 
 
 def _interp(fn, *args):
@@ -190,3 +192,73 @@ def test_prototypes_p1_p2_compute_the_same_function(p1_script, name):
     got = _interp(getattr(p1_script, name), x, k)
     want = conv.conv3x3_reflect(_nchw(x), _oihw(k))
     np.testing.assert_allclose(np.asarray(got), _nhwc(want), atol=FWD_ATOL)
+
+
+def _tf32(t):
+    """float32 rounded to TF32 as cvt.rna.tf32.f32 (and kernel D's
+    `to_tf32`) rounds: half a TF32 ulp added to the magnitude, the 13 low
+    bits dropped (to nearest, ties away from zero)."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _conv_tf32(xp, w, three_products: bool):
+    """Kernel D's tensor-core arithmetic on the CPU: each operand split
+    into big = tf32(a) and small = tf32(a - big), products summed in
+    float32 as small*big + big*small + big*big, or big*big alone."""
+    xb, wb = _tf32(xp), _tf32(w)
+    out = F.conv2d(xb, wb)
+    if three_products:
+        out = F.conv2d(_tf32(xp - xb), wb) + F.conv2d(xb, _tf32(w - wb)) + out
+    return out
+
+
+@pytest.mark.parametrize("direction", ["fwd", "dgrad"])
+@pytest.mark.parametrize("cin,co", [(16, 16), (32, 16), (64, 32)])
+def test_3xtf32_split_holds_float32_accuracy(direction, cin, co):
+    """Emulated 3xTF32 holds the float64 conv within CONV_RTOL of its
+    largest magnitude, at decoder-like channels (relu'd input, the
+    decoder's weight scale; the input gradient on the 2-padded cotangent
+    with `dgrad_weights`); TF32 alone (big*big) does not, which is why
+    kernel D splits."""
+    rng = np.random.default_rng(cin + co)
+    w = torch.from_numpy((rng.standard_normal((co, cin, 3, 3))
+                          / (3.0 * cin ** 0.5)).astype(np.float32))
+    if direction == "fwd":
+        inp = torch.from_numpy(rng.random((2, cin, 12, 26), np.float32))
+    else:
+        g = torch.from_numpy(rng.standard_normal((2, co, 10, 24))
+                             .astype(np.float32))
+        inp, w = F.pad(g, (2, 2, 2, 2)), conv.dgrad_weights(w)
+    want = F.conv2d(inp.double(), w.double())
+    tol = CONV_RTOL * float(want.abs().max())
+    err3 = float((_conv_tf32(inp, w, True).double() - want).abs().max())
+    err1 = float((_conv_tf32(inp, w, False).double() - want).abs().max())
+    assert err3 <= tol, (err3, tol)
+    assert err1 > tol, (err1, tol)
+
+
+@pytest.mark.parametrize("cin,co", [(16, 16), (16, 1), (64, 32), (3, 13)])
+def test_dgrad_weights_give_the_input_gradient(cin, co):
+    """The flipped, transposed weights that the wrapper hands kernel D
+    (`dgrad_weights`), in the forward's VALID conv of the cotangent
+    zero-padded by 2, are `conv3x3_dgrad_plain`."""
+    rng = np.random.default_rng(cin * co)
+    w = torch.from_numpy(rng.standard_normal((co, cin, 3, 3))
+                         .astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((2, co, 7, 11))
+                         .astype(np.float32))
+    wt = conv.dgrad_weights(w)
+    assert wt.shape == (cin, co, 3, 3) and wt.is_contiguous()
+    got = conv.conv3x3_valid_plain(F.pad(g, (2, 2, 2, 2)), wt)
+    torch.testing.assert_close(got, conv.conv3x3_dgrad_plain(g, w),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("co,tensor_cores", [(1, False), (2, True),
+                                             (13, True), (16, True),
+                                             (64, True)])
+def test_route_by_output_channels(co, tensor_cores):
+    """Inside kernel D a launch's output channels alone choose the
+    route: the 16 -> 1 head's forward runs on the CUDA cores, every other
+    launch (its input gradient, 1 -> 16, included) on the tensor cores."""
+    assert conv.uses_tensor_cores(co) is tensor_cores
