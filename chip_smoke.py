@@ -9,16 +9,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    numerics (TF32 off, cuDNN off: `device.use_f32_numerics`).
 2. build: compile every kernel in depthmodelhardening_tpu_torch/csrc/
    with nvcc into build/torch_kernels/, one nvcc per source, in
-   parallel.
+   parallel; print each kernel's registers, spills and stack frame as
+   ptxas reports them (NO_SPILL's kernels must have none).
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes its main path gives it: max abs error, median
-   CUDA-event time of both and of the one PyTorch library call that
+   CUDA-event time on the card alone (`cuda_ms`: the launches queued
+   behind a spin; a kernel's time also with the host time in front of
+   its launch) of both and of the one PyTorch library call that
    computes the same function (where there is one), and the least time
    the card could take (bytes over 3.35 TB/s, operations over 67
    TFLOP/s float32, the larger; for kernel D also 3 TF32 operations per
    float32 one over the tensor cores' 495 TFLOP/s, its row's bound). The
    pool backward B2 bit for bit, also at the distillation step's shape
-   and at shapes that straddle its tiles. Kernel D (the decoder's narrow
+   and at shapes that straddle its tiles; kernel C's backward bit for
+   bit also at shapes that straddle its tiles; warp A on random, ragged
+   and the attack's own row maps (timed at batch 12 and 32, the row's
+   times from the attack's maps at batch 12). Kernel D (the decoder's narrow
    3x3 convs) at the four convs of the scale-0 path at batch 32,
    1024x320, at ragged shapes (1, 3, 13, 64 channels in and out, 37x53)
    and at the 320x256 attack crop: forward, forward with bias + ELU, and
@@ -76,6 +82,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -84,6 +91,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from depthmodelhardening_tpu_torch.attacks.base import PhysObjAttackConfig
 from depthmodelhardening_tpu_torch.data.synthetic import (
     make_car_object, make_scene,
 )
@@ -122,6 +130,13 @@ CONV_RTOL = 1e-5
 # float32 FLOP/s outside the tensor cores, dense TF32 FLOP/s of the
 # tensor cores
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
+# the tile of csrc/reproj_loss.cu's bwd_grad_kernel, kBwdTileH x
+# kBwdTileW pixels: phase 3 checks it at shapes that straddle it
+REPROJ_BWD_TILE = (32, 32)
+# source -> its kernel that keeps every value in registers or shared
+# memory: ptxas must report no spill and no stack frame for it
+NO_SPILL = {"reproj_loss.cu": "bwd_grad_kernel",
+            "vertical_resample.cu": "vert_bwd"}
 CONV_KERNELS = ("conv3x3_fwd", "conv3x3_dgrad")
 SLICE1_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
                   "maxpool3x3s2_fwd", "maxpool3x3s2_bwd") + CONV_KERNELS
@@ -134,14 +149,30 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median milliseconds of `fn()` on the card, by CUDA events."""
+SPIN_HZ = 2e9  # about the card's clock: cycles of torch.cuda._sleep a second
+
+
+def cuda_ms(fn, reps: int = 20, queued: bool = True) -> float:
+    """Median milliseconds of `fn()` on the card, by CUDA events.
+
+    queued: before each start event the card spins (torch.cuda._sleep)
+    for four times the host time `fn` takes to enqueue its work, so the
+    start event fires only once the launches are queued behind it, and
+    the time is the card's alone. queued=False: the events bracket the
+    call as it comes, so the host time in front of each launch (a
+    wrapper's checks, the ctypes call) counts too."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    cycles = int(4 * (time.perf_counter() - t0) * SPIN_HZ) + 100_000
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(cycles)
         start.record()
         fn()
         end.record()
@@ -166,17 +197,79 @@ def phase_device() -> torch.device:
 
 
 # -- phase 2 -----------------------------------------------------------------
+def _demangle(symbol: str) -> str:
+    """The kernel's name and integer template arguments of an Itanium-
+    mangled symbol, e.g. bwd_grad_kernel<32, 8, 4>."""
+    rest, parts = re.sub(r"^_ZN?", "", symbol), []
+    while (m := re.match(r"\d+", rest)):
+        n = int(m.group())
+        parts.append(rest[m.end():m.end() + n])
+        rest = rest[m.end() + n:]
+    names = [p for p in parts if not p.startswith("_GLOBAL__N")]
+    if not names:
+        return symbol
+    args = re.match(r"I((?:L[a-z]n?\d+E)+)E", rest)
+    tmpl = "" if args is None else "<" + ", ".join(
+        v.replace("n", "-")
+        for v in re.findall(r"L[a-z](n?\d+)E", args.group(1))) + ">"
+    return "::".join(names) + tmpl
+
+
+def ptxas_usage(report: str):
+    """[(kernel, registers, spill stores + loads in bytes, stack frame in
+    bytes)] of each entry function in nvcc -Xptxas -v's report."""
+    rows, name, spill, stack = [], None, 0, 0
+    for line in report.splitlines():
+        if (m := re.search(r"Function properties for (\S+)", line)):
+            name, spill, stack = _demangle(m.group(1)), 0, 0
+        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                             r"stores, (\d+) bytes spill loads", line)):
+            stack, st, ld = map(int, m.groups())
+            spill = st + ld
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append((name, int(m.group(1)), spill, stack))
+            name = None
+    return rows
+
+
 def phase_build() -> None:
     secs = _build.build_all()
     names = sorted({k.source for k in _build.KERNELS})
     log(f"build: {names} into {os.path.relpath(_build.BUILD_DIR, REPO)} "
         f"in {secs:.1f} s")
+    for source in names:
+        if source not in _build.PTXAS:
+            log(f"  {source}: built before this run, no ptxas report")
+            continue
+        usage = ptxas_usage(_build.PTXAS[source])
+        for kernel, regs, spill, stack in usage:
+            log(f"  {source} {kernel}: {regs} registers, {spill} B spilled, "
+                f"{stack} B stack")
+        if source in NO_SPILL:
+            mine = [u for u in usage if u[0].startswith(NO_SPILL[source])]
+            if not mine or any(spill or stack for _, _, spill, stack in mine):
+                raise AssertionError(f"{NO_SPILL[source]} of {source} is "
+                                     f"missing or spills: {mine}")
 
 
 # -- phase 3 -----------------------------------------------------------------
-def _warp_inputs(gen, dev, Bn, C, OH, TH, TW, ragged: bool):
+def _attack_row_maps(gen, Bn):
+    """A, B (Bn, 256) of the attack's own EoT view at 1024x320 with
+    256x256 tiles and the 300x200 car: distances and angles drawn from
+    the attack's ranges, the geometry from the port's EoTCompositor."""
+    cfg = PhysObjAttackConfig(obj_h=200, obj_w=300)
+    z, a = (torch.tensor(r)[torch.randint(len(r), (Bn,), generator=gen)]
+            for r in (cfg.dist_range, cfg.angle_range))
+    _, A, B, _, _ = cfg.make_eot()._separable_geometry(
+        z, a, cfg.scene_h, cfg.scene_w, cfg.tile_h, cfg.tile_w)
+    return A, B
+
+
+def _warp_inputs(gen, dev, Bn, C, OH, TH, TW, maps: str):
     inter = torch.rand((Bn, C, OH, TW), generator=gen).to(dev)
-    if ragged:
+    if maps == "attack":
+        A, B = _attack_row_maps(gen, Bn)
+    elif maps == "ragged":
         # every corner case of the row map: negative, zero and tiny slopes
         A = torch.empty((Bn, TW)).uniform_(-3.0, 3.0, generator=gen)
         A[:, ::5] = 0.0
@@ -226,6 +319,12 @@ def phase_kernels(dev) -> dict:
     rows = {}
 
     def row(kernel, err, ms, plain_ms, library_ms, work):
+        """`ms`: the kernel's time, or its call, timed here on the card
+        alone and again with the host time in front of the launch
+        (queued=False)."""
+        launch = None
+        if callable(ms):
+            launch, ms = ms, cuda_ms(ms)
         bound_ms, bound_by = work if isinstance(work[1], str) else \
             bound(*work)
         rows[kernel.name] = dict(
@@ -234,15 +333,22 @@ def phase_kernels(dev) -> dict:
             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        host = ("" if launch is None else
+                f" ({cuda_ms(launch, queued=False):.4f} with host time)")
         log(f"  {kernel.name}: max|kernel-plain| {err:.3e}  "
-            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib}  "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
+            f"kernel {ms:.4f} ms{host}  plain {plain_ms:.4f} ms  library "
+            f"{lib}  bound {bound_ms:.4f} ms ({bound_by})")
 
-    for label, shape, ragged in (
-            ("slice", (12, 4, 200, 256, 256), False),
-            ("ragged", (3, 5, 37, 45, 53), True)):
+    # warp A: random slopes over the attack's range, ragged maps with
+    # every corner case, and the attack's own row maps at the attack
+    # eval's batch (the row's times) and the distillation step's
+    for label, shape, maps in (
+            ("random maps", (12, 4, 200, 256, 256), "random"),
+            ("ragged", (3, 5, 37, 45, 53), "ragged"),
+            ("attack maps", (12, 4, 200, 256, 256), "attack"),
+            ("attack maps, distillation", (32, 4, 200, 256, 256), "attack")):
         Bn, C, OH, TH, TW = shape
-        inter, A, B = _warp_inputs(gen, dev, Bn, C, OH, TH, TW, ragged)
+        inter, A, B = _warp_inputs(gen, dev, Bn, C, OH, TH, TW, maps)
         g = torch.randn((Bn, C, TH, TW), generator=gen).to(dev)
         out_k = warp.vertical_resample_fwd_cuda(inter, A, B, TH)
         out_p = warp.vertical_resample_plain(inter, A, B, TH)
@@ -256,23 +362,34 @@ def phase_kernels(dev) -> dict:
             f"{WARP_BWD_ATOL})")
         if not (e_f <= WARP_FWD_ATOL and e_b <= WARP_BWD_ATOL):
             raise AssertionError(f"warp kernel disagrees at {shape}")
-        if label == "slice":
+        if maps == "ragged":
+            continue
+        work_f = (nbytes(inter, A, B, out_k), 4 * out_k.numel())
+        work_b = (nbytes(g, A, B, d_k), 4 * g.numel())
+
+        def fwd():
+            return warp.vertical_resample_fwd_cuda(inter, A, B, TH)
+
+        def bwd():
+            return warp.vertical_resample_bwd_cuda(g, A, B, OH)
+
+        if label != "attack maps":
+            log(f"  {label} {shape}: vertical_resample_fwd "
+                f"{cuda_ms(fwd):.4f} ms (bound {bound(*work_f)[0]:.4f}), "
+                f"vertical_resample_bwd {cuda_ms(bwd):.4f} ms "
+                f"({cuda_ms(bwd, queued=False):.4f} with host time; bound "
+                f"{bound(*work_b)[0]:.4f})")
+        else:
             # no library call: A's two taps with their own validity
             # masks are not F.grid_sample's edge rule. Operations: two
             # products, a sum and the 1 - w weight per output (forward),
             # two products and two sums per cotangent (adjoint)
-            row(warp.FWD, e_f,
-                cuda_ms(lambda: warp.vertical_resample_fwd_cuda(
-                    inter, A, B, TH)),
+            row(warp.FWD, e_f, fwd,
                 cuda_ms(lambda: warp.vertical_resample_plain(
-                    inter, A, B, TH)), None,
-                (nbytes(inter, A, B, out_k), 4 * out_k.numel()))
-            row(warp.BWD, e_b,
-                cuda_ms(lambda: warp.vertical_resample_bwd_cuda(
-                    g, A, B, OH)),
+                    inter, A, B, TH)), None, work_f)
+            row(warp.BWD, e_b, bwd,
                 cuda_ms(lambda: warp.vertical_resample_adjoint_plain(
-                    g, A, B, OH)), None,
-                (nbytes(g, A, B, d_k), 4 * g.numel()))
+                    g, A, B, OH)), None, work_b)
 
     # the stem pool sees relu outputs: many exact zeros, so ties are the
     # rule and the equality routing must agree with the plain version; at
@@ -300,23 +417,26 @@ def phase_kernels(dev) -> dict:
             # routes a tie to one input, B2 to all). Operations: 8 max
             # per window; backward 8 max, 9 tests, 9 sums per window
             _, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
-            row(pool.FWD, e_f,
-                cuda_ms(lambda: pool.maxpool3x3s2_fwd_cuda(x)),
+            row(pool.FWD, e_f, lambda: pool.maxpool3x3s2_fwd_cuda(x),
                 cuda_ms(lambda: pool.maxpool3x3s2_plain(x)),
                 cuda_ms(lambda: F.max_pool2d(x, 3, 2, 1)),
                 (nbytes(x, y_k), 8 * y_k.numel()))
-            row(pool.BWD, e_b,
-                cuda_ms(lambda: pool.maxpool3x3s2_bwd_cuda(x, g)),
+            row(pool.BWD, e_b, lambda: pool.maxpool3x3s2_bwd_cuda(x, g),
                 cuda_ms(lambda: pool.maxpool3x3s2_backward_plain(x, g)),
                 cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                     g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)),
                 (nbytes(x, g, dx_k), 26 * g.numel()))
 
-    # kernel C at the training step's shape, a ragged one and H or W = 2
-    # (reflect edges); y equals x on a band of rows and on scattered
-    # pixels, so the clip's 0.5 and |.|''s +1 tie rules are exercised
+    # kernel C at the training step's shape, a ragged one, H or W = 2
+    # (reflect edges), and shapes that straddle bwd_grad's tiles (one
+    # row and column past them, W % 4 = 0 and not, a single row or
+    # column); y equals x on a band of rows and on scattered pixels, so
+    # the clip's 0.5 and |.|''s +1 tie rules are exercised
+    th, tw = REPROJ_BWD_TILE
     for shape in ((32, 3, 320, 1024), (3, 3, 37, 53), (2, 3, 2, 41),
-                  (2, 3, 23, 2)):
+                  (2, 3, 23, 2), (2, 3, th + 1, tw + 1),
+                  (1, 3, 2 * th + 1, 4 * tw + 4), (2, 3, th // 2 + 1, tw - 2),
+                  (1, 3, 1, tw + 5), (1, 3, th + 5, 1)):
         x, y = _reproj_inputs(gen, dev, shape)
         g = torch.randn((shape[0],) + shape[2:], generator=gen).to(dev)
         out_k = reproj.reproj_loss_fwd_cuda(x, y)
@@ -334,32 +454,29 @@ def phase_kernels(dev) -> dict:
             raise AssertionError(f"reproj kernel disagrees at {shape}")
         if shape[0] == 32:
             B, C, H, W = shape
-            q = torch.empty((B, 4 * C, H, W), device=dev)
+            q = reproj.reproj_loss_bwd_q_plain(x, y, g)
             dx = torch.empty_like(x)
             stream = _build.stream_handle(x)
-            plain_bwd = cuda_ms(lambda: reproj.reproj_loss_backward_plain(
-                x, y, g, need_dy=False), reps=5)
             # no library call computes SSIM. Operations per pixel and
             # channel, about: 9 taps x (5 sums + 3 products) of the
             # moments, the SSIM quotient, clip and L1 (100 forward); the
             # moment derivatives (120); the pool and pad adjoints (72)
-            row(reproj.FWD, e_f,
-                cuda_ms(lambda: reproj.reproj_loss_fwd_cuda(x, y)),
+            row(reproj.FWD, e_f, lambda: reproj.reproj_loss_fwd_cuda(x, y),
                 cuda_ms(lambda: reproj.reproj_loss_plain(x, y), reps=5),
                 None, (nbytes(x, y, out_k), 100 * x.numel()))
-            # the plain backward has no split: both rows carry its time
-            row(reproj.BWD_Q, e_b,
-                cuda_ms(lambda: reproj.BWD_Q.launch(
+            row(reproj.BWD_Q, e_b, lambda: reproj.BWD_Q.launch(
                     x.data_ptr(), y.data_ptr(), g.data_ptr(), q.data_ptr(),
-                    B, C, H, W, stream)), plain_bwd, None,
-                (nbytes(x, y, g, q), 120 * x.numel()))
-            row(reproj.BWD_GRAD, e_b,
-                cuda_ms(lambda: reproj.BWD_GRAD.launch(
+                    B, C, H, W, stream),
+                cuda_ms(lambda: reproj.reproj_loss_bwd_q_plain(x, y, g),
+                        reps=5), None, (nbytes(x, y, g, q), 120 * x.numel()))
+            row(reproj.BWD_GRAD, e_b, lambda: reproj.BWD_GRAD.launch(
                     x.data_ptr(), y.data_ptr(), g.data_ptr(), q.data_ptr(),
-                    dx.data_ptr(), 0, B, C, H, W, stream)), plain_bwd, None,
+                    dx.data_ptr(), 0, B, C, H, W, stream),
+                cuda_ms(lambda: reproj.reproj_loss_grad_from_q_plain(
+                    x, y, g, q, need_dy=False), reps=5), None,
                 (nbytes(x, y, g, q, dx), 72 * x.numel()))
-            log(f"  (the backward rows' plain time is the whole plain "
-                f"backward, d_pred only; kernels with no d_target)")
+            log(f"  (backward rows: d_pred only, no d_target, as the "
+                f"training step asks)")
     phase_conv_kernels(dev, gen, row)
     return rows
 
@@ -655,9 +772,10 @@ def phase_breakdown(attack, predictor, scenes, rows) -> None:
             no_grad(lambda: _batch_metrics(predictor, fin[0], fin[1],
                                            fin[2])),
     }
-    log("breakdown at batch 12, 1024x320 (median CUDA-event ms):")
+    log("breakdown at batch 12, 1024x320 (median CUDA-event ms, host "
+        "time included):")
     for name, fn in parts.items():
-        log(f"  {name}: {cuda_ms(fn, reps=10):.3f}")
+        log(f"  {name}: {cuda_ms(fn, reps=10, queued=False):.3f}")
     for r in rows.values():
         log(f"  kernel {r['name']}: {r['ms']:.4f} (plain {r['plain_ms']:.4f})")
 

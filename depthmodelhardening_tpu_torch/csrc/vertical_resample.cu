@@ -16,14 +16,33 @@
 // 56-row bands); each output here needs only its two taps. The forward
 // is one thread per (b, y, x): it computes sy once, reads the two taps
 // of each of the C channels (neighbouring threads read neighbouring
-// columns, so the loads coalesce) and writes C outputs. The backward is
-// the gather form, one thread per (b, k, x), looping over the TH tile
-// rows and reading g only at the rows whose taps hit k: no atomics, so
-// it is deterministic. The loop costs TH multiply-adds per thread,
-// which is well under the time of its memory traffic at the attack's
-// shapes, and handles any A (negative, zero or tiny) exactly.
+// columns, so the loads coalesce) and writes C outputs.
+//
+// The backward is the gather form, one thread per (b, k, x) on a
+// (x, k, b) grid, reading g only at the tile rows whose taps hit k: no
+// atomics, so it is deterministic. Looping over all TH rows to find
+// them cost TH floor-and-compare steps a thread for about 2 hits at the
+// attack's slopes (A >= 0.9) and ran at 3% of the byte bound. Row y
+// hits k iff floor(sy) is k - 1 or k, i.e. sy in [k - 1, k + 1), so for
+// A != 0 y lies between e1 = (k - 1 - B) / A and e2 = (k + 1 - B) / A.
+// The kernel loops over [min(e1, e2) - m, max(e1, e2) + m], clamped to
+// [0, TH), with m = 1 + err / |A| rows, err = 2^-20 (|A| TH + |B| + k
+// + 2): the computed sy = fl(fl(A y) + B) is within 2^-23 (|A| TH + |B|)
+// of A y + B, and e1, e2 within 2^-23 (k + 1 + |B|) / |A| of theirs, so
+// m holds both four times over, plus a row for the floor. Inside the
+// interval each row keeps the exact test (recompute sy, floorf, compare
+// with k) and rows are walked upwards, so the weights and the order of
+// the sum are those of the full loop bit for bit. Where the interval is
+// not finite (A = 0, or A so small that err / |A| overflows) the kernel
+// loops over all TH rows; a tiny A gives an interval that spans them
+// anyway. The channel loops are unrolled to kMaxChannels, so the
+// accumulators stay in registers (a loop to C put them on the stack).
+// Index math is 32-bit; the entry point refuses tensors of 2^31
+// elements or more and grids past 65535 object rows or batches.
 // Built with -fmad=false, so sy and the weights round exactly as the
 // plain PyTorch version (ops/warp.py) rounds them.
+
+#include <climits>
 
 #include <cuda_runtime.h>
 
@@ -63,26 +82,46 @@ __global__ void vert_fwd(const float* __restrict__ inter,
   }
 }
 
+// The tile rows [y0, y1) that can hit object row k (see the note above;
+// ops/warp.py:candidate_rows is its float32 mirror).
+__device__ __forceinline__ void candidate_rows(float a, float bb, float kf,
+                                               int TH, int& y0, int& y1) {
+  const float e1 = (kf - 1.0f - bb) / a;
+  const float e2 = (kf + 1.0f - bb) / a;
+  const float err = 0x1p-20f * (fabsf(a) * (float)TH + fabsf(bb) + kf + 2.0f);
+  const float m = 1.0f + err / fabsf(a);
+  const float lo = fminf(e1, e2) - m, hi = fmaxf(e1, e2) + m;
+  if (isfinite(lo) && isfinite(hi)) {
+    y0 = (int)fminf(fmaxf(floorf(lo), 0.0f), (float)TH);
+    y1 = (int)fminf(fmaxf(floorf(hi) + 1.0f, 0.0f), (float)TH);
+  } else {
+    y0 = 0;
+    y1 = TH;
+  }
+}
+
+// Grid (ceil(TW / kThreads), OH, Bn).
 __global__ void vert_bwd(const float* __restrict__ g,
                          const float* __restrict__ A,
                          const float* __restrict__ B,
                          float* __restrict__ d_inter,
-                         int Bn, int C, int OH, int TH, int TW) {
-  const long long n = (long long)Bn * OH * TW;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % TW);
-  const long long t = i / TW;
-  const int k = (int)(t % OH);
-  const int b = (int)(t / OH);
+                         int C, int OH, int TH, int TW) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= TW) return;
+  const int k = blockIdx.y, b = blockIdx.z;
 
-  const float a = A[(long long)b * TW + x];
-  const float bb = B[(long long)b * TW + x];
+  const float a = A[b * TW + x];
+  const float bb = B[b * TW + x];
   const float kf = (float)k;
+  int y0, y1;
+  candidate_rows(a, bb, kf, TH, y0, y1);
+  // channel loops unrolled to kMaxChannels, so acc stays in registers
   float acc[kMaxChannels];
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) acc[c] = 0.0f;
 
-  for (int y = 0; y < TH; ++y) {
+  const float* gb = g + b * C * TH * TW + x;
+  for (int y = y0; y < y1; ++y) {
     const float sy = a * (float)y + bb;
     const float k0f = floorf(sy);
     float w;
@@ -93,12 +132,14 @@ __global__ void vert_bwd(const float* __restrict__ g,
     } else {
       continue;
     }
-    for (int c = 0; c < C; ++c) {
-      acc[c] += g[((long long)(b * C + c) * TH + y) * TW + x] * w;
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) {
+      if (c < C) acc[c] += gb[(c * TH + y) * TW] * w;
     }
   }
-  for (int c = 0; c < C; ++c) {
-    d_inter[((long long)(b * C + c) * OH + k) * TW + x] = acc[c];
+#pragma unroll
+  for (int c = 0; c < kMaxChannels; ++c) {
+    if (c < C) d_inter[((b * C + c) * OH + k) * TW + x] = acc[c];
   }
 }
 
@@ -124,10 +165,13 @@ extern "C" int vertical_resample_bwd(const float* g, const float* A,
                                      int C, int OH, int TH, int TW,
                                      cudaStream_t stream) {
   if (C < 1 || C > kMaxChannels) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)Bn * OH * TW;
-  if (n > 0) {
-    vert_bwd<<<blocks_for(n), kThreads, 0, stream>>>(g, A, B, d_inter, Bn,
-                                                     C, OH, TH, TW);
+  if (Bn <= 0 || OH <= 0 || TW <= 0) return (int)cudaGetLastError();
+  constexpr long long kMaxGrid = 65535;  // the grid's y and z limits
+  const long long rows = (long long)Bn * C * (TH > OH ? TH : OH);
+  if (Bn > kMaxGrid || OH > kMaxGrid || rows * TW > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
   }
+  const dim3 grid((TW + kThreads - 1) / kThreads, OH, Bn);
+  vert_bwd<<<grid, kThreads, 0, stream>>>(g, A, B, d_inter, C, OH, TH, TW);
   return (int)cudaGetLastError();
 }

@@ -84,12 +84,12 @@ def _pad_adjoint(g):
     return d
 
 
-def reproj_loss_backward_plain(x, y, g, need_dy: bool = True):
-    """Analytic VJP of `reproj_loss_plain` at (x, y) for the cotangent g
-    (B, H, W): (dx, dy), dy None unless `need_dy`. The formulas and
-    their order are `_analytic_bwd`'s."""
+def reproj_loss_bwd_q_plain(x, y, g):
+    """The SSIM term's cotangents of the five moments, as the
+    `reproj_loss_bwd_q` kernel writes them: (B, 4C, H, W), q0 (mu_x), q1
+    (mu_y), q23 (E[x^2] and E[y^2]), q4 (E[xy]), each times 1/9. The
+    formulas and their order are `_analytic_bwd`'s."""
     C = x.shape[1]
-    H, W = x.shape[-2:]
     p0, p1, p2, p3, p4 = moments(x, y)
     A = p0 * p0 + p1 * p1 + C1
     Bn = 2 * p0 * p1 + C1
@@ -107,11 +107,19 @@ def reproj_loss_backward_plain(x, y, g, need_dy: bool = True):
     q1 = gm * (2 * p0 * (S - Bn) / d - rd * 2 * p1 * (T - A))
     q23 = gm * (-rd * A)
     q4 = gm * (2 * Bn / d)
+    return torch.cat([q0, q1, q23, q4], dim=1) * (1.0 / 9.0)
+
+
+def reproj_loss_grad_from_q_plain(x, y, g, q, need_dy: bool = True):
+    """(dx, dy) from `reproj_loss_bwd_q_plain`'s q, as the
+    `reproj_loss_bwd_grad` kernel computes them; dy None unless
+    `need_dy`."""
+    C = x.shape[1]
+    H, W = x.shape[-2:]
     # the mean pool's adjoint: a full 3x3 correlation with ones on the
     # padded grid (q padded by 2 zeros)
-    q = F.pad(torch.cat([q0, q1, q23, q4], dim=1) * (1.0 / 9.0),
-              (2, 2, 2, 2))
-    u0, u1, u2, u4 = sum_taps(q, H + 2, W + 2).split(C, dim=1)
+    u0, u1, u2, u4 = sum_taps(F.pad(q, (2, 2, 2, 2)), H + 2,
+                              W + 2).split(C, dim=1)
     xp, yp = reflect_pad1(x), reflect_pad1(y)
     # |.|' = +1 at 0 (JAX's convention)
     l1 = (0.15 / C) * g[:, None] * torch.where(x >= y, 1.0, -1.0)
@@ -120,6 +128,13 @@ def reproj_loss_backward_plain(x, y, g, need_dy: bool = True):
         return dx, None
     dy = _pad_adjoint(u1 + 2 * yp * u2 + xp * u4) - l1
     return dx, dy
+
+
+def reproj_loss_backward_plain(x, y, g, need_dy: bool = True):
+    """Analytic VJP of `reproj_loss_plain` at (x, y) for the cotangent g
+    (B, H, W): (dx, dy), dy None unless `need_dy`."""
+    return reproj_loss_grad_from_q_plain(
+        x, y, g, reproj_loss_bwd_q_plain(x, y, g), need_dy)
 
 
 # -- CUDA kernels ------------------------------------------------------------

@@ -15,7 +15,9 @@ the JAX package's `ops/pallas_reproj.py` and `ops/losses.py`.
   with identical x/y regions and equal pixels, where the clip's 0.5 and
   |.|''s +1 rules decide; and against torch autograd of the plain
   forward on tie-free inputs (1e-5: autograd rounds another chain);
-* `reprojection_loss` with and without SSIM against `ops/losses.py`.
+* `reprojection_loss` with and without SSIM against `ops/losses.py`;
+* the halo of the `reproj_loss_bwd_grad` kernel's tiles: q outside a
+  tile widened by one row and column does not reach dx, dy on the tile.
 """
 
 import jax
@@ -32,7 +34,8 @@ from depthmodelhardening_tpu.ops.losses import (
 from depthmodelhardening_tpu.ops.ssim import ssim as j_ssim
 from depthmodelhardening_tpu_torch.ops.losses import reprojection_loss
 from depthmodelhardening_tpu_torch.ops.reproj import (
-    reproj_loss, reproj_loss_backward_plain, reproj_loss_plain,
+    reproj_loss, reproj_loss_backward_plain, reproj_loss_bwd_q_plain,
+    reproj_loss_grad_from_q_plain, reproj_loss_plain,
 )
 from depthmodelhardening_tpu_torch.ops.ssim import ssim
 
@@ -182,3 +185,36 @@ def test_reprojection_loss_matches_jax(use_ssim):
                                atol=FWD_ATOL, rtol=0)
     np.testing.assert_allclose(dp.numpy(), np.asarray(jdp),
                                atol=AUTODIFF_ATOL, rtol=0)
+
+
+def _tiles(n):
+    """Row (or column) ranges of tiles at both edges and inside."""
+    t = max(1, n // 4)
+    mid = min(max(0, n // 2 - t // 2), n - t)
+    return sorted({(0, t), (n - t, n), (mid, mid + t), (0, n)})
+
+
+@pytest.mark.parametrize("H", [1, 2, 3, 37])
+@pytest.mark.parametrize("W", [1, 2, 3, 37])
+def test_gradient_on_a_tile_reads_q_only_within_one_of_it(H, W):
+    """Zeroing q outside a tile widened by one row and column (the
+    window the kernel stages) leaves dx and dy on the tile bit-unchanged,
+    reflected edges and corners included."""
+    x, y = _inputs((2, H, W, 3), 10, ties=True)
+    x, y = _planar(x), _planar(y)
+    g = torch.from_numpy(
+        np.random.RandomState(11).randn(2, H, W).astype(np.float32))
+    q = reproj_loss_bwd_q_plain(x, y, g)
+    dx, dy = reproj_loss_grad_from_q_plain(x, y, g, q)
+    want_dx, want_dy = reproj_loss_backward_plain(x, y, g)
+    assert torch.equal(dx, want_dx) and torch.equal(dy, want_dy)
+    for r0, r1 in _tiles(H):
+        for c0, c1 in _tiles(W):
+            qt = torch.zeros_like(q)
+            win = (slice(None), slice(None), slice(max(r0 - 1, 0), r1 + 1),
+                   slice(max(c0 - 1, 0), c1 + 1))
+            qt[win] = q[win]
+            tx, ty = reproj_loss_grad_from_q_plain(x, y, g, qt)
+            tile = (slice(None), slice(None), slice(r0, r1), slice(c0, c1))
+            assert torch.equal(tx[tile], dx[tile]), (r0, r1, c0, c1)
+            assert torch.equal(ty[tile], dy[tile]), (r0, r1, c0, c1)

@@ -4,7 +4,9 @@ warp) against the JAX package's `vertical_resample` and its VJP.
 On the CPU the JAX side runs its jnp gather (`_vert_jnp` and its
 adjoint; pallas_available() is False here) and the port its plain
 PyTorch version, which is what the port's CUDA kernels are held to on
-the card (chip_smoke.py). float32, atol 1e-5.
+the card (chip_smoke.py). float32, atol 1e-5. The adjoint kernel's
+candidate row interval is held here through its float32 mirror
+(`candidate_rows`): it must contain every row the exact test accepts.
 """
 
 import jax
@@ -16,7 +18,9 @@ import torch
 from depthmodelhardening_tpu.ops.pallas_warp import vertical_resample as j_vr
 from depthmodelhardening_tpu.physics.calibration import Calibration
 from depthmodelhardening_tpu.physics.eot import EoTCompositor, EoTConfig
-from depthmodelhardening_tpu_torch.ops.warp import vertical_resample
+from depthmodelhardening_tpu_torch.ops.warp import (
+    candidate_rows, vertical_resample,
+)
 
 
 def _geometry(kind, rng, Bn, OH, TW):
@@ -83,3 +87,63 @@ def test_vertical_resample_gives_no_row_map_gradient():
     gA, gB, gi = torch.autograd.grad(out.sum(), (A, B, inter),
                                      allow_unused=True)
     assert gA is None and gB is None and gi is not None
+
+
+def _row_maps(kind, rng, Bn, OH, TW):
+    """(A, B) float32 (Bn, TW) row maps for the candidate-interval test."""
+    if kind == "eot_rows":
+        return _geometry(kind, rng, Bn, OH, TW)
+    B = rng.uniform(-OH, 2.0 * OH, (Bn, TW))
+    slopes = {"zero": 0.0, "tiny": 1e-7, "minus_tiny": -1e-7, "steep": 6.5,
+              "very_steep": 1e3}
+    if kind in slopes:
+        A = np.full((Bn, TW), slopes[kind])
+        B[:, ::3] = np.round(B[:, ::3])  # rows that sit on integers
+    elif kind == "negative":
+        A = rng.uniform(-6.5, -0.05, (Bn, TW))
+    elif kind == "far_offsets":
+        A = rng.uniform(-3.0, 3.0, (Bn, TW))
+        B = rng.choice([-1e6, -1e4, 1e4, 1e6], (Bn, TW)) + rng.uniform(
+            -OH, OH, (Bn, TW))
+    else:  # near_integers: small slopes, offsets a few ulps off an integer
+        A = rng.choice([1e-2, 1e-3, 1e-4, 1e-5, 3e-6, -1e-4, -1e-5],
+                       (Bn, TW))
+        B = np.round(rng.uniform(-2.0, OH + 2.0, (Bn, TW))).astype(np.float32)
+        steps = rng.randint(-8, 9, (Bn, TW))
+        for _ in range(8):
+            B = np.where(steps > 0, np.nextafter(B, np.float32(np.inf)),
+                         np.where(steps < 0,
+                                  np.nextafter(B, np.float32(-np.inf)), B))
+            steps = steps - np.sign(steps)
+    return A.astype(np.float32), B.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,OH,TH", [
+    ("eot_rows", 200, 256), ("zero", 40, 37), ("tiny", 40, 256),
+    ("minus_tiny", 40, 256), ("negative", 40, 64), ("steep", 60, 37),
+    ("very_steep", 40, 256), ("far_offsets", 40, 64),
+    ("near_integers", 40, 256), ("near_integers", 40, 1),
+])
+def test_adjoint_candidate_rows_hold_every_hit(kind, OH, TH):
+    """Every tile row y whose float32 sy = A y + B has floor(sy) in
+    {k - 1, k} (the kernel's exact test) lies in the interval the
+    kernel loops over; at the attack's slopes the interval is short."""
+    Bn, TW = 3, 64
+    rng = np.random.RandomState(OH + TH)
+    A, B = (torch.from_numpy(t.copy()) for t in _row_maps(kind, rng, Bn, OH,
+                                                           TW))
+    ys = torch.arange(TH, dtype=torch.float32)
+    k0f = torch.floor(A[:, None, :] * ys[None, :, None] + B[:, None, :])
+    yy = torch.arange(TH)[None, :, None]
+    hits = 0
+    for k in range(OH):
+        hit = (k0f == float(k)) | (k0f + 1.0 == float(k))
+        y0, y1 = candidate_rows(A, B, k, TH)
+        inside = (yy >= y0[:, None, :]) & (yy < y1[:, None, :])
+        assert not bool((hit & ~inside).any()), (kind, k)
+        assert bool(((y0 >= 0) & (y0 <= y1) & (y1 <= TH)).all())
+        hits += int(hit.sum())
+        steep = A.abs() >= 0.5
+        assert bool(((y1 - y0)[steep] <= 2.0 / A.abs()[steep] + 4).all())
+    if kind in ("eot_rows", "negative", "near_integers"):
+        assert hits > 0
