@@ -9,22 +9,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    numerics (TF32 off, cuDNN off: `device.use_f32_numerics`).
 2. build: compile every kernel in depthmodelhardening_tpu_torch/csrc/
    with nvcc into build/torch_kernels/, one nvcc per source, in
-   parallel; print each kernel's registers, spills and stack frame as
-   ptxas reports them (NO_SPILL's kernels must have none).
+   parallel; print each kernel's registers, stack frame and local
+   memory as `cuobjdump --dump-resource-usage` reads them from the built
+   libraries (NO_SPILL's kernels must have neither stack nor local
+   memory: no spill).
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes its main path gives it: max abs error, median
    CUDA-event time on the card alone (`cuda_ms`: the launches queued
    behind a spin; a kernel's time also with the host time in front of
-   its launch) of both and of the one PyTorch library call that
-   computes the same function (where there is one), and the least time
-   the card could take (bytes over 3.35 TB/s, operations over 67
-   TFLOP/s float32, the larger; for kernel D also 3 TF32 operations per
-   float32 one over the tensor cores' 495 TFLOP/s, its row's bound). The
+   its launch, the row's `host_ms`) of both and of the one PyTorch
+   library call that computes the same function (where there is one),
+   and the least time the card could take (bytes over 3.35 TB/s,
+   operations over 67 TFLOP/s float32, the larger, counted from this
+   run's data; for kernel D also 3 TF32 operations per float32 one over
+   the tensor cores' 495 TFLOP/s, its row's bound). The
    pool backward B2 bit for bit, also at the distillation step's shape
    and at shapes that straddle its tiles; kernel C's backward bit for
    bit also at shapes that straddle its tiles; warp A on random, ragged
    and the attack's own row maps (timed at batch 12 and 32, the row's
-   times from the attack's maps at batch 12). Kernel D (the decoder's narrow
+   times from the attack's maps at batch 12), its adjoint bit for bit
+   against a float32 sum over tile rows in increasing order, the
+   kernel's own order. Kernel D (the decoder's narrow
    3x3 convs) at the four convs of the scale-0 path at batch 32,
    1024x320, at ragged shapes (1, 3, 13, 64 channels in and out, 37x53)
    and at the 320x256 attack crop: forward, forward with bias + ELU, and
@@ -134,7 +139,8 @@ PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
 # kBwdTileW pixels: phase 3 checks it at shapes that straddle it
 REPROJ_BWD_TILE = (32, 32)
 # source -> its kernel that keeps every value in registers or shared
-# memory: ptxas must report no spill and no stack frame for it
+# memory: its functions (the name in their mangled symbol) must have no
+# stack frame and no local memory, so nothing spills
 NO_SPILL = {"reproj_loss.cu": "bwd_grad_kernel",
             "vertical_resample.cu": "vert_bwd"}
 CONV_KERNELS = ("conv3x3_fwd", "conv3x3_dgrad")
@@ -197,39 +203,16 @@ def phase_device() -> torch.device:
 
 
 # -- phase 2 -----------------------------------------------------------------
-def _demangle(symbol: str) -> str:
-    """The kernel's name and integer template arguments of an Itanium-
-    mangled symbol, e.g. bwd_grad_kernel<32, 8, 4>."""
-    rest, parts = re.sub(r"^_ZN?", "", symbol), []
-    while (m := re.match(r"\d+", rest)):
-        n = int(m.group())
-        parts.append(rest[m.end():m.end() + n])
-        rest = rest[m.end() + n:]
-    names = [p for p in parts if not p.startswith("_GLOBAL__N")]
-    if not names:
-        return symbol
-    args = re.match(r"I((?:L[a-z]n?\d+E)+)E", rest)
-    tmpl = "" if args is None else "<" + ", ".join(
-        v.replace("n", "-")
-        for v in re.findall(r"L[a-z](n?\d+)E", args.group(1))) + ">"
-    return "::".join(names) + tmpl
-
-
-def ptxas_usage(report: str):
-    """[(kernel, registers, spill stores + loads in bytes, stack frame in
-    bytes)] of each entry function in nvcc -Xptxas -v's report."""
-    rows, name, spill, stack = [], None, 0, 0
-    for line in report.splitlines():
-        if (m := re.search(r"Function properties for (\S+)", line)):
-            name, spill, stack = _demangle(m.group(1)), 0, 0
-        elif (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                             r"stores, (\d+) bytes spill loads", line)):
-            stack, st, ld = map(int, m.groups())
-            spill = st + ld
-        elif (m := re.search(r"Used (\d+) registers", line)) and name:
-            rows.append((name, int(m.group(1)), spill, stack))
-            name = None
-    return rows
+def resource_usage(library) -> list:
+    """[(mangled kernel name, {"REG": n, "STACK": bytes, "LOCAL": bytes,
+    ...})] of each function in a built library, as cuobjdump reads them."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "--dump-resource-usage", str(library)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    return [(name, {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", usage)})
+            for name, usage in re.findall(r"Function (\S+):\s*\n([^\n]*)",
+                                          out)]
 
 
 def phase_build() -> None:
@@ -238,16 +221,14 @@ def phase_build() -> None:
     log(f"build: {names} into {os.path.relpath(_build.BUILD_DIR, REPO)} "
         f"in {secs:.1f} s")
     for source in names:
-        if source not in _build.PTXAS:
-            log(f"  {source}: built before this run, no ptxas report")
-            continue
-        usage = ptxas_usage(_build.PTXAS[source])
-        for kernel, regs, spill, stack in usage:
-            log(f"  {source} {kernel}: {regs} registers, {spill} B spilled, "
-                f"{stack} B stack")
+        usage = resource_usage(_build.library_path(source))
+        for kernel, u in usage:
+            log(f"  {source} {kernel}: {u.get('REG')} registers, "
+                f"{u.get('STACK')} B stack, {u.get('LOCAL')} B local")
         if source in NO_SPILL:
-            mine = [u for u in usage if u[0].startswith(NO_SPILL[source])]
-            if not mine or any(spill or stack for _, _, spill, stack in mine):
+            mine = [(k, u) for k, u in usage if NO_SPILL[source] in k]
+            if not mine or any(u.get("STACK", 1) or u.get("LOCAL", 1)
+                               for _, u in mine):
                 raise AssertionError(f"{NO_SPILL[source]} of {source} is "
                                      f"missing or spills: {mine}")
 
@@ -281,6 +262,49 @@ def _warp_inputs(gen, dev, Bn, C, OH, TH, TW, maps: str):
         A = torch.empty((Bn, TW)).uniform_(0.9, 6.5, generator=gen)
         B = torch.empty((Bn, TW)).uniform_(-260.0, 40.0, generator=gen)
     return inter, A.to(dev), B.to(dev)
+
+
+def _adjoint_in_row_order(g, A, B, oh):
+    """Warp A's adjoint summed as vert_bwd sums it: each object row's
+    hits g * w added one tile row at a time, y upwards, every product
+    and sum rounded to float32 (the kernel is built with -fmad=false).
+    A tap outside [0, oh) goes to a spare row that is dropped."""
+    Bn, C, th, TW = g.shape
+    d = torch.zeros((Bn, C, oh + 1, TW), dtype=g.dtype, device=g.device)
+    for y in range(th):
+        sy = A * float(y) + B
+        k0f = torch.floor(sy)
+        w1 = sy - k0f
+        for kf, w in ((k0f, 1.0 - w1), (k0f + 1.0, w1)):
+            idx = torch.where((kf >= 0) & (kf < oh), kf, float(oh))
+            d.scatter_add_(2, idx.to(torch.int64)[:, None, None].expand(
+                Bn, C, 1, TW), g[:, :, y:y + 1] * w[:, None, None])
+    return d[:, :, :oh]
+
+
+def _warp_work(inter, g, A, B, out, d):
+    """(bytes, operations) that warp A's forward and its adjoint need on
+    this run's row maps. Only a tile row with a tap in [0, OH) does
+    work: the forward reads the object rows that some tap reaches and
+    writes all of out; the adjoint reads g at the tile rows with a tap
+    in range and writes all of d_inter; both read A and B. Operations per
+    channel: the forward's two products, sum and 1 - w for each such
+    row, the adjoint's product and sum for each tap in range."""
+    Bn, C, OH, TW = inter.shape
+    ys = torch.arange(out.shape[2], dtype=torch.float32, device=A.device)
+    k0 = torch.floor(A[:, None, :] * ys[None, :, None] + B[:, None, :])
+    reached = torch.zeros((Bn, OH + 1, TW), device=A.device)
+    taps = 0
+    hit_any = torch.zeros_like(k0, dtype=torch.bool)
+    for k in (k0, k0 + 1.0):
+        ok = (k >= 0) & (k < OH)
+        hit_any |= ok
+        taps += int(ok.sum())
+        reached.scatter_(1, torch.where(ok, k, float(OH)).to(torch.int64), 1.0)
+    rows = int(hit_any.sum())
+    touched = int(reached[:, :OH].sum())
+    return ((4 * C * touched + nbytes(A, B, out), 4 * C * rows),
+            (4 * C * rows + nbytes(A, B, d), 2 * C * taps))
 
 
 def nbytes(*tensors) -> int:
@@ -318,30 +342,29 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     rows = {}
 
-    def row(kernel, err, ms, plain_ms, library_ms, work):
-        """`ms`: the kernel's time, or its call, timed here on the card
-        alone and again with the host time in front of the launch
-        (queued=False)."""
-        launch = None
+    def row(kernel, err, ms, plain_ms, library_ms, work, host_ms=None):
+        """`ms`: the kernel's time on the card alone, and `host_ms` with
+        the host time in front of each launch (queued=False); or `ms` is
+        the kernel's call, and both are timed here."""
         if callable(ms):
-            launch, ms = ms, cuda_ms(ms)
+            host_ms, ms = cuda_ms(ms, queued=False), cuda_ms(ms)
         bound_ms, bound_by = work if isinstance(work[1], str) else \
             bound(*work)
         rows[kernel.name] = dict(
             name=kernel.name, route="cuda", source=kernel.source_path,
             replaces=kernel.replaces, max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms)
+            host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        host = ("" if launch is None else
-                f" ({cuda_ms(launch, queued=False):.4f} with host time)")
         log(f"  {kernel.name}: max|kernel-plain| {err:.3e}  "
-            f"kernel {ms:.4f} ms{host}  plain {plain_ms:.4f} ms  library "
-            f"{lib}  bound {bound_ms:.4f} ms ({bound_by})")
+            f"kernel {ms:.4f} ms ({host_ms:.4f} with host time)  plain "
+            f"{plain_ms:.4f} ms  library {lib}  bound {bound_ms:.4f} ms "
+            f"({bound_by})")
 
     # warp A: random slopes over the attack's range, ragged maps with
     # every corner case, and the attack's own row maps at the attack
-    # eval's batch (the row's times) and the distillation step's
+    # eval's batch (the row's times) and the distillation step's; the
+    # adjoint also bit for bit against the sum in the kernel's order
     for label, shape, maps in (
             ("random maps", (12, 4, 200, 256, 256), "random"),
             ("ragged", (3, 5, 37, 45, 53), "ragged"),
@@ -354,18 +377,20 @@ def phase_kernels(dev) -> dict:
         out_p = warp.vertical_resample_plain(inter, A, B, TH)
         d_k = warp.vertical_resample_bwd_cuda(g, A, B, OH)
         d_p = warp.vertical_resample_adjoint_plain(g, A, B, OH)
+        d_seq = _adjoint_in_row_order(g, A, B, OH)
         torch.cuda.synchronize()
         e_f = float((out_k - out_p).abs().max())
         e_b = float((d_k - d_p).abs().max())
+        in_order = torch.equal(d_k, d_seq)
         log(f"warp {label} {shape}: fwd err {e_f:.3e} (atol "
             f"{WARP_FWD_ATOL}), adjoint err {e_b:.3e} (atol "
-            f"{WARP_BWD_ATOL})")
-        if not (e_f <= WARP_FWD_ATOL and e_b <= WARP_BWD_ATOL):
+            f"{WARP_BWD_ATOL}), adjoint bit-exact with the row-order sum "
+            f"{in_order}")
+        if not (e_f <= WARP_FWD_ATOL and e_b <= WARP_BWD_ATOL and in_order):
             raise AssertionError(f"warp kernel disagrees at {shape}")
         if maps == "ragged":
             continue
-        work_f = (nbytes(inter, A, B, out_k), 4 * out_k.numel())
-        work_b = (nbytes(g, A, B, d_k), 4 * g.numel())
+        work_f, work_b = _warp_work(inter, g, A, B, out_k, d_k)
 
         def fwd():
             return warp.vertical_resample_fwd_cuda(inter, A, B, TH)
@@ -375,15 +400,14 @@ def phase_kernels(dev) -> dict:
 
         if label != "attack maps":
             log(f"  {label} {shape}: vertical_resample_fwd "
-                f"{cuda_ms(fwd):.4f} ms (bound {bound(*work_f)[0]:.4f}), "
+                f"{cuda_ms(fwd):.4f} ms ({cuda_ms(fwd, queued=False):.4f} "
+                f"with host time; bound {bound(*work_f)[0]:.4f}), "
                 f"vertical_resample_bwd {cuda_ms(bwd):.4f} ms "
                 f"({cuda_ms(bwd, queued=False):.4f} with host time; bound "
                 f"{bound(*work_b)[0]:.4f})")
         else:
             # no library call: A's two taps with their own validity
-            # masks are not F.grid_sample's edge rule. Operations: two
-            # products, a sum and the 1 - w weight per output (forward),
-            # two products and two sums per cotangent (adjoint)
+            # masks are not F.grid_sample's edge rule
             row(warp.FWD, e_f, fwd,
                 cuda_ms(lambda: warp.vertical_resample_plain(
                     inter, A, B, TH)), None, work_f)
@@ -550,8 +574,8 @@ def phase_conv_kernels(dev, gen, row) -> None:
     accuracy)."""
     for name, *shape in CONV_RAGGED + (CONV_CROP,):
         check_conv(name, *_conv_inputs(gen, dev, *shape))
-    tot = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, lib_off=0.0, lib_on=0.0,
-                   f32=0.0, tc=0.0, bytes=0.0, operations=0.0)
+    tot = {n: dict(err=0.0, ms=0.0, host_ms=0.0, plain_ms=0.0, lib_off=0.0,
+                   lib_on=0.0, f32=0.0, tc=0.0, bytes=0.0, operations=0.0)
            for n in CONV_KERNELS}
     for name, cin, co, h, w in CONV_SHAPES:
         xp, wt, b, g = _conv_inputs(gen, dev, CONV_BATCH, cin, co, h, w)
@@ -574,17 +598,20 @@ def phase_conv_kernels(dev, gen, row) -> None:
         for which, (kernel_fn, plain_fn, lib_fn, work) in timed.items():
             t = tot[which]
             k_ms = cuda_ms(kernel_fn, reps=10)
+            h_ms = cuda_ms(kernel_fn, reps=10, queued=False)
             p_ms = cuda_ms(plain_fn, reps=10)
             off_ms = cuda_ms(lib_fn, reps=10)
             with cudnn_on():
                 on_ms = cuda_ms(lib_fn, reps=10)
             f32_ms, f32_by = bound(*work)
             tc_ms, tc_by = bound(*work, tensor_cores=True)
-            log(f"  {which} {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f}, "
+            log(f"  {which} {name}: kernel {k_ms:.4f} ms ({h_ms:.4f} with "
+                f"host time), plain {p_ms:.4f}, "
                 f"library cuDNN off {off_ms:.4f}, cuDNN on (TF32 off) "
                 f"{on_ms:.4f}, bound CUDA cores {f32_ms:.4f} ({f32_by}), "
                 f"tensor cores {tc_ms:.4f} ({tc_by})")
             t["ms"] += k_ms
+            t["host_ms"] += h_ms
             t["plain_ms"] += p_ms
             t["lib_off"] += off_ms
             t["lib_on"] += on_ms
@@ -596,14 +623,16 @@ def phase_conv_kernels(dev, gen, row) -> None:
                           ("conv3x3_dgrad", conv.DGRAD)):
         t = tot[which]
         log(f"  {which}, one decoder pass ({len(CONV_SHAPES)} convs): "
-            f"kernel {t['ms']:.4f} ms, library cuDNN off {t['lib_off']:.4f}, "
+            f"kernel {t['ms']:.4f} ms ({t['host_ms']:.4f} with host time), "
+            f"library cuDNN off {t['lib_off']:.4f}, "
             f"cuDNN on (TF32 off) {t['lib_on']:.4f}, bound CUDA cores "
             f"{t['f32']:.4f}, tensor cores {t['tc']:.4f} "
             f"({t['tc'] / t['ms']:.4f} of the kernel's time)")
         # the pass's bound: the sum of its convs' tensor-core bounds,
         # named after the kind that bounds most of it
         row(kernel, t["err"], t["ms"], t["plain_ms"], t["lib_on"],
-            (t["tc"], max(("bytes", "operations"), key=t.get)))
+            (t["tc"], max(("bytes", "operations"), key=t.get)),
+            host_ms=t["host_ms"])
 
 
 def _reproj_inputs(gen, dev, shape):
@@ -1320,8 +1349,8 @@ def main() -> int:
                          + distill_launches[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
+                           "launches", "max_abs_err", "ms", "host_ms",
+                           "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(dev),

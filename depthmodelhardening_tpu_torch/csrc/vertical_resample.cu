@@ -83,7 +83,7 @@ __global__ void vert_fwd(const float* __restrict__ inter,
 }
 
 // The tile rows [y0, y1) that can hit object row k (see the note above;
-// ops/warp.py:candidate_rows is its float32 mirror).
+// tests/test_torch_warp.py holds its float32 mirror).
 __device__ __forceinline__ void candidate_rows(float a, float bb, float kf,
                                                int TH, int& y0, int& y1) {
   const float e1 = (kf - 1.0f - bb) / a;

@@ -31,18 +31,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # -fmad=false: no multiply-add contraction, so each kernel rounds the
 # same products and sums as its plain PyTorch version (eager PyTorch
-# never contracts across ops). -Xptxas -v: ptxas reports each kernel's
-# registers, shared memory and spills (kept in PTXAS).
+# never contracts across ops).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 POINTER = ctypes.c_void_p  # pointers and the stream: 64 bits
 INT = ctypes.c_int
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# source -> ptxas's report, for the sources this process built
-PTXAS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -80,7 +76,6 @@ def _compile(source: str) -> Path:
             raise RuntimeError(f"nvcc failed on {source}:\n"
                                f"{' '.join(cmd)}\n{proc.stderr}")
         os.replace(tmp, out)
-        PTXAS[source] = proc.stdout + proc.stderr
     return out
 
 

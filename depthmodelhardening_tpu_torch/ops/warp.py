@@ -74,24 +74,6 @@ def vertical_resample_adjoint_plain(g, A, B, oh: int):
     return d
 
 
-def candidate_rows(A, B, k: int, th: int):
-    """The tile rows [y0, y1) that `vertical_resample_bwd`'s kernel visits
-    for object row k, each (B, TW) int64: the float32 mirror of its
-    `candidate_rows` (csrc/vertical_resample.cu). Every row y with
-    floor(A y + B) in {k - 1, k}, as float32 rounds it, lies inside."""
-    kf = torch.tensor(float(k), dtype=torch.float32)
-    e1 = (kf - 1.0 - B) / A
-    e2 = (kf + 1.0 - B) / A
-    err = 2.0 ** -20 * (A.abs() * float(th) + B.abs() + kf + 2.0)
-    m = 1.0 + err / A.abs()
-    lo = torch.minimum(e1, e2) - m
-    hi = torch.maximum(e1, e2) + m
-    finite = torch.isfinite(lo) & torch.isfinite(hi)
-    y0 = torch.where(finite, torch.floor(lo).clamp(0.0, th), 0.0)
-    y1 = torch.where(finite, (torch.floor(hi) + 1.0).clamp(0.0, th), th)
-    return y0.to(torch.int64), y1.to(torch.int64)
-
-
 # -- CUDA kernels ------------------------------------------------------------
 def _check_args(t, A, B, what: str):
     check_cuda_tensor(what, t, 4)

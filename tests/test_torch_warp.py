@@ -6,7 +6,8 @@ adjoint; pallas_available() is False here) and the port its plain
 PyTorch version, which is what the port's CUDA kernels are held to on
 the card (chip_smoke.py). float32, atol 1e-5. The adjoint kernel's
 candidate row interval is held here through its float32 mirror
-(`candidate_rows`): it must contain every row the exact test accepts.
+(`candidate_rows` below): it must contain every row the exact test
+accepts.
 """
 
 import jax
@@ -18,9 +19,7 @@ import torch
 from depthmodelhardening_tpu.ops.pallas_warp import vertical_resample as j_vr
 from depthmodelhardening_tpu.physics.calibration import Calibration
 from depthmodelhardening_tpu.physics.eot import EoTCompositor, EoTConfig
-from depthmodelhardening_tpu_torch.ops.warp import (
-    candidate_rows, vertical_resample,
-)
+from depthmodelhardening_tpu_torch.ops.warp import vertical_resample
 
 
 def _geometry(kind, rng, Bn, OH, TW):
@@ -87,6 +86,23 @@ def test_vertical_resample_gives_no_row_map_gradient():
     gA, gB, gi = torch.autograd.grad(out.sum(), (A, B, inter),
                                      allow_unused=True)
     assert gA is None and gB is None and gi is not None
+
+
+def candidate_rows(A, B, k: int, th: int):
+    """The tile rows [y0, y1) that `vertical_resample_bwd`'s kernel visits
+    for object row k, each (B, TW) int64: the float32 mirror of its
+    `candidate_rows` (csrc/vertical_resample.cu)."""
+    kf = torch.tensor(float(k), dtype=torch.float32)
+    e1 = (kf - 1.0 - B) / A
+    e2 = (kf + 1.0 - B) / A
+    err = 2.0 ** -20 * (A.abs() * float(th) + B.abs() + kf + 2.0)
+    m = 1.0 + err / A.abs()
+    lo = torch.minimum(e1, e2) - m
+    hi = torch.maximum(e1, e2) + m
+    finite = torch.isfinite(lo) & torch.isfinite(hi)
+    y0 = torch.where(finite, torch.floor(lo).clamp(0.0, th), 0.0)
+    y1 = torch.where(finite, (torch.floor(hi) + 1.0).clamp(0.0, th), th)
+    return y0.to(torch.int64), y1.to(torch.int64)
 
 
 def _row_maps(kind, rng, Bn, OH, TW):
