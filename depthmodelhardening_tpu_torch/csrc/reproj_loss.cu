@@ -10,12 +10,43 @@
 // (:114), by reproj_loss_fwd; and that file's XLA backward _analytic_bwd
 // (:172-237) by reproj_loss_bwd_q + reproj_loss_bwd_grad.
 //
-// What bounds it on an H100: bytes. The forward reads x and y once from
-// device memory (the nine taps of each pixel's window hit L1/L2, shared
-// with the neighbouring threads) and writes one float per pixel; the
-// arithmetic is ~100 flops per pixel and channel. The design is the
-// simple one: one thread per pixel, neighbouring threads on
-// neighbouring columns, so every load and store is coalesced.
+// What bounds the forward on an H100: instruction throughput, not bytes.
+// Its byte bound (x and y read once, one float a pixel written) is
+// 0.0876 ms at (32, 3, 320, 1024), but the SSIM arithmetic is large: the
+// library is built with -fmad=false, so every add and every product is its own
+// instruction, and bit-exactness with the plain version fixes the order
+// of each moment's sum (the nine taps row by row, left to right, as
+// ops/ssim.py:sum_taps adds them: 8 sequential adds, no separable
+// row-then-column sum). Per pixel and channel that is 40 adds, the
+// products, 5 scalings and ~30 instructions for the quotient, clip and
+// L1. The first kernel, one thread per pixel, spent as much again on
+// 18 global loads a channel, a branchy reflect() on every tap, 64-bit
+// index math and 27 products a pixel: 0.3000 ms, 29% of the byte bound
+// (NVIDIA H100 80GB HBM3, 700.00 W). So a block owns a tile
+// of kTileH x kTileW pixels of one batch item and loops over its C
+// channels: it stages the tile's reflect-padded window of x and y for one
+// channel, rows r0 - 1 .. r0 + kTileH and columns c0 - 4 .. c0 + kTileW
+// + 3 (whole 16-byte groups), in shared memory, the halo holding the
+// reflected pixels (reflect()'s rule, n == 1 included) and zeros beyond
+// it, so the inner loop has no reflect logic and no bounds checks. The
+// window is copied with cp.async (16 bytes a group where W % 4 == 0 and
+// the group lies in the row, else 4 bytes an element), double-buffered:
+// channel c + 1's copies are in flight while channel c computes. A
+// thread owns one column and kFwdRows consecutive rows and walks down
+// their window rows: each row brings 3 taps of x and 3 of y from shared
+// memory and their products x x, y y, x y, computed once per row, not
+// once per window, and goes into the moment sums of the (at most three)
+// pixel rows it serves, from their top row to their bottom row, so each
+// moment still adds its taps in the plain version's order while only
+// three pixels' sums and one row are live (a window of three rows
+// holds 45 taps and products), which leaves room for more blocks an SM.
+// The L1 term reads the centre tap from the same rows. ssim_sum and
+// l1_sum accumulate over c = 0, 1, ... in registers and each pixel is
+// written once. Of the layouts kernel_variants.py measures on the card
+// (4 or 8 rows a thread, 1 to 7 blocks an SM), 8 rows a thread on 32 x 4
+// threads at 6 blocks an SM (80 registers, no spill) is the fastest.
+// Index math inside a plane is 32-bit; the entry point refuses H W >=
+// 2^31 and launches at most 65535 batch items at a time.
 //
 // The backward is two gathers, no atomics, so it is deterministic:
 // 1. reproj_loss_bwd_q, one thread per output pixel: recompute the five
@@ -35,9 +66,9 @@
 // reading its taps from global memory made 27 (36 with dy) bounds-
 // checked loads a pixel, each q element fetched by nine threads through
 // L1, and ran at a fifth of that bound. So a block owns a tile of
-// kBwdTileH x kBwdTileW pixels of one (b, c) plane (blockIdx.z = b C +
-// c) and stages the tile's q window, rows r0 - 1 .. r0 + kBwdTileH and
-// columns c0 - 4 .. c0 + kBwdTileW + 3 (whole 16-byte groups, loaded as
+// kTileH x kTileW pixels of one (b, c) plane (blockIdx.z = b C +
+// c) and stages the tile's q window, rows r0 - 1 .. r0 + kTileH and
+// columns c0 - 4 .. c0 + kTileW + 3 (whole 16-byte groups, loaded as
 // float4 where W % 4 == 0), with zeros outside the image: the plain
 // version's 2-zero pad of q. A halo of one covers every tap: the
 // interior position pr = r + 1 reads q rows r - 1 .. r + 1; the top
@@ -113,34 +144,185 @@ __device__ __forceinline__ Moments moments(const float* __restrict__ xp,
   return {s0 * kNinth, s1 * kNinth, s2 * kNinth, s3 * kNinth, s4 * kNinth};
 }
 
-__global__ void fwd_kernel(const float* __restrict__ x,
-                           const float* __restrict__ y,
-                           float* __restrict__ out, int B, int C, int H,
-                           int W) {
-  const long long plane = (long long)H * W;
-  const long long n = (long long)B * plane;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int w = (int)(i % W);
-  const int h = (int)((i / W) % H);
-  const long long b = i / plane;
-  float ssim_sum = 0.0f, l1_sum = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const long long base = (b * C + c) * plane;
-    const Moments m = moments(x + base, y + base, H, W, h, w);
-    const float sigma_x = m.sxx - m.mx * m.mx;
-    const float sigma_y = m.syy - m.my * m.my;
-    const float sigma_xy = m.sxy - m.mx * m.my;
-    const float num = (2.0f * m.mx * m.my + kC1) * (2.0f * sigma_xy + kC2);
-    const float den = (m.mx * m.mx + m.my * m.my + kC1) *
-                      (sigma_x + sigma_y + kC2);
-    const float v = (1.0f - num / den) / 2.0f;
-    ssim_sum = ssim_sum + fminf(fmaxf(v, 0.0f), 1.0f);
-    const long long o = base + (long long)h * W + w;
-    l1_sum = l1_sum + fabsf(x[o] - y[o]);
+// The tile of both fwd_kernel and bwd_grad_kernel: kTileW columns (one
+// a thread) by kTileH rows of one plane, and its staged window: rows
+// r0 - 1 .. r0 + kTileH, columns c0 - 4 .. c0 + kTileW + 3 (whole 16-byte
+// groups).
+constexpr int kTileW = 32, kTileH = 32;
+constexpr int kWinH = kTileH + 2, kWinW = kTileW + 8;
+constexpr int kGroups = kWinH * (kWinW / 4);  // 16-byte groups a window
+// The forward's threads: kFwdRows consecutive rows of one column each,
+// at least kFwdMinBlocks blocks an SM (80 registers, no spill); the
+// backward's: kBwdRows rows each.
+constexpr int kFwdRows = 8, kFwdThreadRows = kTileH / kFwdRows;
+constexpr int kFwdMinBlocks = 6;
+constexpr int kBwdRows = 4, kBwdThreadRows = kTileH / kBwdRows;
+
+// cp.async of 16 bytes, or of 4 with zero fill where !ok
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One window row at a thread's three columns j - 1, j, j + 1: x, y, x^2,
+// y^2 and xy, each product computed once.
+struct Row {
+  float t[5][3];
+};
+
+__device__ __forceinline__ Row load_row(const float* xr, const float* yr) {
+  Row r;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const float a = xr[d], b = yr[d];
+    r.t[0][d] = a;
+    r.t[1][d] = b;
+    r.t[2][d] = a * a;
+    r.t[3][d] = b * b;
+    r.t[4][d] = a * b;
   }
+  return r;
+}
+
+// clip((1 - SSIM) / 2, 0, 1) from the five window sums, in the plain
+// version's operand order (__saturatef is the clip: NaN gives 0 as
+// fminf(fmaxf(v, 0), 1) does)
+__device__ __forceinline__ float ssim_term(const float (&s)[5]) {
+  const float mx = s[0] * kNinth, my = s[1] * kNinth;
+  const float sxx = s[2] * kNinth, syy = s[3] * kNinth;
+  const float sxy = s[4] * kNinth;
+  const float sigma_x = sxx - mx * mx;
+  const float sigma_y = syy - my * my;
+  const float sigma_xy = sxy - mx * my;
+  const float num = (2.0f * mx * my + kC1) * (2.0f * sigma_xy + kC2);
+  const float den = (mx * mx + my * my + kC1) * (sigma_x + sigma_y + kC2);
+  return __saturatef((1.0f - num / den) / 2.0f);
+}
+
+// Grid (ceil(W / kTileW), ceil(H / kTileH), batch items), block (kTileW,
+// kFwdThreadRows). vec: W % 4 == 0 and x, y 16-byte aligned.
+__global__ void __launch_bounds__(kTileW * kFwdThreadRows, kFwdMinBlocks)
+fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+           float* __restrict__ out, int C, int H, int W, int vec) {
+  constexpr int kBlock = kTileW * kFwdThreadRows;
+  constexpr int kIters = (kGroups + kBlock - 1) / kBlock;  // groups a thread
+  // [buffer][x, y][window row][window column]; channel c in buffer c % 2
+  __shared__ __align__(16) float sw[2][2][kWinH][kWinW];
+
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kTileW + tx;
+  const int c0 = blockIdx.x * kTileW, r0 = blockIdx.y * kTileH;
+  const int b = blockIdx.z;
+  const size_t plane = (size_t)H * W;
+  const float* xb = x + (size_t)b * C * plane;
+  const float* yb = y + (size_t)b * C * plane;
+
+  // The thread's staging groups, the same for every channel: group i
+  // is window row i / (kWinW / 4), columns 4 (i % (kWinW / 4)) .. + 3,
+  // that is image row r0 - 1 + its row and columns c0 - 4 + its column;
+  // its source row offset, reflected, or -1 where the row lies beyond
+  // the halo (zeros), and its first image column.
+  int src_row[kIters], src_col[kIters];
+#pragma unroll
+  for (int it = 0; it < kIters; ++it) {
+    const int i = tid + it * kBlock;
+    const int h = r0 - 1 + i / (kWinW / 4);
+    src_row[it] = h >= -1 && h <= H ? reflect(h, H) * W : -1;
+    src_col[it] = c0 - 4 + (i % (kWinW / 4)) * 4;
+  }
+  // copy channel c's window of x and y into buffer buf
+  auto stage = [&](int c, int buf) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const float* src = (p == 0 ? xb : yb) + c * plane;
+#pragma unroll
+      for (int it = 0; it < kIters; ++it) {
+        const int i = tid + it * kBlock;
+        if (i >= kGroups) continue;
+        float* dst = &sw[buf][p][0][0] + 4 * i;
+        const int ro = src_row[it], w = src_col[it];
+        if (vec && ro >= 0 && w >= 0 && w + 4 <= W) {
+          cp_async16(dst, src + ro + w);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = ro >= 0 && w + e >= -1 && w + e <= W;
+            cp_async4(dst + e, ok ? src + ro + reflect(w + e, W) : src, ok);
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  stage(0, 0);
+  // window row rb + q holds image row r0 + rb + q - 1, so it is the top
+  // row of taps of the thread's pixel row q, the middle of q - 1 and the
+  // bottom of q - 2; columns tx + 3 .. tx + 5 hold image columns j - 1 ..
+  // j + 1
+  const int j = c0 + tx, rb = ty * kFwdRows, wc = tx + 3;
+  float ssim_sum[kFwdRows], l1_sum[kFwdRows];
+#pragma unroll
+  for (int i = 0; i < kFwdRows; ++i) ssim_sum[i] = l1_sum[i] = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    cp_async_wait_all();  // this thread's copies of channel c
+    __syncthreads();      // everyone's; and channel c - 1 is computed
+    if (c + 1 < C) stage(c + 1, (c + 1) & 1);
+    const float(*sx)[kWinW] = sw[c & 1][0];
+    const float(*sy)[kWinW] = sw[c & 1][1];
+    // Each window row, with its products, goes into the moment sums of
+    // the (at most three) pixel rows it serves, which are open from
+    // their top row to their bottom row: so every moment adds its nine
+    // taps row by row, left to right, from tap (0, 0), the plain
+    // version's order, and only three pixels' sums are live at a time.
+    float s[kFwdRows][5];
+#pragma unroll
+    for (int q = 0; q < kFwdRows + 2; ++q) {
+      const Row t = load_row(&sx[rb + q][wc], &sy[rb + q][wc]);
+#pragma unroll
+      for (int i = q - 2; i <= q; ++i) {
+        if (i < 0 || i >= kFwdRows) continue;
+#pragma unroll
+        for (int m = 0; m < 5; ++m) {
+          s[i][m] = i == q ? t.t[m][0] : s[i][m] + t.t[m][0];
+          s[i][m] = s[i][m] + t.t[m][1];
+          s[i][m] = s[i][m] + t.t[m][2];
+        }
+      }
+      if (q >= 1 && q <= kFwdRows) {
+        l1_sum[q - 1] = l1_sum[q - 1] + fabsf(t.t[0][1] - t.t[1][1]);
+      }
+      if (q >= 2) ssim_sum[q - 2] = ssim_sum[q - 2] + ssim_term(s[q - 2]);
+    }
+  }
+  if (j >= W) return;
   const float inv_c = 1.0f / (float)C;
-  out[i] = 0.85f * (ssim_sum * inv_c) + 0.15f * (l1_sum * inv_c);
+  float* ob = out + (size_t)b * plane;
+#pragma unroll
+  for (int i = 0; i < kFwdRows; ++i) {
+    const int r = r0 + rb + i;
+    if (r < H) {
+      ob[r * W + j] = 0.85f * (ssim_sum[i] * inv_c) +
+                      0.15f * (l1_sum[i] * inv_c);
+    }
+  }
 }
 
 __global__ void bwd_q_kernel(const float* __restrict__ x,
@@ -184,14 +366,6 @@ __global__ void bwd_q_kernel(const float* __restrict__ x,
   }
 }
 
-// The backward's tile: kBwdTileW columns (one a thread) by kBwdTileH
-// rows (kBwdRows a thread) of one plane, and its staged q window.
-constexpr int kBwdTileW = 32, kBwdThreadRows = 8, kBwdRows = 4;
-constexpr int kBwdTileH = kBwdThreadRows * kBwdRows;
-// the window: q rows r0 - 1 .. r0 + kBwdTileH, columns c0 - 4 ..
-// c0 + kBwdTileW + 3 (whole 16-byte groups)
-constexpr int kBwdWinH = kBwdTileH + 2, kBwdWinW = kBwdTileW + 8;
-
 // Three consecutive rows of three q taps, the 3 x 3 box of one pixel.
 struct Box {
   float t[3][3];
@@ -233,29 +407,28 @@ __device__ __forceinline__ float box_edge(const float* __restrict__ s,
     for (int bb = 0; bb < 3; ++bb) {
       const int w = pc + bb - 2;
       if (w < 0 || w >= W) continue;
-      acc = acc + s[(h - h0) * kBwdWinW + (w - w0)];
+      acc = acc + s[(h - h0) * kWinW + (w - w0)];
     }
   }
   return acc;
 }
 
-// Grid (ceil(W / kBwdTileW), ceil(H / kBwdTileH), planes), block
-// (kBwdTileW, kBwdThreadRows). vec: W % 4 == 0 and q 16-byte aligned, so
+// Grid (ceil(W / kTileW), ceil(H / kTileH), planes), block
+// (kTileW, kBwdThreadRows). vec: W % 4 == 0 and q 16-byte aligned, so
 // every staged group of 4 columns is one aligned float4 wholly inside or
 // outside the row.
-__global__ void __launch_bounds__(kBwdTileW * kBwdThreadRows)
+__global__ void __launch_bounds__(kTileW * kBwdThreadRows)
 bwd_grad_kernel(const float* __restrict__ x, const float* __restrict__ y,
                 const float* __restrict__ g, const float* __restrict__ q,
                 float* __restrict__ dx, float* __restrict__ dy, int C,
                 int H, int W, float k_l1, int vec) {
-  constexpr int kTW = kBwdTileW, kR = kBwdRows, kWW = kBwdWinW;
+  constexpr int kTW = kTileW, kR = kBwdRows, kWW = kWinW;
   constexpr int kBlock = kTW * kBwdThreadRows;
-  constexpr int kGroups = kBwdWinH * (kWW / 4);
   // q0, q1, q23, q4 of the plane; q1 only with dy
-  __shared__ __align__(16) float sq[4][kBwdWinH][kWW];
+  __shared__ __align__(16) float sq[4][kWinH][kWW];
 
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * kTW + tx;
-  const int c0 = blockIdx.x * kTW, r0 = blockIdx.y * kBwdTileH;
+  const int c0 = blockIdx.x * kTW, r0 = blockIdx.y * kTileH;
   const int bc = blockIdx.z, b = bc / C, c = bc - b * C;
   const int h0 = r0 - 1, w0 = c0 - 4;  // image position of window (0, 0)
   const size_t plane = (size_t)H * W;
@@ -392,10 +565,19 @@ int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 extern "C" int reproj_loss_fwd(const float* x, const float* y, float* out,
                                int B, int C, int H, int W,
                                cudaStream_t stream) {
-  const long long n = (long long)B * H * W;
-  if (n > 0) {
-    fwd_kernel<<<blocks_for(n), kThreads, 0, stream>>>(x, y, out, B, C, H,
-                                                       W);
+  if (B <= 0 || C <= 0 || H <= 0 || W <= 0) return (int)cudaGetLastError();
+  constexpr int kMaxZ = 65535;  // the grid's z limit
+  if ((long long)H * W > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const long long plane = (long long)H * W;
+  for (int b0 = 0; b0 < B; b0 += kMaxZ) {
+    const int nb = std::min(kMaxZ, B - b0);
+    const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH,
+                    nb);
+    const long long o = (long long)b0 * C * plane;
+    fwd_kernel<<<grid, dim3(kTileW, kFwdThreadRows), 0, stream>>>(
+        x + o, y + o, out + b0 * plane, C, H, W, vec);
   }
   return (int)cudaGetLastError();
 }
@@ -427,9 +609,9 @@ extern "C" int reproj_loss_bwd_grad(const float* x, const float* y,
   const int per = kMaxZ / C;  // whole batches a launch
   for (int b0 = 0; b0 < B; b0 += per) {
     const int nb = std::min(per, B - b0);
-    const dim3 grid((W + kBwdTileW - 1) / kBwdTileW,
-                    (H + kBwdTileH - 1) / kBwdTileH, nb * C);
-    const dim3 block(kBwdTileW, kBwdThreadRows);
+    const dim3 grid((W + kTileW - 1) / kTileW,
+                    (H + kTileH - 1) / kTileH, nb * C);
+    const dim3 block(kTileW, kBwdThreadRows);
     const long long o = (long long)b0 * C * plane;
     bwd_grad_kernel<<<grid, block, 0, stream>>>(
         x + o, y + o, g + b0 * plane, q + 4 * o, dx + o,

@@ -13,10 +13,34 @@
 //
 // What bounds it on an H100: bytes. The TPU kernels sweep every object
 // row k for every output row (a dense VPU loop, later cut to static
-// 56-row bands); each output here needs only its two taps. The forward
-// is one thread per (b, y, x): it computes sy once, reads the two taps
-// of each of the C channels (neighbouring threads read neighbouring
-// columns, so the loads coalesce) and writes C outputs.
+// 56-row bands); each output here needs only its two taps. The first
+// forward ran one thread per output (b, y, x), with three 64-bit
+// divisions and modulos and 64-bit address math a thread, and every
+// thread loaded A[b, x] and B[b, x] again for its one row: at the
+// attack's batch 12 it took 0.0134 ms against a 0.0054 ms bound, the
+// fixed cost a thread outweighing its 2 C loads and C stores (NVIDIA
+// H100 80GB HBM3, 700.00 W). Now a thread owns kFwdCols = 2 adjacent
+// columns of one batch item and a strip of kFwdRows consecutive output
+// rows, on a grid (ceil(TW / (kFwdCols kFwdThreads)), ceil(TH / (kFwdRows
+// kFwdStrips)), Bn) with no division in the kernel and 32-bit index
+// math: it loads its A[b, x] and B[b, x] once, computes each row's taps,
+// then starts all of the strip's tap loads (rows x channels x columns x
+// 2, each guarded by its validity) before its first store, and stores a
+// row's two columns as one float2 where TW is even. Neighbouring threads
+// read and write neighbouring columns, so loads and stores coalesce. The
+// channel loops are unrolled to kMaxChannels with c < C guards, so the
+// loaded taps stay in registers; that is also why more rows a thread
+// lose: the taps of 8 channels take 2 x 8 registers a row and column, so
+// 2, 4 and 8 rows need 95, 173 and 255 registers (the last with a stack)
+// against one row's 55, and fewer threads fit an SM. Of the strips
+// kernel_variants.py measures, one row on 32 x 4 threads is the fastest
+// at the attack's batch 12 and 32; a fill of the output alone
+// (out.zero_()) takes 0.0079 ms at batch 12, most of a small call's time
+// (NVIDIA H100 80GB HBM3, 700.00 W). The
+// arithmetic is the first kernel's: sy = A y + B, floorf, w0 = 1 - w1,
+// t0 + t1, so the output equals the plain version's value for value.
+// The entry point refuses tensors of 2^31 elements or more and grids
+// past 65535 strips or batches.
 //
 // The backward is the gather form, one thread per (b, k, x) on a
 // (x, k, b) grid, reading g only at the tile rows whose taps hit k: no
@@ -43,6 +67,7 @@
 // plain PyTorch version (ops/warp.py) rounds them.
 
 #include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -51,34 +76,88 @@ namespace {
 constexpr int kMaxChannels = 8;
 constexpr int kThreads = 256;
 
-__global__ void vert_fwd(const float* __restrict__ inter,
-                         const float* __restrict__ A,
-                         const float* __restrict__ B,
-                         float* __restrict__ out,
-                         int Bn, int C, int OH, int TH, int TW) {
-  const long long n = (long long)Bn * TH * TW;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int x = (int)(i % TW);
-  const long long t = i / TW;
-  const int y = (int)(t % TH);
-  const int b = (int)(t / TH);
+// The forward's strip: kFwdRows output rows of kFwdCols adjacent
+// columns a thread; a block of kFwdThreads x kFwdStrips threads.
+constexpr int kFwdRows = 1, kFwdCols = 2, kFwdThreads = 32, kFwdStrips = 4;
+static_assert(kFwdCols == 2, "vert_fwd stores a row's columns as a float2");
 
-  const float sy = A[(long long)b * TW + x] * (float)y
-                   + B[(long long)b * TW + x];
-  const float k0f = floorf(sy);
-  const float w1 = sy - k0f;
-  const float w0 = 1.0f - w1;
-  const bool ok0 = k0f >= 0.0f && k0f < (float)OH;
-  const bool ok1 = k0f + 1.0f >= 0.0f && k0f + 1.0f < (float)OH;
-  const int k0 = ok0 ? (int)k0f : 0;
-  const int k1 = ok1 ? (int)k0f + 1 : 0;
+// Grid (ceil(TW / (kFwdCols kFwdThreads)), ceil(TH / (kFwdRows
+// kFwdStrips)), Bn). vec: TW even and out 8-byte aligned, so a thread's
+// columns of one output row are one float2.
+__global__ void __launch_bounds__(kFwdThreads * kFwdStrips)
+vert_fwd(const float* __restrict__ inter, const float* __restrict__ A,
+         const float* __restrict__ B, float* __restrict__ out, int C,
+         int OH, int TH, int TW, int vec) {
+  const int x0 = (blockIdx.x * kFwdThreads + threadIdx.x) * kFwdCols;
+  const int y0 = (blockIdx.y * kFwdStrips + threadIdx.y) * kFwdRows;
+  const int b = blockIdx.z;
+  if (x0 >= TW || y0 >= TH) return;
 
-  for (int c = 0; c < C; ++c) {
-    const float* col = inter + ((long long)(b * C + c) * OH) * TW + x;
-    const float t0 = ok0 ? col[(long long)k0 * TW] * w0 : 0.0f;
-    const float t1 = ok1 ? col[(long long)k1 * TW] * w1 : 0.0f;
-    out[((long long)(b * C + c) * TH + y) * TW + x] = t0 + t1;
+  // each (row, column) of the strip: its two taps, weights and validity
+  float w0[kFwdRows][kFwdCols], w1[kFwdRows][kFwdCols];
+  int k0[kFwdRows][kFwdCols], k1[kFwdRows][kFwdCols];
+  bool ok0[kFwdRows][kFwdCols], ok1[kFwdRows][kFwdCols];
+#pragma unroll
+  for (int e = 0; e < kFwdCols; ++e) {
+    const bool col = x0 + e < TW;
+    const float a = col ? A[b * TW + x0 + e] : 0.0f;
+    const float bb = col ? B[b * TW + x0 + e] : 0.0f;
+#pragma unroll
+    for (int r = 0; r < kFwdRows; ++r) {
+      const float sy = a * (float)(y0 + r) + bb;
+      const float k0f = floorf(sy);
+      w1[r][e] = sy - k0f;
+      w0[r][e] = 1.0f - w1[r][e];
+      const bool in = col && y0 + r < TH;
+      ok0[r][e] = in && k0f >= 0.0f && k0f < (float)OH;
+      ok1[r][e] = in && k0f + 1.0f >= 0.0f && k0f + 1.0f < (float)OH;
+      k0[r][e] = ok0[r][e] ? (int)k0f : 0;
+      k1[r][e] = ok1[r][e] ? (int)k0f + 1 : 0;
+    }
+  }
+
+  // every tap load of the strip before the first store
+  const float* src = inter + b * C * OH * TW + x0;
+  float v0[kFwdRows][kMaxChannels][kFwdCols];
+  float v1[kFwdRows][kMaxChannels][kFwdCols];
+#pragma unroll
+  for (int r = 0; r < kFwdRows; ++r) {
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) {
+#pragma unroll
+      for (int e = 0; e < kFwdCols; ++e) {
+        v0[r][c][e] = v1[r][c][e] = 0.0f;
+        if (c < C) {
+          if (ok0[r][e]) v0[r][c][e] = src[(c * OH + k0[r][e]) * TW + e];
+          if (ok1[r][e]) v1[r][c][e] = src[(c * OH + k1[r][e]) * TW + e];
+        }
+      }
+    }
+  }
+  float* dst = out + b * C * TH * TW + x0;
+#pragma unroll
+  for (int r = 0; r < kFwdRows; ++r) {
+    if (y0 + r >= TH) break;
+#pragma unroll
+    for (int c = 0; c < kMaxChannels; ++c) {
+      if (c >= C) continue;
+      float o[kFwdCols];
+#pragma unroll
+      for (int e = 0; e < kFwdCols; ++e) {
+        const float t0 = ok0[r][e] ? v0[r][c][e] * w0[r][e] : 0.0f;
+        const float t1 = ok1[r][e] ? v1[r][c][e] * w1[r][e] : 0.0f;
+        o[e] = t0 + t1;
+      }
+      float* d = dst + (c * TH + y0 + r) * TW;
+      if (vec) {
+        *reinterpret_cast<float2*>(d) = make_float2(o[0], o[1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kFwdCols; ++e) {
+          if (x0 + e < TW) d[e] = o[e];
+        }
+      }
+    }
   }
 }
 
@@ -143,8 +222,6 @@ __global__ void vert_bwd(const float* __restrict__ g,
   }
 }
 
-int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
-
 }  // namespace
 
 extern "C" int vertical_resample_fwd(const float* inter, const float* A,
@@ -152,11 +229,19 @@ extern "C" int vertical_resample_fwd(const float* inter, const float* A,
                                      int C, int OH, int TH, int TW,
                                      cudaStream_t stream) {
   if (C < 1 || C > kMaxChannels) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)Bn * TH * TW;
-  if (n > 0) {
-    vert_fwd<<<blocks_for(n), kThreads, 0, stream>>>(inter, A, B, out, Bn,
-                                                     C, OH, TH, TW);
+  if (Bn <= 0 || TH <= 0 || TW <= 0) return (int)cudaGetLastError();
+  constexpr long long kMaxGrid = 65535;  // the grid's y and z limits
+  constexpr int kStripRows = kFwdRows * kFwdStrips;
+  constexpr int kBlockCols = kFwdCols * kFwdThreads;
+  const long long strips = (TH + kStripRows - 1) / kStripRows;
+  const long long rows = (long long)Bn * C * (TH > OH ? TH : OH);
+  if (Bn > kMaxGrid || strips > kMaxGrid || rows * TW > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
   }
+  const int vec = TW % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  const dim3 grid((TW + kBlockCols - 1) / kBlockCols, (unsigned)strips, Bn);
+  vert_fwd<<<grid, dim3(kFwdThreads, kFwdStrips), 0, stream>>>(
+      inter, A, B, out, C, OH, TH, TW, vec);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,9 @@ the JAX package's `ops/pallas_reproj.py` and `ops/losses.py`.
   forward on tie-free inputs (1e-5: autograd rounds another chain);
 * `reprojection_loss` with and without SSIM against `ops/losses.py`;
 * the halo of the `reproj_loss_bwd_grad` kernel's tiles: q outside a
-  tile widened by one row and column does not reach dx, dy on the tile.
+  tile widened by one row and column does not reach dx, dy on the tile;
+* the halo of the `reproj_loss_fwd` kernel's tiles: x and y outside a
+  tile widened by one row and column do not reach the loss on the tile.
 """
 
 import jax
@@ -218,3 +220,26 @@ def test_gradient_on_a_tile_reads_q_only_within_one_of_it(H, W):
             tile = (slice(None), slice(None), slice(r0, r1), slice(c0, c1))
             assert torch.equal(tx[tile], dx[tile]), (r0, r1, c0, c1)
             assert torch.equal(ty[tile], dy[tile]), (r0, r1, c0, c1)
+
+
+@pytest.mark.parametrize("H", [1, 2, 3, 37])
+@pytest.mark.parametrize("W", [1, 2, 3, 37])
+def test_loss_on_a_tile_reads_x_and_y_only_within_one_of_it(H, W):
+    """Perturbing x and y outside a tile widened by one row and column
+    (the window the forward kernel stages, whose halo holds the
+    reflected pixels) leaves the loss on the tile bit-unchanged,
+    reflected edges and corners included."""
+    x, y = _inputs((2, H, W, 3), 12, ties=True)
+    x, y = _planar(x), _planar(y)
+    out = reproj_loss_plain(x, y)
+    rng = np.random.RandomState(13)
+    for r0, r1 in _tiles(H):
+        for c0, c1 in _tiles(W):
+            win = (slice(None), slice(None), slice(max(r0 - 1, 0), r1 + 1),
+                   slice(max(c0 - 1, 0), c1 + 1))
+            xt = torch.from_numpy(rng.rand(*x.shape).astype(np.float32))
+            yt = torch.from_numpy(rng.rand(*y.shape).astype(np.float32))
+            xt[win], yt[win] = x[win], y[win]
+            got = reproj_loss_plain(xt, yt)
+            tile = (slice(None), slice(r0, r1), slice(c0, c1))
+            assert torch.equal(got[tile], out[tile]), (r0, r1, c0, c1)
