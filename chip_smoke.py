@@ -34,7 +34,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    3x3 convs) at the four convs of the scale-0 path at batch 32,
    1024x320, at ragged shapes (1, 3, 13, 64 channels in and out, 37x53)
    and at the 320x256 attack crop: forward, forward with bias + ELU, and
-   input gradient.
+   input gradient. Then the bf16 instances of D and B at the bench
+   configuration's shapes: D within one bf16 ulp of its plain version
+   (float32 arithmetic, one rounding; plus 1e-5 of the output's largest
+   magnitude where the float32 sum cancels) at the decoder's convs at
+   1024x320, on the 320x256 crop and at the ragged shapes, its rows
+   timed over one decoder pass on the crop against F.conv2d and
+   conv2d_input in bf16 with cuDNN on, bound by bytes over 3.35 TB/s or
+   operations over 989 TFLOP/s (dense bf16); B1 and B2 equal to theirs
+   (torch.equal) on the crop's and the full frame's stem and at ragged
+   shapes.
 4. golden: the port's Monodepth2-18 at 96x320 with the deterministic
    reference-layout weights of tests/golden_common.py against the
    frozen PyTorch-reference outputs in tests/golden/monodepth2_rand.npz.
@@ -74,6 +83,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    adversarial batch lower the MSE; one step with the cropped objective
    (320x256) launches D at the crop's shape; then the breakdown of a
    step, its device ms by kernel and its idle share.
+10. bench: the distillation step in bench.py's configuration
+   (bench.py:81-115): DistillConfig with compute_dtype bfloat16, the
+   320x256 cropped objective, the bf16 attack view and fold_bn, PGD-10,
+   batch 32 at 1024x320, a bf16 folded disp0 teacher from the golden
+   weights (BatchNorm statistics calibrated on synthetic scenes), a
+   student from a seeded init, one 375x1242 scene replicated and the
+   300x200 car: first one small step on the card against the CPU's
+   plain versions (bf16 both); then 2 warm-up and 5 timed steps with
+   every launch counter reset before the timed steps and read after
+   (kernel D's and B's bf16 instances must launch 48 + 44 and 12 + 11
+   times per step, their float32 ones never): seconds per step, peak
+   memory, the idle share and device ms by kernel of one step; then one
+   untimed step with attack_scale 1 and one fine step, whose D launches
+   fall by the convs its coarse passes skip.
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -112,6 +135,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
     make_monodepth2, predictor_from,
 )
 from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
+from depthmodelhardening_tpu_torch.ops.resize import bilinear_resize
 from depthmodelhardening_tpu_torch.training.config import (
     DistillConfig, HardeningConfig, SelfSupConfig,
 )
@@ -135,9 +159,10 @@ REPROJ_FWD_ATOL, REPROJ_BWD_ATOL = 0.0, 0.0
 # error is held to 1e-5 of the plain output's largest magnitude
 CONV_RTOL = 1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s,
-# float32 FLOP/s outside the tensor cores, dense TF32 FLOP/s of the
-# tensor cores
+# float32 FLOP/s outside the tensor cores, dense TF32 and bf16 FLOP/s of
+# the tensor cores
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
+PEAK_BF16_S = 989e12
 # the tile of csrc/reproj_loss.cu's fwd_kernel and bwd_grad_kernel,
 # kTileH x kTileW pixels: phase 3 checks both at shapes that straddle it
 REPROJ_TILE = (32, 32)
@@ -145,8 +170,12 @@ REPROJ_TILE = (32, 32)
 # memory: their functions (the name in their mangled symbol) must have no
 # stack frame and no local memory, so nothing spills
 NO_SPILL = {"reproj_loss.cu": ("fwd_kernel", "bwd_grad_kernel"),
-            "vertical_resample.cu": ("vert_fwd", "vert_bwd")}
+            "vertical_resample.cu": ("vert_fwd", "vert_bwd"),
+            "conv3x3.cu": ("conv3x3_mmaI13__nv_bfloat16",),
+            "maxpool3x3s2.cu": ("pool_fwdI13__nv_bfloat16",
+                                "pool_bwdI13__nv_bfloat16")}
 CONV_KERNELS = ("conv3x3_fwd", "conv3x3_dgrad")
+CONV_BF16_KERNELS = ("conv3x3_fwd_bf16", "conv3x3_dgrad_bf16")
 SLICE1_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
                   "maxpool3x3s2_fwd", "maxpool3x3s2_bwd") + CONV_KERNELS
 TRAIN_KERNELS = ("maxpool3x3s2_fwd", "maxpool3x3s2_bwd", "reproj_loss_fwd",
@@ -510,6 +539,7 @@ def phase_kernels(dev) -> dict:
             log(f"  (backward rows: d_pred only, no d_target, as the "
                 f"training step asks)")
     phase_conv_kernels(dev, gen, row)
+    phase_bf16_kernels(dev, gen, row)
     return rows
 
 
@@ -540,8 +570,14 @@ def _conv_inputs(gen, dev, B, cin, co, h, w):
 
 def check_conv(name, xp, wt, b, g) -> dict:
     """Kernel D against its plain version: forward, forward + bias + ELU
-    and input gradient, each within CONV_RTOL of the plain output's
-    largest magnitude; the worst error of each entry point."""
+    and input gradient; the worst error of each entry point. float32:
+    within CONV_RTOL of the plain output's largest magnitude. bf16 (the
+    plain version is float32 arithmetic on the bf16 operands, rounded
+    once): every element within one bf16 ulp of the plain one, plus
+    CONV_RTOL of that largest magnitude where the float32 sum cancels to
+    near 0 (the two sum in another order)."""
+    bf16 = xp.dtype == torch.bfloat16
+    names = CONV_BF16_KERNELS if bf16 else CONV_KERNELS
     pairs = {
         "fwd": (lambda: conv.conv3x3_valid_cuda(xp, wt),
                 lambda: conv.conv3x3_valid_plain(xp, wt)),
@@ -550,21 +586,33 @@ def check_conv(name, xp, wt, b, g) -> dict:
         "dgrad": (lambda: conv.conv3x3_dgrad_cuda(g, wt),
                   lambda: conv.conv3x3_dgrad_plain(g, wt)),
     }
-    errs, msg = {n: 0.0 for n in CONV_KERNELS}, []
+    errs, msg = {n: 0.0 for n in names}, []
     for label, (kernel_fn, plain_fn) in pairs.items():
         out_k, out_p = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
-        err = float((out_k - out_p).abs().max())
-        tol = CONV_RTOL * float(out_p.abs().max())
-        msg.append(f"{label} err {err:.3e} (tol {tol:.3e})")
-        if not err <= tol:
+        if out_k.dtype != xp.dtype:
+            raise AssertionError(f"conv {label} returned {out_k.dtype}")
+        diff = (out_k.float() - out_p.float()).abs()
+        err = float(diff.max())
+        tol = CONV_RTOL * float(out_p.float().abs().max())
+        if bf16:
+            ulp = bf16_ulp(out_p)
+            over = int((diff > ulp + tol).sum())
+            msg.append(f"{label} max {err:.3e}, {int((diff > 0).sum())} of "
+                       f"{diff.numel()} differ, {int((diff > ulp).sum())} "
+                       f"by more than an ulp (slack {tol:.1e})")
+        else:
+            over = int(not err <= tol)
+            msg.append(f"{label} err {err:.3e} (tol {tol:.3e})")
+        if over:
             raise AssertionError(f"conv kernel {label} disagrees at {name}: "
-                                 f"{err} > {tol}")
-        which = "conv3x3_dgrad" if label == "dgrad" else "conv3x3_fwd"
+                                 f"{err} > {tol} ({over} elements)")
+        which = names[1] if label == "dgrad" else names[0]
         errs[which] = max(errs[which], err)
-        del out_k, out_p
+        del out_k, out_p, diff
     B, cin, co = xp.shape[0], xp.shape[1], wt.shape[0]
-    log(f"conv {name} ({B}, {cin}->{co}, {g.shape[2]}x{g.shape[3]}): "
+    kind = "conv bf16" if bf16 else "conv"
+    log(f"{kind} {name} ({B}, {cin}->{co}, {g.shape[2]}x{g.shape[3]}): "
         + ", ".join(msg))
     return errs
 
@@ -641,6 +689,129 @@ def phase_conv_kernels(dev, gen, row) -> None:
         row(kernel, t["err"], t["ms"], t["plain_ms"], t["lib_on"],
             (t["tc"], max(("bytes", "operations"), key=t.get)),
             host_ms=t["host_ms"])
+
+
+# the bench configuration's attack passes: kernel D's convs of the
+# scale-0 path on the 320x256 crop at batch 32, and the stem pool there
+CONV_CROP_SHAPES = (("upconv_1_0", 64, 32, 64, 80),
+                    ("upconv_0_0", 32, 16, 128, 160),
+                    ("upconv_0_1", 16, 16, 256, 320),
+                    ("dispconv_0", 16, 1, 256, 320))
+POOL_CROP_SHAPE = (CONV_BATCH, 64, 128, 160)
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at |t| (2^(e - 7) for 2^e <= |t| < 2^(e + 1))."""
+    a = t.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def bound_bf16(nbytes_: float, flops: float):
+    """(ms, "bytes" | "operations") at the card's HBM rate and its dense
+    bf16 tensor-core rate."""
+    t_bytes = nbytes_ / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_bf16_kernels(dev, gen, row) -> None:
+    """The bf16 instances of kernels D and B at the bench configuration's
+    shapes. D: checked (`check_conv`) at the decoder's four scale-0
+    convs at 1024x320 (the teacher's and the student's passes), at the
+    320x256 crop's (the attack's) and at the ragged shapes; its rows time
+    one decoder pass on the crop, against the plain version and against
+    F.conv2d / conv2d_input in bf16 with cuDNN on (the library call),
+    bound by bytes over 3.35 TB/s or operations over 989 TFLOP/s, the
+    larger, summed over the pass. B1 and B2: equal to their plain
+    versions (torch.equal: the max is exact; B2 sums in float32 in the
+    plain version's order and rounds once) at the stem's shapes of the
+    crop and of the full frame and at ragged ones; timed on the crop."""
+    bf = lambda *ts: [t.bfloat16() for t in ts]
+    for name, *shape in CONV_RAGGED:
+        check_conv(name, *bf(*_conv_inputs(gen, dev, *shape)))
+    for name, cin, co, h, w in CONV_SHAPES:
+        check_conv(f"{name} 1024x320", *bf(*_conv_inputs(
+            gen, dev, CONV_BATCH, cin, co, h, w)))
+    tot = {n: dict(err=0.0, ms=0.0, host_ms=0.0, plain_ms=0.0, lib=0.0,
+                   bytes=0.0, operations=0.0) for n in CONV_BF16_KERNELS}
+    for name, cin, co, h, w in CONV_CROP_SHAPES:
+        xp, wt, b, g = bf(*_conv_inputs(gen, dev, CONV_BATCH, cin, co, h, w))
+        for which, err in check_conv(f"{name} crop", xp, wt, b,
+                                          g).items():
+            tot[which]["err"] = max(tot[which]["err"], err)
+        elu = co > 1
+        timed = {
+            "conv3x3_fwd_bf16": (
+                lambda: conv.conv3x3_valid_cuda(xp, wt, b, elu),
+                lambda: conv.conv3x3_valid_plain(xp, wt, b, elu),
+                lambda: F.conv2d(xp, wt, b),
+                (nbytes(xp, wt, b, g),
+                 2 * g.numel() * cin * 9 + (3 if elu else 1) * g.numel())),
+            "conv3x3_dgrad_bf16": (
+                lambda: conv.conv3x3_dgrad_cuda(g, wt),
+                lambda: conv.conv3x3_dgrad_plain(g, wt),
+                lambda: torch.nn.grad.conv2d_input(xp.shape, wt, g),
+                (nbytes(g, wt, xp), 2 * g.numel() * cin * 9)),
+        }
+        for which, (kernel_fn, plain_fn, lib_fn, work) in timed.items():
+            t = tot[which]
+            k_ms = cuda_ms(kernel_fn, reps=10)
+            h_ms = cuda_ms(kernel_fn, reps=10, queued=False)
+            p_ms = cuda_ms(plain_fn, reps=10)
+            with cudnn_on():
+                lib_ms = cuda_ms(lib_fn, reps=10)
+            b_ms, b_by = bound_bf16(*work)
+            log(f"  {which} {name} crop: kernel {k_ms:.4f} ms ({h_ms:.4f} "
+                f"with host time), plain {p_ms:.4f}, library (cuDNN on, "
+                f"bf16) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+            t["ms"] += k_ms
+            t["host_ms"] += h_ms
+            t["plain_ms"] += p_ms
+            t["lib"] += lib_ms
+            t[b_by] += b_ms
+        del xp, g
+    for which, kernel in (("conv3x3_fwd_bf16", conv.FWD_BF16),
+                          ("conv3x3_dgrad_bf16", conv.DGRAD_BF16)):
+        t = tot[which]
+        bound_ms = t["bytes"] + t["operations"]
+        log(f"  {which}, one decoder pass on the crop "
+            f"({len(CONV_CROP_SHAPES)} convs): kernel {t['ms']:.4f} ms, "
+            f"library {t['lib']:.4f}, bound {bound_ms:.4f} "
+            f"({bound_ms / t['ms']:.4f} of the kernel's time)")
+        row(kernel, t["err"], t["ms"], t["plain_ms"], t["lib"],
+            (bound_ms, max(("bytes", "operations"), key=t.get)),
+            host_ms=t["host_ms"])
+
+    for shape in (POOL_CROP_SHAPE, (CONV_BATCH, 64, 160, 512),
+                  (2, 3, 17, 23), (1, 2, 66, 130), (1, 2, 67, 132)):
+        x = torch.relu(torch.randn(shape, generator=gen)).to(dev).bfloat16()
+        y_k = pool.maxpool3x3s2_fwd_cuda(x)
+        y_p = pool.maxpool3x3s2_plain(x)
+        g = torch.randn(y_p.shape, generator=gen).to(dev).bfloat16()
+        dx_k = pool.maxpool3x3s2_bwd_cuda(x, g)
+        dx_p = pool.maxpool3x3s2_backward_plain(x, g)
+        torch.cuda.synchronize()
+        e_f = float((y_k.float() - y_p.float()).abs().max())
+        e_b = float((dx_k.float() - dx_p.float()).abs().max())
+        exact = torch.equal(y_k, y_p) and torch.equal(dx_k, dx_p)
+        log(f"pool bf16 {shape}: fwd err {e_f:.3e}, bwd err {e_b:.3e}, "
+            f"bit-exact {exact}")
+        if not exact:
+            raise AssertionError(f"bf16 pool kernel is not bit-exact at "
+                                 f"{shape}")
+        if shape == POOL_CROP_SHAPE:
+            _, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+            row(pool.FWD_BF16, e_f,
+                lambda: pool.maxpool3x3s2_fwd_cuda(x),
+                cuda_ms(lambda: pool.maxpool3x3s2_plain(x)),
+                cuda_ms(lambda: F.max_pool2d(x, 3, 2, 1)),
+                bound(nbytes(x, y_k), 8 * y_k.numel()))
+            row(pool.BWD_BF16, e_b,
+                lambda: pool.maxpool3x3s2_bwd_cuda(x, g),
+                cuda_ms(lambda: pool.maxpool3x3s2_backward_plain(x, g)),
+                cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)),
+                bound(nbytes(x, g, dx_k), 26 * g.numel()))
 
 
 def _reproj_inputs(gen, dev, shape):
@@ -1337,6 +1508,206 @@ def phase_distill_crop(dev, sd, obj, mask, scenes) -> None:
                              "at the crop's shape once per PGD step")
 
 
+# -- phase 10 ----------------------------------------------------------------
+# bench.py's distillation settings (:81-115) in the port
+BENCH_CFG = DistillConfig(
+    adv_type="object", epsilon=0.1, alpha=0.005, steps=10, batch_size=32,
+    compute_dtype="bfloat16", attack_crop_w=320, attack_crop_h=256,
+    attack_view_dtype="bfloat16", attack_scale=0, fold_bn=True)
+BENCH_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
+                 "maxpool3x3s2_fwd_bf16", "maxpool3x3s2_bwd_bf16"
+                 ) + CONV_BF16_KERNELS
+BENCH_WARMUP, BENCH_TIMED = 2, 5
+# per step, all in bf16: D as phase 9 (the crop changes its shapes, not
+# its count); the stem pool once per forward and per input gradient
+BENCH_PER_STEP = {"conv3x3_fwd_bf16": D_FWD_PER_STEP,
+                  "conv3x3_dgrad_bf16": D_DGRAD_PER_STEP,
+                  "maxpool3x3s2_fwd_bf16": BENCH_CFG.steps + 2,
+                  "maxpool3x3s2_bwd_bf16": BENCH_CFG.steps + 1,
+                  "conv3x3_fwd": 0, "conv3x3_dgrad": 0,
+                  "maxpool3x3s2_fwd": 0, "maxpool3x3s2_bwd": 0}
+# the coarse objective at scale 1 with one fine step: each of the other
+# steps - 1 attack passes runs upconv_1_0 and dispconv_1 instead of the
+# scale-0 path's 4 convs of D (upconv_0_0, upconv_0_1 and dispconv_0
+# are not evaluated)
+BENCH_SCALE = dict(attack_scale=1, attack_scale_fine_steps=1)
+_COARSE = BENCH_CFG.steps - BENCH_SCALE["attack_scale_fine_steps"]
+BENCH_SCALE_PER_STEP = {"conv3x3_fwd_bf16": D_FWD_PER_STEP - 2 * _COARSE,
+                        "conv3x3_dgrad_bf16": D_DGRAD_PER_STEP - 2 * _COARSE}
+# the small step on the card against the CPU's plain versions, both bf16:
+# the two round differently (kernel D and cuBLAS against oneDNN), so
+# sign-PGD texels split and gradients differ by bf16 noise (0.1 relative
+# L2 overall between the JAX package's and the port's bf16 steps on the
+# CPU, tests/test_torch_bf16.py); a wrong kernel is off by about 1. On an
+# H100 80GB HBM3 at 700 W: 2.4% split, loss 1.3e-4, gradients 3.2e-2
+BENCH_SPLIT_MAX, BENCH_LOSS_RTOL, BENCH_GRAD_L2_ALL = 0.1, 1e-3, 0.1
+
+
+def calibrated_teacher(dev, sd):
+    """The golden weights with every BatchNorm's running statistics set
+    to its batch statistics on 4 synthetic scenes at 1024x320, as a
+    trained model's match its data (the golden statistics are random and
+    drive deep features to O(100), where bf16 keeps no digit after the
+    point)."""
+    model = make_monodepth2()
+    model.load_state_dict(sd)
+    model = model.to(dev).train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None  # a cumulative average: this one batch
+    scenes = torch.from_numpy(make_scene(4, 375, 1242, seed=SEED + 50))
+    with torch.no_grad():
+        model.features_and_disps(bilinear_resize(scenes.to(dev), 320, 1024))
+    return {k: v.detach().cpu().clone()
+            for k, v in model.state_dict().items()}
+
+
+def _bench_trainer(dev, cfg, teacher_sd, obj, mask, seed):
+    """bench.py's pair: a bf16, folded, disp0 teacher; a student from a
+    seeded from-scratch init."""
+    teacher = make_monodepth2(dtype=cfg.compute_dtype, fold_bn=True)
+    teacher.load_state_dict(teacher_sd)
+    return DistillTrainer(
+        cfg, torch.Generator().manual_seed(seed), obj, mask,
+        predictor_from(teacher.to(dev), scales=(0,)), device=dev)
+
+
+def phase_bench(dev):
+    """The bench configuration's distillation step; returns the launch
+    counts of the timed steps."""
+    _, sd = _golden_weights()
+    teacher_sd = calibrated_teacher(dev, sd)
+    phase_bench_parity(dev, teacher_sd)
+    cfg = BENCH_CFG
+    B = cfg.batch_size
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    # bench.py steps one scene, replicated to the batch
+    scenes = torch.from_numpy(make_scene(1, cfg.ori_h, cfg.ori_w,
+                                         seed=SEED + 60)).to(dev)
+    trainer = _bench_trainer(dev, cfg, teacher_sd, obj, mask, SEED + 61)
+    state = trainer.make_state()
+    losses = []
+    for _ in range(BENCH_WARMUP):
+        state, m = trainer.train_step(state, scenes)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(BENCH_TIMED):
+        state, m = trainer.train_step(state, scenes)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / BENCH_TIMED
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(v) for v in losses]
+    per_step = {n: launches[n] / BENCH_TIMED for n in BENCH_PER_STEP}
+    log(f"bench: DistillTrainer.train_step in bench.py's configuration: "
+        f"Monodepth2-18 {cfg.scene_w}x{cfg.scene_h} compute bf16, teacher "
+        f"bf16 folded disp0 (golden weights, statistics calibrated), "
+        f"student from a seeded init, L-inf PGD-{cfg.steps} eps "
+        f"{cfg.epsilon} alpha {cfg.alpha} on the {cfg.attack_crop_w}x"
+        f"{cfg.attack_crop_h} crop, bf16 view, fold_bn, batch {B} of one "
+        f"{cfg.ori_w}x{cfg.ori_h} scene, car 300x200, Adam lr "
+        f"{cfg.learning_rate}")
+    log(f"  seconds per step {secs:.4f} (host clock around {BENCH_TIMED} "
+        f"steps after {BENCH_WARMUP} warm-up, synchronised)")
+    log(f"  max_memory_allocated {peak} B")
+    log(f"  losses {json.dumps(losses)}")
+    log(f"  launches {json.dumps(launches)}")
+    log(f"  per step {json.dumps(per_step)} (predicted "
+        f"{json.dumps(BENCH_PER_STEP)})")
+    bad = [n for n in BENCH_KERNELS if launches[n] <= 0]
+    if bad:
+        raise AssertionError(f"kernels never launched in phase 10: {bad}")
+    if per_step != {n: float(v) for n, v in BENCH_PER_STEP.items()}:
+        raise AssertionError("kernels D and B did not launch as predicted")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite distillation loss: {losses}")
+    busy_ms, wall_ms, n, by_name = device_busy(
+        lambda: trainer.train_step(state, scenes))
+    d_ms = sum(ms for k, ms in by_name.items() if "conv3x3_" in k)
+    log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
+        f"ms of {wall_ms:.3f} ms host wall, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
+    log(f"  kernel D: {d_ms:.3f} device ms of the step, "
+        f"{d_ms / busy_ms:.4f} of its busy time")
+    log("  device ms of the step by kernel (top 20):")
+    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
+        log(f"    {ms:9.3f}  {k[:110]}")
+    del state, trainer
+    torch.cuda.empty_cache()
+    phase_bench_scale(dev, teacher_sd, obj, mask, scenes)
+    return launches
+
+
+def phase_bench_parity(dev, teacher_sd) -> None:
+    """One small bench-configuration step (375x1242 scenes, the model at
+    96x320, a 40x60 car, batch 2, PGD-2, a 128x64 crop) on the card and
+    on the CPU's plain versions, from the same weights and draws: the
+    textures split on at most BENCH_SPLIT_MAX of the texels; the training
+    half on the CPU's composites within BENCH_LOSS_RTOL in loss and
+    BENCH_GRAD_L2_ALL in the gradients' overall relative L2."""
+    cfg = dataclasses.replace(
+        BENCH_CFG, batch_size=2, steps=2, scene_h=96, scene_w=320,
+        attack_crop_w=128, attack_crop_h=64, tile_h=64, tile_w=128)
+    obj, mask = make_car_object(60, 40, seed=SEED)
+    scenes = torch.from_numpy(make_scene(2, cfg.ori_h, cfg.ori_w,
+                                         seed=SEED + 62))
+    runs = []  # the CPU's, then the card's
+    for d in (torch.device("cpu"), dev):
+        trainer = _bench_trainer(d, cfg, teacher_sd, obj, mask, SEED + 63)
+        draws = trainer.attack.draw(torch.Generator().manual_seed(SEED + 64),
+                                    2)
+        state = trainer.make_state()
+        runs.append((trainer, state, trainer.attack_student(state)(
+            scenes.to(d), 2, eval_mode=False, draws=draws)))
+    adv, ben, _, obj_cpu = runs[0][2]
+    split = float(((runs[1][2][3].cpu() - obj_cpu).abs() > 1e-6)
+                  .float().mean())
+    out = []
+    for trainer, state, _ in runs:
+        state, m = trainer.distill_step(state, adv.to(trainer.device),
+                                        ben.to(trainer.device))
+        out.append((float(m["loss"]), state.model))
+    (l_cpu, m_cpu), (l_gpu, m_gpu) = out
+    g_worst, g_all = grad_l2(m_gpu, m_cpu)
+    log(f"bench parity: one bf16 step at 96x320 batch 2 PGD-2 on a 128x64 "
+        f"crop: texture sign splits {split:.4%} (max "
+        f"{BENCH_SPLIT_MAX:.0%}); on the CPU's composites card "
+        f"{l_gpu:.8e} vs CPU {l_cpu:.8e} loss (rel "
+        f"{abs(l_gpu - l_cpu) / l_cpu:.3e}, max {BENCH_LOSS_RTOL}), "
+        f"gradient rel L2 {g_worst:.3e} worst tensor, {g_all:.3e} overall "
+        f"(max {BENCH_GRAD_L2_ALL})")
+    if (split > BENCH_SPLIT_MAX or abs(l_gpu - l_cpu) > BENCH_LOSS_RTOL * l_cpu
+            or g_all > BENCH_GRAD_L2_ALL or not math.isfinite(l_gpu)):
+        raise AssertionError("the card's bf16 distillation step disagrees "
+                             "with the plain versions on the CPU")
+
+
+def phase_bench_scale(dev, teacher_sd, obj, mask, scenes) -> None:
+    """One untimed step with the coarse-scale objective (attack_scale 1,
+    one fine step): kernel D launches fall by the skipped convs, the loss
+    is finite."""
+    cfg = dataclasses.replace(BENCH_CFG, **BENCH_SCALE)
+    trainer = _bench_trainer(dev, cfg, teacher_sd, obj, mask, SEED + 65)
+    state = trainer.make_state()
+    _build.reset_launches()
+    state, m = trainer.train_step(state, scenes)
+    torch.cuda.synchronize()
+    kernels = {k.name: k for k in _build.KERNELS}
+    got = {n: kernels[n].launches for n in BENCH_SCALE_PER_STEP}
+    log(f"bench coarse objective: attack_scale 1, 1 fine step: loss "
+        f"{float(m['loss']):.6e}, D launches {json.dumps(got)} (predicted "
+        f"{json.dumps(BENCH_SCALE_PER_STEP)}; {json.dumps(BENCH_PER_STEP)} "
+        f"at scale 0)")
+    if got != BENCH_SCALE_PER_STEP or not math.isfinite(float(m["loss"])):
+        raise AssertionError("the coarse objective did not skip the scale-0 "
+                             "convs of its coarse passes")
+
+
 def main() -> int:
     dev = phase_device()
     phase_build()
@@ -1352,9 +1723,11 @@ def main() -> int:
     train_launches = phase_train(dev)
     torch.cuda.empty_cache()
     distill_launches = phase_distill(dev)
+    torch.cuda.empty_cache()
+    bench_launches = phase_bench(dev)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
-                         + distill_launches[name])
+                         + distill_launches[name] + bench_launches[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "host_ms",

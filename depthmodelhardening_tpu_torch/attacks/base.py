@@ -15,6 +15,14 @@ torchattacks/attack.py and phy_obj_atk.py:59-123:
 The model is a frozen `DepthPredictor` (eval-mode BatchNorm). Random
 draws come from an explicit CPU `torch.Generator`, or are handed in by
 the caller (see `attacks/pgd_object.py:PGDDraws`).
+
+Two options of the JAX package's inner loop (`attacks/base.py:98-125`):
+the coarse-scale objective (`attack_scale` s = 1 or 2: the targeted MSE
+read from the scale-s disparity head through the `predict_scale` hook,
+which the trainer supplies, against the mask resized to that head) and
+the view dtype (`attack_view_dtype`: the cropped objective's composite
+and its model input in bfloat16; warp A stays float32). Finals, the
+full-frame objective and `exact_composite` are never affected.
 """
 
 from __future__ import annotations
@@ -64,20 +72,25 @@ class PhysObjAttackConfig:
     # Finals are never cropped.
     attack_crop_w: Optional[int] = None
     attack_crop_h: Optional[int] = None
-    # Not ported yet: any other value than the default raises.
+    # The coarse-scale objective: the first steps - fine_steps PGD steps
+    # read the targeted MSE from the ("disp", attack_scale) head, the last
+    # min(attack_scale_fine_steps, steps) from disp0. 0: disp0 throughout.
     attack_scale: int = 0
+    attack_scale_fine_steps: int = 1
+    # dtype of the cropped objective's composite (pass 1, tiles, paste)
+    # and so of the model's input; the cost is reduced in float32
     attack_view_dtype: str = "float32"
 
     def __post_init__(self):
-        later = ("is not ported yet (ROADMAP Queue 1, slice 3b: the "
-                 "coarse-scale objective and the bfloat16 model path)")
-        if self.attack_scale:
-            raise NotImplementedError(
-                f"attack_scale > 0: the coarse-scale objective {later}")
-        if self.attack_view_dtype != "float32":
-            raise NotImplementedError(
-                f"attack_view_dtype={self.attack_view_dtype!r} {later}")
-        # the JAX package's checks (attacks/base.py:126-141)
+        # the JAX package's checks (attacks/base.py:117-141)
+        if self.attack_scale not in (0, 1, 2):
+            raise ValueError("attack_scale must be 0, 1 or 2")
+        if self.attack_view_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                "attack_view_dtype must be 'float32' or 'bfloat16', "
+                f"got {self.attack_view_dtype!r}")
+        if self.attack_scale_fine_steps < 0:
+            raise ValueError("attack_scale_fine_steps must be >= 0")
         for name, crop, full, tile in (
                 ("attack_crop_w", self.attack_crop_w, self.scene_w,
                  self.tile_w),
@@ -124,6 +137,9 @@ class PhysObjAttack:
     def __init__(self, predictor, obj_img, obj_mask,
                  cfg: PhysObjAttackConfig):
         self.predictor = predictor
+        # images -> ("disp", cfg.attack_scale) NHWC; the trainer assigns
+        # it when cfg.attack_scale > 0 (JAX `predict_scale_fn`)
+        self.predict_scale = None
         dev = predictor.device
         self.obj_img = torch.as_tensor(obj_img, dtype=torch.float32,
                                        device=dev)
@@ -187,19 +203,91 @@ class PhysObjAttack:
             tile_h=min(cfg.tile_h, cfg.scene_h),
             tile_w=min(cfg.tile_w, cfg.scene_w))
 
+    def _crop_window(self):
+        """(crop_w, crop_h) of the cropped objective, each None where it
+        does not cut the model frame; (None, None) when it is off."""
+        cfg = self.cfg
+        cw, ch = cfg.attack_crop_w, cfg.attack_crop_h
+        return (cw if cw is not None and cw < cfg.scene_w else None,
+                ch if ch is not None and ch < cfg.scene_h else None)
+
     def _objective(self, scenes_full, obj_adv, z0s, alphas,
-                   scenes_model=None):
-        """The inner-loop cost: EoT view + targeted masked-disparity MSE."""
+                   scenes_model=None, fine: bool = False):
+        """The inner-loop cost: EoT view + targeted masked-disparity MSE.
+        With the cropped objective on the tiled warp (JAX `_objective`'s
+        fused route) the view is `_model_view_cropped`, in the view
+        dtype; else the full-frame view in float32, cropped afterwards
+        when the crop is on. `fine`: read disp0 whatever attack_scale."""
+        cw, ch = self._crop_window()
+        if (cw is not None or ch is not None) and \
+                not self.cfg.exact_composite:
+            adv, masks, scale = self._model_view_cropped(
+                scenes_full, obj_adv, z0s, alphas, cw or self.cfg.scene_w,
+                ch or self.cfg.scene_h, scenes_model)
+            return self._cost_tail(adv, masks, scale, fine)
         adv_scenes, masks = self._model_view(scenes_full, obj_adv, z0s,
                                              alphas, scenes_model)
-        return self._targeted_cost(adv_scenes, masks)
+        return self._targeted_cost(adv_scenes, masks, fine)
 
-    def _targeted_cost(self, adv_scenes, masks):
-        """Targeted zero-disparity masked MSE of the disp0 head,
-        mean((disp * mask)^2) over full-frame composites
-        (phy_obj_atk.py:94). With the cropped objective the composites
-        are cut to the window first and the mean is rescaled to the
-        full frame's (JAX `attacks/base.py:383-404`)."""
+    def _model_view_cropped(self, scenes_full, obj_adv, z0s, alphas,
+                            cw: int, ch: int, scenes_model=None):
+        """(adv_crop, mask_crop, scale) of one EoT step: the tiled warp in
+        the view dtype, pasted into the resized scenes (also in the view
+        dtype), cut to the (ch, cw) window centred on each sample's
+        mask. The offsets are JAX `_model_view_cropped`'s (base.py:
+        436-470): the tile mask's centre of mass plus the tile's offset,
+        its mass summed in the view dtype. The JAX package relocates the
+        tile into the window with one-hot products (a TPU layout); the
+        paste-then-crop here gives the same values."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.attack_view_dtype)
+        if scenes_model is None:
+            scenes_model = self._resize_scenes(scenes_full)
+        tiles, y0s, x0s = self.eot.tiles_separable(
+            (obj_adv,), self.obj_mask, z0s, alphas, cfg.scene_h,
+            cfg.scene_w, min(cfg.tile_h, cfg.scene_h),
+            min(cfg.tile_w, cfg.scene_w), dtype=dt)
+        (adv,), masks = self.eot.paste_tiles(scenes_model.to(dt), tiles,
+                                             y0s, x0s, (obj_adv.shape[-1],))
+        th, tw = tiles.shape[1:3]
+        with torch.no_grad():
+            m = tiles[..., -1].float()
+            mass = m.sum(dim=(1, 2)).to(dt).float()
+            tys = torch.arange(th, dtype=torch.float32, device=m.device)
+            txs = torch.arange(tw, dtype=torch.float32, device=m.device)
+            cy = torch.tensor(y0s, dtype=torch.float32, device=m.device) + (
+                m * tys[:, None]).sum(dim=(1, 2)) / mass.clamp(min=1e-6)
+            cx = torch.tensor(x0s, dtype=torch.float32, device=m.device) + (
+                m * txs).sum(dim=(1, 2)) / mass.clamp(min=1e-6)
+        return self._cut(adv, masks, cx, cy, mass > 0, cw, ch)
+
+    def _cost_tail(self, adv_scenes, masks, scale: float,
+                   fine: bool = False):
+        """Targeted zero-disparity masked MSE, mean((disp * mask)^2) * scale,
+        the product and mean in float32 (JAX `_cost_tail`, base.py:
+        357-384). Head s = attack_scale unless `fine`: read through
+        `predict_scale`, against the mask resized to (H / 2^s, W / 2^s)
+        (the mean does not depend on the resolution, so `scale`, the
+        crop's rescale, carries over)."""
+        s = 0 if fine else self.cfg.attack_scale
+        if s:
+            if self.predict_scale is None:
+                raise ValueError(
+                    "attack_scale > 0 needs predict_scale (the trainer "
+                    "supplies the scale-s disparity head)")
+            f = 2 ** s
+            masks = bilinear_resize(masks, adv_scenes.shape[1] // f,
+                                    adv_scenes.shape[2] // f)
+            disp = self.predict_scale(adv_scenes)
+        else:
+            disp = self.predictor(adv_scenes)
+        return torch.mean((disp.float() * masks.float()) ** 2) * scale
+
+    def _targeted_cost(self, adv_scenes, masks, fine: bool = False):
+        """The targeted cost of full-frame composites (phy_obj_atk.py:94).
+        With the cropped objective the composites are cut to the window
+        first and the mean is rescaled to the full frame's (JAX
+        `attacks/base.py:386-404`)."""
         _, H, W, _ = adv_scenes.shape
         cw, ch = self.cfg.attack_crop_w, self.cfg.attack_crop_h
         cw = cw if cw is not None and cw < W else None
@@ -208,28 +296,35 @@ class PhysObjAttack:
         if cw is not None or ch is not None:
             adv_scenes, masks, scale = self._crop_to_object(
                 adv_scenes, masks, cw or W, ch or H)
-        disp = self.predictor(adv_scenes)
-        return torch.mean((disp.float() * masks.float()) ** 2) * scale
+        return self._cost_tail(adv_scenes, masks, scale, fine)
 
-    @staticmethod
-    def _crop_to_object(adv_scenes, masks, cw: int, ch: int):
+    @classmethod
+    def _crop_to_object(cls, adv_scenes, masks, cw: int, ch: int):
         """Cut each sample to (ch, cw) centred on its mask's centre of
-        mass (the frame centre for an empty mask), offsets rounded half
-        to even and clipped into the frame, as JAX's `_crop_to_object`
-        (`attacks/base.py:407-433`); the offsets carry no gradient.
-        Returns (adv, masks, ch * cw / (H * W))."""
-        B, H, W, _ = adv_scenes.shape
+        mass (the frame centre for an empty mask), as JAX's
+        `_crop_to_object` (`attacks/base.py:407-433`). Returns (adv,
+        masks, ch * cw / (H * W))."""
+        H, W = adv_scenes.shape[1:3]
         with torch.no_grad():
             m = masks[..., 0].float()
             total = m.sum(dim=(1, 2))
             denom = total.clamp(min=1e-6)
             xs = torch.arange(W, dtype=torch.float32, device=m.device)
             ys = torch.arange(H, dtype=torch.float32, device=m.device)
-            cx = torch.where(total > 0, (m * xs).sum(dim=(1, 2)) / denom,
-                             torch.full_like(total, W / 2.0))
-            cy = torch.where(total > 0,
-                             (m * ys[:, None]).sum(dim=(1, 2)) / denom,
-                             torch.full_like(total, H / 2.0))
+            cx = (m * xs).sum(dim=(1, 2)) / denom
+            cy = (m * ys[:, None]).sum(dim=(1, 2)) / denom
+        return cls._cut(adv_scenes, masks, cx, cy, total > 0, cw, ch)
+
+    @staticmethod
+    def _cut(adv_scenes, masks, cx, cy, has, cw: int, ch: int):
+        """Cut each sample to (ch, cw) around (cy, cx), the frame centre
+        where `has` is False: offsets rounded half to even and clipped
+        into the frame, carrying no gradient. Returns (adv, masks,
+        ch * cw / (H * W))."""
+        H, W = adv_scenes.shape[1:3]
+        with torch.no_grad():
+            cx = torch.where(has, cx, torch.full_like(cx, W / 2.0))
+            cy = torch.where(has, cy, torch.full_like(cy, H / 2.0))
             x0 = torch.round(cx - cw / 2).to(torch.int64).clamp(0, W - cw)
             y0 = torch.round(cy - ch / 2).to(torch.int64).clamp(0, H - ch)
         offsets = list(zip(y0.tolist(), x0.tolist()))
@@ -238,12 +333,13 @@ class PhysObjAttack:
         return crop(adv_scenes), crop(masks), (ch * cw) / (H * W)
 
     def objective_and_grad(self, scenes_full, obj, z0s, alphas,
-                           scenes_model=None):
-        """(cost, d cost / d obj) of one EoT draw."""
+                           scenes_model=None, fine: bool = False):
+        """(cost, d cost / d obj) of one EoT draw; `fine` as
+        `_objective`'s."""
         with torch.enable_grad():
             obj = obj.detach().requires_grad_(True)
             cost = self._objective(scenes_full, obj, z0s, alphas,
-                                   scenes_model)
+                                   scenes_model, fine)
             (g,) = torch.autograd.grad(cost, obj)
         return cost.detach(), g
 

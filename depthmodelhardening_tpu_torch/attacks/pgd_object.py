@@ -5,6 +5,11 @@ Counterpart of `depthmodelhardening_tpu/attacks/pgd_object.py:21-78`
 the eps-ball; each step draws a fresh EoT sample, composites, and steps
 the texture against the sign of the targeted masked-MSE gradient; the
 perturbation is clipped to eps and the texture to [0, 1].
+
+Coarse to fine (JAX :40-75): with `attack_scale` s > 0 the first
+steps - fine_steps steps read the scale-s objective and the last
+fine_steps = min(attack_scale_fine_steps, steps) read disp0; injected
+draws index the steps the same way.
 """
 
 from __future__ import annotations
@@ -66,10 +71,12 @@ class PGDObjectAttack(PhysObjAttack):
                                    dtype=torch.float32)
             obj_adv = torch.clamp(obj_clean + noise, 0.0, 1.0)
         scenes_model = self._resize_scenes(scenes_full)
+        fine_steps = (min(self.cfg.attack_scale_fine_steps, self.steps)
+                      if self.cfg.attack_scale else 0)
         for step in range(self.steps):
             _, g = self.objective_and_grad(
                 scenes_full, obj_adv, draws.z0s[step], draws.alphas[step],
-                scenes_model)
+                scenes_model, fine=step >= self.steps - fine_steps)
             # the reference ascends -MSE (phy_obj_atk.py:94-99):
             # equivalently descend the MSE by the gradient sign
             obj_adv = obj_adv - self.alpha * torch.sign(g)

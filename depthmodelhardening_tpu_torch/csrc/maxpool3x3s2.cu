@@ -1,6 +1,6 @@
 // The ResNet stem's 3x3 / stride 2 / pad 1 max pool (torch
-// MaxPool2d(3, 2, 1)) on NCHW float32, and its equality-routed
-// backward.
+// MaxPool2d(3, 2, 1)) on NCHW float32 or bfloat16, and its
+// equality-routed backward.
 //
 // Replaces the Pallas TPU kernels of depthmodelhardening_tpu/ops/
 // pallas_pool.py: _fwd_kernel (:63) by maxpool3x3s2_fwd and _bwd_kernel
@@ -28,21 +28,71 @@
 // No atomics, so the result is deterministic, and windows are visited in
 // the same order (row-major over (oy, ox)) as the plain version
 // (ops/pool.py) adds them, so the two agree bit for bit.
+//
+// The bfloat16 instances (the kernels are templates on the element type
+// E) compare and stage in float32, which holds every bf16 value exactly,
+// so the forward's max is exact and its rounding to bf16 changes
+// nothing; the backward adds a window's cotangents in float32, in the
+// same order, and rounds the sum to bf16 once (to nearest even), as the
+// plain version does. The vector path moves 4 elements at a time (16
+// bytes of float32, 8 of bf16).
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename E>
+__device__ __forceinline__ E from_f32(float v) {
+  if constexpr (std::is_same_v<E, float>) {
+    return v;
+  } else {
+    return __float2bfloat16_rn(v);
+  }
+}
+
+// four consecutive elements at an address aligned to 4 elements
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
+}
 
 constexpr int kThreads = 256;
 constexpr int kBY = 16, kBX = 64;  // windows per backward block
 constexpr int kXR = 2 * kBY + 3;   // staged rows: 2 oy0 - 1 .. 2 (oy0 + kBY) + 1
 constexpr int kXC = 2 * kBX + 8;   // staged columns: 2 ox0 - 4 .. 2 (ox0 + kBX) + 3
 
-__device__ __forceinline__ float window_max(const float* __restrict__ p,
+template <typename E>
+__device__ __forceinline__ float window_max(const E* __restrict__ p,
                                             int H, int W, int oy, int ox) {
   float m = -CUDART_INF_F;
   for (int dy = -1; dy <= 1; ++dy) {
@@ -51,13 +101,14 @@ __device__ __forceinline__ float window_max(const float* __restrict__ p,
     for (int dx = -1; dx <= 1; ++dx) {
       const int w = 2 * ox + dx;
       if (w < 0 || w >= W) continue;
-      m = fmaxf(m, p[(long long)h * W + w]);
+      m = fmaxf(m, to_f32(p[(long long)h * W + w]));
     }
   }
   return m;
 }
 
-__global__ void pool_fwd(const float* __restrict__ x, float* __restrict__ y,
+template <typename E>
+__global__ void pool_fwd(const E* __restrict__ x, E* __restrict__ y,
                          long long planes, int H, int W, int Ho, int Wo) {
   const long long n = planes * Ho * Wo;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -66,15 +117,16 @@ __global__ void pool_fwd(const float* __restrict__ x, float* __restrict__ y,
   const long long t = i / Wo;
   const int oy = (int)(t % Ho);
   const long long plane = t / Ho;
-  y[i] = window_max(x + plane * H * W, H, W, oy, ox);
+  y[i] = from_f32<E>(window_max(x + plane * H * W, H, W, oy, ox));
 }
 
 // Grid (Wo / kBX, Ho / kBY, planes), rounded up; vec: W % 4 == 0 and x,
-// dx 16-byte aligned, so every staged or written group of 4 columns is
-// one aligned float4 that lies wholly inside or outside the row.
+// dx aligned to 4 elements, so every staged or written group of 4 columns
+// is one aligned vector that lies wholly inside or outside the row.
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-pool_bwd(const float* __restrict__ x, const float* __restrict__ g,
-         float* __restrict__ dx, int H, int W, int Ho, int Wo, int vec) {
+pool_bwd(const E* __restrict__ x, const E* __restrict__ g,
+         E* __restrict__ dx, int H, int W, int Ho, int Wo, int vec) {
   __shared__ __align__(16) float sx[kXR][kXC];
   __shared__ float smax[kBY + 1][kBX + 1];  // -inf outside the map
   __shared__ float sg[kBY + 1][kBX + 1];
@@ -82,9 +134,9 @@ pool_bwd(const float* __restrict__ x, const float* __restrict__ g,
   const int tid = threadIdx.x;
   const int ox0 = blockIdx.x * kBX, oy0 = blockIdx.y * kBY;
   const long long plane = blockIdx.z;
-  const float* xp = x + plane * H * W;
-  const float* gp = g + plane * Ho * Wo;
-  float* dxp = dx + plane * H * W;
+  const E* xp = x + plane * H * W;
+  const E* gp = g + plane * Ho * Wo;
+  E* dxp = dx + plane * H * W;
   const int h0 = 2 * oy0 - 1, w0 = 2 * ox0 - 4;
 
   for (int i = tid; i < kXR * (kXC / 4); i += kThreads) {
@@ -93,14 +145,14 @@ pool_bwd(const float* __restrict__ x, const float* __restrict__ g,
     float4 v = make_float4(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F,
                            -CUDART_INF_F);
     if (h >= 0 && h < H) {
-      const float* row = xp + (long long)h * W;
+      const E* row = xp + (long long)h * W;
       if (vec && w >= 0 && w < W) {
-        v = *reinterpret_cast<const float4*>(row + w);
+        v = load4(row + w);
       } else if (!vec) {
-        if (w >= 0 && w < W) v.x = row[w];
-        if (w + 1 >= 0 && w + 1 < W) v.y = row[w + 1];
-        if (w + 2 >= 0 && w + 2 < W) v.z = row[w + 2];
-        if (w + 3 >= 0 && w + 3 < W) v.w = row[w + 3];
+        if (w >= 0 && w < W) v.x = to_f32(row[w]);
+        if (w + 1 >= 0 && w + 1 < W) v.y = to_f32(row[w + 1]);
+        if (w + 2 >= 0 && w + 2 < W) v.z = to_f32(row[w + 2]);
+        if (w + 3 >= 0 && w + 3 < W) v.w = to_f32(row[w + 3]);
       }
     }
     *reinterpret_cast<float4*>(&sx[r][c]) = v;
@@ -108,7 +160,8 @@ pool_bwd(const float* __restrict__ x, const float* __restrict__ g,
   for (int i = tid; i < (kBY + 1) * (kBX + 1); i += kThreads) {
     const int wy = i / (kBX + 1), wx = i % (kBX + 1);
     const bool ok = oy0 + wy < Ho && ox0 + wx < Wo;
-    sg[wy][wx] = ok ? gp[(long long)(oy0 + wy) * Wo + ox0 + wx] : 0.0f;
+    sg[wy][wx] =
+        ok ? to_f32(gp[(long long)(oy0 + wy) * Wo + ox0 + wx]) : 0.0f;
   }
   __syncthreads();
 
@@ -150,50 +203,75 @@ pool_bwd(const float* __restrict__ x, const float* __restrict__ g,
       }
       out[j] = acc;
     }
-    float* row = dxp + (long long)h * W;
+    E* row = dxp + (long long)h * W;
     const int w = 2 * ox0 + c0;
     if (vec && w < W) {
-      *reinterpret_cast<float4*>(row + w) =
-          make_float4(out[0], out[1], out[2], out[3]);
+      store4(row + w, out);
     } else if (!vec) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (w + j < W) row[w + j] = out[j];
+        if (w + j < W) row[w + j] = from_f32<E>(out[j]);
     }
   }
 }
 
 int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
 
-}  // namespace
-
-extern "C" int maxpool3x3s2_fwd(const float* x, float* y, int B, int C,
-                                int H, int W, int Ho, int Wo,
-                                cudaStream_t stream) {
+template <typename E>
+int launch_fwd(const E* x, E* y, int B, int C, int H, int W, int Ho, int Wo,
+               cudaStream_t stream) {
   const long long planes = (long long)B * C;
   const long long n = planes * Ho * Wo;
   if (n > 0) {
-    pool_fwd<<<blocks_for(n), kThreads, 0, stream>>>(x, y, planes, H, W, Ho,
-                                                     Wo);
+    pool_fwd<E><<<blocks_for(n), kThreads, 0, stream>>>(x, y, planes, H, W,
+                                                        Ho, Wo);
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int maxpool3x3s2_bwd(const float* x, const float* g, float* dx,
-                                int B, int C, int H, int W, int Ho, int Wo,
-                                cudaStream_t stream) {
+template <typename E>
+int launch_bwd(const E* x, const E* g, E* dx, int B, int C, int H, int W,
+               int Ho, int Wo, cudaStream_t stream) {
   const long long planes = (long long)B * C;
   if (planes > 0 && H > 0 && W > 0) {
-    const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+    constexpr uintptr_t kAlign = 4 * sizeof(E);
+    const int vec = W % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % kAlign == 0 &&
+                    reinterpret_cast<uintptr_t>(dx) % kAlign == 0;
     constexpr long long kMaxZ = 65535;  // the grid's z limit
     for (long long p0 = 0; p0 < planes; p0 += kMaxZ) {
       const dim3 grid((Wo + kBX - 1) / kBX, (Ho + kBY - 1) / kBY,
                       (unsigned)std::min(kMaxZ, planes - p0));
-      pool_bwd<<<grid, kThreads, 0, stream>>>(
+      pool_bwd<E><<<grid, kThreads, 0, stream>>>(
           x + p0 * H * W, g + p0 * Ho * Wo, dx + p0 * H * W, H, W, Ho, Wo,
           vec);
     }
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int maxpool3x3s2_fwd(const float* x, float* y, int B, int C,
+                                int H, int W, int Ho, int Wo,
+                                cudaStream_t stream) {
+  return launch_fwd(x, y, B, C, H, W, Ho, Wo, stream);
+}
+
+extern "C" int maxpool3x3s2_bwd(const float* x, const float* g, float* dx,
+                                int B, int C, int H, int W, int Ho, int Wo,
+                                cudaStream_t stream) {
+  return launch_bwd(x, g, dx, B, C, H, W, Ho, Wo, stream);
+}
+
+extern "C" int maxpool3x3s2_fwd_bf16(const bf16* x, bf16* y, int B, int C,
+                                     int H, int W, int Ho, int Wo,
+                                     cudaStream_t stream) {
+  return launch_fwd(x, y, B, C, H, W, Ho, Wo, stream);
+}
+
+extern "C" int maxpool3x3s2_bwd_bf16(const bf16* x, const bf16* g, bf16* dx,
+                                     int B, int C, int H, int W, int Ho,
+                                     int Wo, cudaStream_t stream) {
+  return launch_bwd(x, g, dx, B, C, H, W, Ho, Wo, stream);
 }

@@ -15,7 +15,15 @@ scale-0..2 heads) run kernel D on the card, with the ConvBlock's bias
 and ELU in its epilogue. `forward(features, scales=(0,))` evaluates only
 the requested heads (the JAX package's `scales=(0,)` twin,
 `training/distill.py:98-111`): the others are skipped, so they get no
-gradient and an optimizer step leaves them as they were.
+gradient and an optimizer step leaves them as they were. The forward
+stops after the deepest requested head: a stage above it is not
+evaluated (the JAX package gets this from XLA's dead-code elimination,
+docs/FIDELITY.md N+0.6), so `scales=(1,)` runs neither upconv_0_0,
+upconv_0_1 nor dispconv_0.
+
+Compute dtype (JAX :126-172): the features are cast to `dtype` on the
+way in, each conv's float32 weights and bias are cast to it at the call,
+and the heads' sigmoid runs in float32.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ class Conv3x3(nn.Module):
         self.conv = nn.Conv2d(cin, cout, 3)
 
     def forward(self, x, elu: bool = False):
-        return conv3x3_reflect(x, self.conv.weight, self.conv.bias, elu)
+        return conv3x3_reflect(x, self.conv.weight.to(x.dtype),
+                               self.conv.bias.to(x.dtype), elu)
 
 
 class ConvBlock(nn.Module):
@@ -63,8 +72,9 @@ def decoder_module_names(scales: Sequence[int]) -> Tuple[str, ...]:
 
 
 class DepthDecoder(nn.Module):
-    """forward(features, scales=None) -> {("disp", s): (B, 1, H/2^s,
-    W/2^s)} for every s of `scales` (default: all the decoder's)."""
+    """forward(features, scales=None, dtype=float32) -> {("disp", s):
+    (B, 1, H/2^s, W/2^s) float32} for every s of `scales` (default: all
+    the decoder's), computed in `dtype`."""
 
     def __init__(self, scales: Sequence[int] = (0, 1, 2, 3),
                  num_output_channels: int = 1,
@@ -81,19 +91,20 @@ class DepthDecoder(nn.Module):
             layers.append(Conv3x3(NUM_CH_DEC[s], num_output_channels))
         self.decoder = nn.ModuleList(layers)
 
-    def forward(self, features, scales: Optional[Sequence[int]] = None
+    def forward(self, features, scales: Optional[Sequence[int]] = None,
+                dtype: torch.dtype = torch.float32
                 ) -> Dict[Tuple[str, int], torch.Tensor]:
         heads = self.scales if scales is None else tuple(scales)
-        if not set(heads) <= set(self.scales):
+        if not heads or not set(heads) <= set(self.scales):
             raise ValueError(f"scales {heads} not among the decoder's "
                              f"{self.scales}")
         outputs = {}
-        x = features[-1]
-        for n, i in enumerate(range(4, -1, -1)):
+        x = features[-1].to(dtype)
+        for n, i in enumerate(range(4, min(heads) - 1, -1)):
             x = self.decoder[2 * n](x)
             x = nearest_upsample2(x)
             if i > 0:
-                x = torch.cat([x, features[i - 1]], dim=1)
+                x = torch.cat([x, features[i - 1].to(dtype)], dim=1)
             x = self.decoder[2 * n + 1](x)
             if i in heads:
                 head = self.decoder[10 + self.scales.index(i)]

@@ -10,6 +10,21 @@ load with their "encoder." prefix removed (models/convert.py).
 
 The stem's 3x3 / stride 2 max pool is the hand-written kernel of
 ops/pool.py (equality-routed backward).
+
+Compute dtype (JAX :28-121, :368-412): parameters, BatchNorm statistics
+and running averages stay float32; the normalised input is cast to the
+compute dtype (`dtype`, float32 or bfloat16) and every activation stays
+in it, each conv's weights cast to it at the call. BatchNorm takes the
+low-precision activations with its float32 parameters (statistics in
+float32, as flax computes them).
+
+`fold_bn` (eval mode only, JAX `_BNFold` :32-61): each BatchNorm is
+folded into the conv before it, bn_eval(conv(x, W)) = conv(x, W mul) +
+add with mul = scale / sqrt(var + eps) and add = bias - mean mul, both in
+float32; W mul is computed in float32 and cast to the compute dtype
+(`_folded_conv` :64-70), add is cast to it and added after the conv. The
+fold is computed from the parameters and statistics at each forward, so
+it follows every optimizer step. Train mode never folds.
 """
 
 from __future__ import annotations
@@ -29,6 +44,22 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
+def _conv(conv: nn.Conv2d, x):
+    """`conv` (no bias) in x's dtype: its float32 weights cast to it."""
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                    conv.padding)
+
+
+def _folded_conv(conv: nn.Conv2d, bn: nn.BatchNorm2d, x):
+    """bn_eval(conv(x)) as conv(x, W mul) + add, mul and add in float32
+    (JAX `_BNFold`, `_folded_conv`)."""
+    mul = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    add = bn.bias - bn.running_mean * mul
+    w = (conv.weight * mul[:, None, None, None]).to(x.dtype)
+    y = F.conv2d(x, w, None, conv.stride, conv.padding)
+    return y + add.to(x.dtype)[:, None, None]
+
+
 class BasicBlock(nn.Module):
     """torchvision BasicBlock: 3x3 -> 3x3 with identity/projection skip."""
 
@@ -43,17 +74,28 @@ class BasicBlock(nn.Module):
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride, bias=False), _bn(cout))
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, fold: bool = False):
+        """x in the compute dtype; `fold`: BatchNorm folded (eval)."""
+        identity = x
+        if fold:
+            y = F.relu(_folded_conv(self.conv1, self.bn1, x))
+            y = _folded_conv(self.conv2, self.bn2, y)
+            if self.downsample is not None:
+                identity = _folded_conv(self.downsample[0],
+                                        self.downsample[1], x)
+            return F.relu(y + identity)
+        y = F.relu(self.bn1(_conv(self.conv1, x)))
+        y = self.bn2(_conv(self.conv2, y))
+        if self.downsample is not None:
+            identity = self.downsample[1](_conv(self.downsample[0], x))
         return F.relu(y + identity)
 
 
 class ResnetEncoder(nn.Module):
     """ResNet trunk returning the 5 multi-scale feature maps (NCHW).
 
-    Input: (B, 3, H, W) in [0, 1], H and W multiples of 32.
+    Input: (B, 3, H, W) in [0, 1], H and W multiples of 32. The features
+    come out in the compute dtype.
     """
 
     def __init__(self, num_layers: int = 18):
@@ -74,12 +116,21 @@ class ResnetEncoder(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*layer))
             cin = width
 
-    def forward(self, x):
-        x = (x - 0.45) / 0.225
-        f0 = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x, dtype: torch.dtype = torch.float32,
+                fold_bn: bool = False):
+        """`dtype`: the compute dtype; `fold_bn`: fold the BatchNorms
+        into the convs, in eval mode only."""
+        fold = fold_bn and not self.training
+        x = ((x - 0.45) / 0.225).to(dtype)
+        if fold:
+            x = _folded_conv(self.conv1, self.bn1, x)
+        else:
+            x = self.bn1(_conv(self.conv1, x))
+        f0 = F.relu(x)
         x = maxpool3x3s2(f0)
         features = [f0]
         for i in range(1, 5):
-            x = getattr(self, f"layer{i}")(x)
+            for block in getattr(self, f"layer{i}"):
+                x = block(x, fold)
             features.append(x)
         return features

@@ -157,24 +157,41 @@ def stream_handle(t: torch.Tensor) -> int:
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, ndim: int,
-                      device: torch.device = None) -> None:
-    """Raise unless `t` is a contiguous float32 CUDA tensor of rank
-    `ndim` (on `device`, when given) on a Hopper-class card."""
+                      device: torch.device = None,
+                      dtypes: Sequence[torch.dtype] = (torch.float32,)
+                      ) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of one of `dtypes`
+    (the element types the entry point has an instance for; float32
+    alone by default) and of rank `ndim` (on `device`, when given) on a
+    Hopper-class card. The dtype is checked first: no tensor is ever
+    cast to fit a kernel."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t)}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: expected "
+                        f"{' or '.join(str(d) for d in dtypes)}, got "
+                        f"{t.dtype}")
     if t.device.type != "cuda":
         raise RuntimeError(f"{name}: kernel input must be a CUDA tensor, "
                            f"got one on {t.device}")
     require_cuda(t.device)
     if device is not None and t.device != device:
         raise RuntimeError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_dtype(op: str, t: torch.Tensor,
+                dtypes: Sequence[torch.dtype]) -> None:
+    """Raise unless `t` has one of `dtypes`: an op with kernel instances
+    for those types refuses any other on every device, so the CPU's
+    plain version accepts exactly what the card's kernels do."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{op}: no kernel for {t.dtype} (it has "
+                        f"{' and '.join(str(d) for d in dtypes)})")
 
 
 def on_cuda(t: torch.Tensor, op: str) -> bool:

@@ -11,6 +11,15 @@ fused into D's epilogue (the function of the prototype P3,
 `scripts/proto_pallas_wconv.py:40`); the ELU's backward multiplies the
 cotangent by (y > 0 ? 1 : y + 1) from the saved output.
 
+Two element types, each with its own kernel instances and launch
+counts: float32 (the reference's precision) and bfloat16 (the
+distillation step's `compute_dtype="bfloat16"`). The bf16 instance is
+P3's function itself: bf16 in, float32 accumulation, bias and ELU in
+float32, one rounding to bf16 (`proto_pallas_wconv.py:60-80`); its
+plain version upcasts to float32, convolves, applies the epilogue and
+rounds once. Input, weights and bias share one dtype; any other dtype
+(float16, float64) raises, on the CPU too.
+
 `conv3x3_reflect` is the dispatch (`pallas_conv.py:167-188`): a conv
 with at most 64 input and 64 output channels (`small_c`, :175) runs
 `conv3x3_valid`, any other runs `F.conv2d`. The choice is made by shape
@@ -19,8 +28,9 @@ nothing on the card needs it, and it would exclude the 320-wide attack
 crop. On a CUDA tensor `conv3x3_valid` launches the kernels of
 `csrc/conv3x3.cu` or raises; on a CPU tensor it runs the plain versions
 below. Inside D, the output channels of a launch alone choose the route
-(`uses_tensor_cores`): the 3xTF32 tensor-core kernel, or the CUDA-core
-one for a single output channel. The input gradient's flipped, transposed
+(`uses_tensor_cores`): the tensor-core kernel (3xTF32 in float32, one
+bf16 MMA a product in bf16), or the CUDA-core one for a single output
+channel. The input gradient's flipped, transposed
 weights are made here (`dgrad_weights`), not read in place by the kernel.
 Layout: NCHW / OIHW.
 """
@@ -31,21 +41,29 @@ import torch
 import torch.nn.functional as F
 
 from ._build import (
-    INT, POINTER, check_cuda_tensor, on_cuda, register, stream_handle,
+    INT, POINTER, check_cuda_tensor, check_dtype, on_cuda, register,
+    stream_handle,
 )
 from .padding import reflect_pad1
 
 SMALL_C = 64  # pallas_conv.py:175
+DTYPES = (torch.float32, torch.bfloat16)
 
-FWD = register(
-    "conv3x3_fwd", "conv3x3.cu",
-    [POINTER, POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT, INT,
-     POINTER],
+_FWD_ARGS = [POINTER, POINTER, POINTER, POINTER, INT, INT, INT, INT, INT,
+             INT, INT, POINTER]
+_DGRAD_ARGS = [POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT,
+               POINTER]
+FWD = register("conv3x3_fwd", "conv3x3.cu", _FWD_ARGS,
+               replaces="depthmodelhardening_tpu/ops/pallas_conv.py:42")
+DGRAD = register("conv3x3_dgrad", "conv3x3.cu", _DGRAD_ARGS,
+                 replaces="depthmodelhardening_tpu/ops/pallas_conv.py:42")
+FWD_BF16 = register("conv3x3_fwd_bf16", "conv3x3.cu", _FWD_ARGS,
+                    replaces="scripts/proto_pallas_wconv.py:40")
+DGRAD_BF16 = register(
+    "conv3x3_dgrad_bf16", "conv3x3.cu", _DGRAD_ARGS,
     replaces="depthmodelhardening_tpu/ops/pallas_conv.py:42")
-DGRAD = register(
-    "conv3x3_dgrad", "conv3x3.cu",
-    [POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT, POINTER],
-    replaces="depthmodelhardening_tpu/ops/pallas_conv.py:42")
+_KERNELS = {torch.float32: (FWD, DGRAD), torch.bfloat16: (FWD_BF16,
+                                                           DGRAD_BF16)}
 
 
 def takes_kernel(cin: int, co: int) -> bool:
@@ -54,7 +72,7 @@ def takes_kernel(cin: int, co: int) -> bool:
 
 
 def uses_tensor_cores(co: int) -> bool:
-    """Kernel D's route for a launch with `co` output channels: the 3xTF32
+    """Kernel D's route for a launch with `co` output channels: the
     tensor-core kernel for Co >= 2; the CUDA-core kernel for Co = 1 (the
     16 -> 1 disparity head forward, bound by bytes)."""
     return co >= 2
@@ -72,14 +90,22 @@ def _epilogue(out, elu: bool):
 
 # -- plain PyTorch versions --------------------------------------------------
 def conv3x3_valid_plain(xp, w, bias=None, elu: bool = False):
-    """(B, Cin, H + 2, W + 2), (Co, Cin, 3, 3) -> (B, Co, H, W)."""
+    """(B, Cin, H + 2, W + 2), (Co, Cin, 3, 3) -> (B, Co, H, W). In
+    bf16: computed in float32 from the upcast operands, rounded once."""
+    if xp.dtype == torch.bfloat16:
+        return conv3x3_valid_plain(
+            xp.float(), w.float(), None if bias is None else bias.float(),
+            elu).to(torch.bfloat16)
     return _epilogue(F.conv2d(xp, w, bias), elu)
 
 
 def conv3x3_dgrad_plain(g, w):
     """Gradient with respect to xp of `conv3x3_valid_plain(xp, w)` for the
     cotangent g (B, Co, H, W): the VALID conv of g zero-padded by 2 with
-    the flipped, transposed weights -> (B, Cin, H + 2, W + 2)."""
+    the flipped, transposed weights -> (B, Cin, H + 2, W + 2). In bf16:
+    computed in float32, rounded once."""
+    if g.dtype == torch.bfloat16:
+        return conv3x3_dgrad_plain(g.float(), w.float()).to(torch.bfloat16)
     return F.conv2d(F.pad(g, (2, 2, 2, 2)), w.flip((2, 3)).transpose(0, 1))
 
 
@@ -89,42 +115,43 @@ def weight_grad(xp, w, g):
 
 
 # -- CUDA kernels ------------------------------------------------------------
-def _check_weight(w, cin: int, device):
-    check_cuda_tensor("w", w, 4, device)
+def _check_weight(w, cin: int, like):
+    check_cuda_tensor("w", w, 4, like.device, (like.dtype,))
     if w.shape[1:] != (cin, 3, 3):
         raise ValueError(f"w must be (Co, {cin}, 3, 3), got {tuple(w.shape)}")
 
 
 def conv3x3_valid_cuda(xp, w, bias=None, elu: bool = False):
-    check_cuda_tensor("xp", xp, 4)
+    check_cuda_tensor("xp", xp, 4, dtypes=DTYPES)
     B, Cin, Hp, Wp = xp.shape
-    _check_weight(w, Cin, xp.device)
+    _check_weight(w, Cin, xp)
     Co = w.shape[0]
     if bias is not None:
-        check_cuda_tensor("bias", bias, 1, xp.device)
+        check_cuda_tensor("bias", bias, 1, xp.device, (xp.dtype,))
         if bias.shape[0] != Co:
             raise ValueError(f"bias must be ({Co},), got {tuple(bias.shape)}")
     out = torch.empty((B, Co, Hp - 2, Wp - 2), dtype=xp.dtype,
                       device=xp.device)
-    FWD.launch(xp.data_ptr(), w.data_ptr(),
-               None if bias is None else bias.data_ptr(), out.data_ptr(),
-               B, Cin, Hp, Wp, Co, int(elu), int(uses_tensor_cores(Co)),
-               stream_handle(xp))
+    _KERNELS[xp.dtype][0].launch(
+        xp.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), B, Cin,
+        Hp, Wp, Co, int(elu), int(uses_tensor_cores(Co)), stream_handle(xp))
     return out
 
 
 def conv3x3_dgrad_cuda(g, w):
-    check_cuda_tensor("g", g, 4)
+    check_cuda_tensor("g", g, 4, dtypes=DTYPES)
     B, Co, H, W = g.shape
-    check_cuda_tensor("w", w, 4, g.device)
+    check_cuda_tensor("w", w, 4, g.device, (g.dtype,))
     if w.shape[0] != Co or w.shape[2:] != (3, 3):
         raise ValueError(f"w must be ({Co}, Cin, 3, 3), got "
                          f"{tuple(w.shape)}")
     Cin = w.shape[1]
     wt = dgrad_weights(w)
     dxp = torch.empty((B, Cin, H + 2, W + 2), dtype=g.dtype, device=g.device)
-    DGRAD.launch(g.data_ptr(), wt.data_ptr(), dxp.data_ptr(), B, Co, H, W,
-                 Cin, int(uses_tensor_cores(Cin)), stream_handle(g))
+    _KERNELS[g.dtype][1].launch(
+        g.data_ptr(), wt.data_ptr(), dxp.data_ptr(), B, Co, H, W, Cin,
+        int(uses_tensor_cores(Cin)), stream_handle(g))
     return dxp
 
 
@@ -166,8 +193,10 @@ class _Conv3x3Valid(torch.autograd.Function):
 
 
 def conv3x3_valid(xp, w, bias=None, elu: bool = False):
-    """3x3 VALID conv of a pre-padded (B, Cin, H + 2, W + 2) float32 map
-    with (Co, Cin, 3, 3) weights, plus an optional bias and ELU."""
+    """3x3 VALID conv of a pre-padded (B, Cin, H + 2, W + 2) float32 or
+    bfloat16 map with (Co, Cin, 3, 3) weights of the same dtype, plus an
+    optional bias and ELU."""
+    check_dtype("conv3x3_valid", xp, DTYPES)
     return _Conv3x3Valid.apply(xp.contiguous(), w.contiguous(), bias, elu)
 
 

@@ -15,6 +15,12 @@ On a CUDA tensor both directions launch the kernels of
 `csrc/maxpool3x3s2.cu`; on a CPU tensor they run the plain version
 below (unfold-and-max forward, the same equality-routed backward,
 adding the windows in the kernel's order so the two agree bit for bit).
+
+float32 and bfloat16 have kernel instances of their own, with their own
+launch counts (the JAX package runs its pool kernels in bf16 under the
+bf16 compute dtype). In bf16 the forward's max is exact; the backward
+adds a window's cotangents in float32 and rounds the sum to bf16 once,
+in both the kernel and the plain version. Any other dtype raises.
 """
 
 from __future__ import annotations
@@ -23,17 +29,23 @@ import torch
 import torch.nn.functional as F
 
 from ._build import (
-    INT, POINTER, check_cuda_tensor, on_cuda, register, stream_handle,
+    INT, POINTER, check_cuda_tensor, check_dtype, on_cuda, register,
+    stream_handle,
 )
 
-FWD = register(
-    "maxpool3x3s2_fwd", "maxpool3x3s2.cu",
-    [POINTER, POINTER, INT, INT, INT, INT, INT, INT, POINTER],
-    replaces="depthmodelhardening_tpu/ops/pallas_pool.py:63")
-BWD = register(
-    "maxpool3x3s2_bwd", "maxpool3x3s2.cu",
-    [POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT, POINTER],
-    replaces="depthmodelhardening_tpu/ops/pallas_pool.py:77")
+DTYPES = (torch.float32, torch.bfloat16)
+_FWD_ARGS = [POINTER, POINTER, INT, INT, INT, INT, INT, INT, POINTER]
+_BWD_ARGS = [POINTER, POINTER, POINTER, INT, INT, INT, INT, INT, INT,
+             POINTER]
+_FWD_AT = "depthmodelhardening_tpu/ops/pallas_pool.py:63"
+_BWD_AT = "depthmodelhardening_tpu/ops/pallas_pool.py:77"
+FWD = register("maxpool3x3s2_fwd", "maxpool3x3s2.cu", _FWD_ARGS, _FWD_AT)
+BWD = register("maxpool3x3s2_bwd", "maxpool3x3s2.cu", _BWD_ARGS, _BWD_AT)
+FWD_BF16 = register("maxpool3x3s2_fwd_bf16", "maxpool3x3s2.cu", _FWD_ARGS,
+                    _FWD_AT)
+BWD_BF16 = register("maxpool3x3s2_bwd_bf16", "maxpool3x3s2.cu", _BWD_ARGS,
+                    _BWD_AT)
+_KERNELS = {torch.float32: (FWD, BWD), torch.bfloat16: (FWD_BF16, BWD_BF16)}
 
 
 def pooled_size(n: int) -> int:
@@ -59,7 +71,11 @@ def _cover(n: int, n_out: int, device):
 
 
 def maxpool3x3s2_backward_plain(x, g):
-    """Equality-routed cotangent (B, C, H, W) of the pooled `g`."""
+    """Equality-routed cotangent (B, C, H, W) of the pooled `g`; in
+    bf16 summed in float32 and rounded once."""
+    if x.dtype == torch.bfloat16:
+        return maxpool3x3s2_backward_plain(x.float(), g.float()).to(
+            torch.bfloat16)
     H, W = x.shape[2:]
     Ho, Wo = g.shape[2:]
     m = maxpool3x3s2_plain(x)
@@ -79,26 +95,26 @@ def maxpool3x3s2_backward_plain(x, g):
 
 # -- CUDA kernels ------------------------------------------------------------
 def maxpool3x3s2_fwd_cuda(x):
-    check_cuda_tensor("x", x, 4)
+    check_cuda_tensor("x", x, 4, dtypes=DTYPES)
     B, C, H, W = x.shape
     Ho, Wo = pooled_size(H), pooled_size(W)
     y = torch.empty((B, C, Ho, Wo), dtype=x.dtype, device=x.device)
-    FWD.launch(x.data_ptr(), y.data_ptr(), B, C, H, W, Ho, Wo,
-               stream_handle(x))
+    _KERNELS[x.dtype][0].launch(x.data_ptr(), y.data_ptr(), B, C, H, W, Ho,
+                                Wo, stream_handle(x))
     return y
 
 
 def maxpool3x3s2_bwd_cuda(x, g):
-    check_cuda_tensor("x", x, 4)
-    check_cuda_tensor("g", g, 4, x.device)
+    check_cuda_tensor("x", x, 4, dtypes=DTYPES)
+    check_cuda_tensor("g", g, 4, x.device, (x.dtype,))
     B, C, H, W = x.shape
     Ho, Wo = pooled_size(H), pooled_size(W)
     if tuple(g.shape) != (B, C, Ho, Wo):
         raise ValueError(f"g must be {(B, C, Ho, Wo)}, got "
                          f"{tuple(g.shape)}")
     dx = torch.empty_like(x)
-    BWD.launch(x.data_ptr(), g.data_ptr(), dx.data_ptr(), B, C, H, W, Ho,
-               Wo, stream_handle(x))
+    _KERNELS[x.dtype][1].launch(x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                                B, C, H, W, Ho, Wo, stream_handle(x))
     return dx
 
 
@@ -121,6 +137,7 @@ class _MaxPool3x3s2(torch.autograd.Function):
 
 
 def maxpool3x3s2(x):
-    """3x3 / stride 2 / pad 1 max pool of (B, C, H, W) float32, with the
-    equality-routed backward."""
+    """3x3 / stride 2 / pad 1 max pool of (B, C, H, W) float32 or
+    bfloat16, with the equality-routed backward."""
+    check_dtype("maxpool3x3s2", x, DTYPES)
     return _MaxPool3x3s2.apply(x.contiguous())

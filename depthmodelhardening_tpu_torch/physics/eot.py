@@ -300,10 +300,18 @@ class EoTCompositor:
 
     def tiles_separable(self, textures: Sequence[torch.Tensor], mask,
                         z0s, alphas, model_h: int, model_w: int,
-                        tile_h: int, tile_w: int):
+                        tile_h: int, tile_w: int, dtype=_F32):
         """Warp textures + mask (channel-stacked, mask last) into
-        (B, tile_h, tile_w, sum(C) + 1) tiles; returns (tiles, y0s, x0s)
-        with integer tile offsets (lists of ints) in the model frame."""
+        (B, tile_h, tile_w, sum(C) + 1) tiles of `dtype`; returns (tiles,
+        y0s, x0s) with integer tile offsets (lists of ints) in the model
+        frame.
+
+        A view dtype other than float32 (JAX `tiles_separable`,
+        eot.py:535-590) rounds pass 1's weights and inputs to it and
+        accumulates their products in float32 (the JAX package's
+        `preferred_element_type=float32`); pass 2, warp A, stays float32
+        (the TPU kernel needs float32 rows), and the tiles are cast to
+        `dtype` after it."""
         oh, ow = self.cfg.obj_h, self.cfg.obj_w
         dev = textures[0].device
         sx, A, B, y0, x0 = self._separable_geometry(
@@ -318,12 +326,16 @@ class EoTCompositor:
         stacked = torch.cat(
             [t.expand((lead,) + t.shape[1:]) for t in textures]
             + [mask.expand(lead, oh, ow, 1)], -1)
+        if dtype != _F32:
+            # bf16 operands, exact float32 products and sums
+            Wx = Wx.to(dtype).float()
+            stacked = stacked.to(dtype).float()
         if lead == 1:
             inter = torch.einsum("kjc,bjx->bckx", stacked[0], Wx)
         else:
             inter = torch.einsum("bkjc,bjx->bckx", stacked, Wx)
         # pass 2 (vertical): the hand-written kernel on the card
-        tiles = vertical_resample(inter, A, B, tile_h)
+        tiles = vertical_resample(inter, A, B, tile_h).to(dtype)
         y0s = [int(v) for v in y0.tolist()]
         x0s = [int(v) for v in x0.tolist()]
         return tiles.permute(0, 2, 3, 1), y0s, x0s
@@ -332,19 +344,31 @@ class EoTCompositor:
                          model_h: int, model_w: int, tile_h: int,
                          tile_w: int) -> Tuple[List[torch.Tensor],
                                                torch.Tensor]:
-        """tiles_separable + per-sample paste into the model-resolution
-        scenes. Returns ([composite per texture], mask_full)."""
+        """tiles_separable in the scenes' dtype + per-sample paste into
+        the model-resolution scenes. Returns ([composite per texture],
+        mask_full)."""
         tiles, y0s, x0s = self.tiles_separable(
-            textures, mask, z0s, alphas, model_h, model_w, tile_h, tile_w)
+            textures, mask, z0s, alphas, model_h, model_w, tile_h, tile_w,
+            dtype=scenes_model.dtype)
+        return self.paste_tiles(scenes_model, tiles, y0s, x0s,
+                                [t.shape[-1] for t in textures])
+
+    @staticmethod
+    def paste_tiles(scenes_model, tiles, y0s, x0s, chans: Sequence[int]
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """scene * (1 - m) + obj * m inside each sample's tile, for each
+        texture of `tiles` (its channels `chans`, the mask last), and the
+        mask pasted into zeros. Returns ([composite per texture],
+        mask_full)."""
+        tile_h, tile_w = tiles.shape[1:3]
         m_t = tiles[..., -1:]
-        comps = [scenes_model.clone() for _ in textures]
+        comps = [scenes_model.clone() for _ in chans]
         mask_full = scenes_model.new_zeros(scenes_model.shape[:3] + (1,))
         for b, (y0, x0) in enumerate(zip(y0s, x0s)):
             win = (b, slice(y0, y0 + tile_h), slice(x0, x0 + tile_w))
             scene_t = scenes_model[win]
             off = 0
-            for comp, t in zip(comps, textures):
-                c = t.shape[-1]
+            for comp, c in zip(comps, chans):
                 obj_t = tiles[b, ..., off:off + c]
                 off += c
                 comp[win] = scene_t * (1.0 - m_t[b]) + obj_t * m_t[b]

@@ -4,16 +4,17 @@ adv-train dicts of monodepth2/trainer.py:199-223 and
 simple_adv_training.py).
 
 Same fields and defaults as the JAX package's dataclasses, less the TPU
-layout rewrites (`s2d_stem`, `wpack_*`, `fuse_upconv`, `packed_decoder`)
-and the eval-clone BatchNorm fold (`fold_bn`, a speed rewrite of
-eval-mode BatchNorm, not a change of semantics): the port runs the plain
-path, so passing one of them is a TypeError. `compute_dtype` other than
-float32 raises. `DistillConfig` also leaves out the options that only
-unported code reads (`adam_lr`, `mask_wt`, `l0_thresh`: the L0 attack;
-`epochs`, `obj_name`: the CLI; `attack_scale_fine_steps`: the
-coarse-scale objective); its `attack_scale` and `attack_view_dtype`
-away from their defaults raise when the attack is built
-(`attacks/base.py:PhysObjAttackConfig`).
+layout rewrites (`s2d_stem`, `wpack_*`, `fuse_upconv`, `packed_decoder`):
+the port runs the plain layout, so passing one of them is a TypeError.
+`DistillConfig` takes `compute_dtype` "float32" or "bfloat16" (the
+JAX benchmark's configuration, `bench.py:81-115`), the eval-clone
+BatchNorm fold `fold_bn` (default on, as in JAX), and the attack's
+`attack_scale` (0, 1 or 2), `attack_scale_fine_steps` and
+`attack_view_dtype`, which the attack's own config checks
+(`attacks/base.py:PhysObjAttackConfig`). It leaves out the options that
+only unported code reads (`adam_lr`, `mask_wt`, `l0_thresh`: the L0
+attack; `epochs`, `obj_name`: the CLI). `HardeningConfig` trains in
+float32 only: its bfloat16 compute dtype is ROADMAP Queue 1, slice 5.
 """
 
 from __future__ import annotations
@@ -120,14 +121,11 @@ class HardeningConfig:
     manydepth_real_lookup: bool = False
 
     def __post_init__(self):
-        _refuse_compute_dtype(self.compute_dtype)
-
-
-def _refuse_compute_dtype(compute_dtype: str) -> None:
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the port trains in float32 "
-            "only (the reference's precision)")
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={self.compute_dtype!r}: the hardening "
+                "trainer runs in float32 only; its bfloat16 path is not "
+                "ported yet (ROADMAP Queue 1, slice 5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,17 +139,26 @@ class DistillConfig:
     steps: int = 10
     batch_size: int = 16
     learning_rate: float = 1e-4  # simple_adv_training.py:115
+    # the student's and its attack views' compute dtype: "float32" or
+    # "bfloat16" (parameters and BatchNorm statistics stay float32)
     compute_dtype: str = "float32"
     attack_crop_w: Optional[int] = None
     attack_crop_h: Optional[int] = None
     attack_scale: int = 0
+    attack_scale_fine_steps: int = 1
     attack_view_dtype: str = "float32"
     tile_h: int = 256
     tile_w: int = 256
+    # fold eval-mode BatchNorm into the convs of the attack's views of
+    # the student (exact algebra, models/resnet.py:_folded_conv); the
+    # student's training passes never fold
+    fold_bn: bool = True
     scene_h: int = 320
     scene_w: int = 1024
     ori_h: int = 375
     ori_w: int = 1242
 
     def __post_init__(self):
-        _refuse_compute_dtype(self.compute_dtype)
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError("compute_dtype must be 'float32' or "
+                             f"'bfloat16', got {self.compute_dtype!r}")

@@ -19,13 +19,22 @@ Every model pass reads disp0 only, so the student evaluates only that
 head (`DepthDecoder.forward(..., scales=(0,))`, the JAX package's
 `model_d0` twin). The other heads stay in its state and get no gradient,
 so a step leaves them bit-unchanged (JAX: a zero gradient, an Adam
-update of 0).
+update of 0). With `attack_scale` s > 0 the attack's coarse steps read
+the student's scale-s head instead (a second view, JAX
+`student_predict_scale` :113-125), and its decoder stops at that head.
+
+The student computes in `cfg.compute_dtype` (float32 or bfloat16; its
+parameters, BatchNorm statistics and Adam's moments stay float32) and
+carries `cfg.fold_bn`: the attack's views of it run in eval mode and
+then fold BatchNorm into the convs from the weights as they are at each
+call; its train-mode passes never fold. The
+teacher is the caller's: in `bench.py`'s configuration a bf16, folded
+`DepthPredictor` of disp0.
 
 The state is a model and its optimizer, updated in place; `train_step`
 also returns it. Random draws come from a CPU `torch.Generator` or are
 injected as `PGDDraws`. Unported: `adv_type="image"` (slice 6) and
-`"object_l0"` (slice 4), the eval's logger images (slice 7), and the
-config's `attack_scale` / bfloat16 view (slice 3b) raise
+`"object_l0"` (slice 4) and the eval's logger images (slice 7) raise
 NotImplementedError.
 """
 
@@ -72,6 +81,7 @@ def build_attack(cfg: DistillConfig, predictor, obj_img, obj_mask):
         tile_h=cfg.tile_h, tile_w=cfg.tile_w,
         attack_crop_w=cfg.attack_crop_w, attack_crop_h=cfg.attack_crop_h,
         attack_scale=cfg.attack_scale,
+        attack_scale_fine_steps=cfg.attack_scale_fine_steps,
         attack_view_dtype=cfg.attack_view_dtype)
     return PGDObjectAttack(predictor, obj_img, obj_mask, atk_cfg,
                            eps=cfg.epsilon, alpha=cfg.alpha, steps=cfg.steps)
@@ -104,16 +114,24 @@ class DistillTrainer:
                                               num_layers).state_dict()
         self._init_state_dict = {k: v.detach().cpu().clone()
                                  for k, v in init_state_dict.items()}
-        # the attack reads the student of the state being stepped
+        # the attack reads the student of the state being stepped: disp0,
+        # and the scale-s head for the coarse steps
         self.student_view = EvalView(self.device)
         self.attack = build_attack(cfg, self.student_view, obj_img, obj_mask)
+        self.scale_view = None
+        if cfg.attack_scale:
+            self.scale_view = EvalView(self.device,
+                                       scales=(cfg.attack_scale,))
+            self.attack.predict_scale = self.scale_view
 
     # -- state ----------------------------------------------------------------
     def make_state(self, resume: Optional[Mapping] = None) -> DistillState:
         """A fresh student from the initial weights, in train mode, with a
         new Adam; or, with `resume` (`models/convert.py:
         from_jax_distill_state`), that student, Adam state and step."""
-        model = make_monodepth2(self.num_layers)
+        model = make_monodepth2(self.num_layers,
+                                dtype=self.cfg.compute_dtype,
+                                fold_bn=self.cfg.fold_bn)
         model.load_state_dict(self._init_state_dict if resume is None
                               else resume["model"])
         model = model.to(self.device).train()
@@ -137,6 +155,8 @@ class DistillTrainer:
     def attack_student(self, state: DistillState) -> PGDObjectAttack:
         """The attack, aimed at `state`'s student as it is now."""
         self.student_view.model = state.model
+        if self.scale_view is not None:
+            self.scale_view.model = state.model
         return self.attack
 
     # -- the step -------------------------------------------------------------

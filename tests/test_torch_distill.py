@@ -1,5 +1,5 @@
 """The port's distillation step (BASELINE config 3) against the JAX
-package's `training/distill.py`, and its unported options.
+package's `training/distill.py`, its options and its unported ones.
 
 Shapes of tests/test_torch_attack_eval.py: 375x1242 synthetic scenes,
 the model at 96x320, a 40x60 car, batch 2, L-inf PGD-2 (eps 0.1, alpha
@@ -182,17 +182,20 @@ def port(ref):
 
 
 def _bn_counts(model):
-    """n = B * h * w seen by each BatchNorm in one forward at (H, W)."""
+    """n = B * h * w seen by each BatchNorm in one forward at (H, W), an
+    eval forward with the fold off (a folded pass calls no BatchNorm)."""
     counts, hooks = {}, []
     for name, m in model.named_modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             hooks.append(m.register_forward_hook(
                 lambda mod, inp, out, name=name: counts.__setitem__(
                     name, inp[0].numel() // inp[0].shape[1])))
-    was = model.training
+    was, fold = model.training, model.fold_bn
+    model.fold_bn = False
     with torch.no_grad():
         model.eval()(torch.zeros(B, H, W, 3))
     model.train(was)
+    model.fold_bn = fold
     for h in hooks:
         h.remove()
     return counts
@@ -429,21 +432,57 @@ def test_unported_attack_types_raise(ref, kw, err, match):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(attack_scale=1), NotImplementedError, "ROADMAP.*slice 3b"),
-    (dict(attack_view_dtype="bfloat16"), NotImplementedError,
-     "ROADMAP.*slice 3b"),
-    (dict(compute_dtype="bfloat16"), NotImplementedError, "float32"),
-    (dict(fold_bn=True), TypeError, "fold_bn"),
     (dict(wpack_decoder=True), TypeError, "wpack_decoder"),
-    (dict(attack_scale_fine_steps=2), TypeError, "attack_scale_fine_steps"),
     (dict(mask_wt=0.1), TypeError, "mask_wt"),
 ])
 def test_unported_config_options_raise(ref, kw, err, match):
-    """Unported settings raise when the attack is built (the attack's
-    config refuses them); options with no reader in the port are not
-    fields."""
+    """Options with no reader in the port are not fields."""
     with pytest.raises(err, match=match):
         build_attack(DistillConfig(**kw), None, ref["obj"], ref["mask"])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(attack_scale=1), dict(attack_scale=2, attack_scale_fine_steps=2),
+    dict(attack_view_dtype="bfloat16"), dict(compute_dtype="bfloat16"),
+    dict(fold_bn=False), dict(attack_scale_fine_steps=0),
+])
+def test_distill_options_reach_the_attack_and_the_model(ref, kw):
+    """The options of the JAX benchmark's configuration are accepted and
+    reach the attack's config, its views of the student and the student
+    itself (they once raised here)."""
+    tr = _trainer(ref, **kw)
+    cfg, atk_cfg = tr.cfg, tr.attack.cfg
+    for name in ("attack_scale", "attack_scale_fine_steps",
+                 "attack_view_dtype"):
+        assert getattr(atk_cfg, name) == getattr(cfg, name), name
+    state = tr.make_state()
+    assert state.model.dtype == getattr(torch, cfg.compute_dtype)
+    assert state.model.fold_bn is cfg.fold_bn
+    views = [tr.student_view] + ([tr.scale_view] if cfg.attack_scale
+                                 else [])
+    assert tr.attack.predict_scale is (tr.scale_view if cfg.attack_scale
+                                       else None)
+    tr.attack_student(state)
+    for view, head in zip(views, (0, cfg.attack_scale)):
+        assert view.head == head and view.model is state.model
+    p = next(state.model.parameters())
+    assert p.dtype == torch.float32
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(attack_scale=3), "attack_scale must be 0, 1 or 2"),
+    (dict(attack_view_dtype="float16"), "attack_view_dtype must be"),
+    (dict(attack_scale_fine_steps=-1), "attack_scale_fine_steps must be"),
+])
+def test_bad_attack_option_values_raise(ref, kw, match):
+    """JAX's ValueErrors (`attacks/base.py:117-125`)."""
+    with pytest.raises(ValueError, match=match):
+        build_attack(DistillConfig(**kw), None, ref["obj"], ref["mask"])
+
+
+def test_bad_compute_dtype_raises():
+    with pytest.raises(ValueError, match="compute_dtype must be"):
+        DistillConfig(compute_dtype="float16")
 
 
 @pytest.mark.parametrize("kw,match", [

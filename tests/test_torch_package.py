@@ -8,7 +8,10 @@
   so does a trainer asked for "cuda", each kernel entry point raises on
   a CPU tensor instead of computing, and `chip_smoke.py` exits non-zero
   without printing its result line.
-* The slices' unported options raise and name their ROADMAP item.
+* The slices' unported options raise and name their ROADMAP item; the
+  attack's options take JAX's values and raise JAX's errors.
+* Each kernel entry point takes the dtypes it has instances for: D and B
+  float32 and bfloat16, A and C float32 only.
 """
 
 import os
@@ -27,6 +30,7 @@ from depthmodelhardening_tpu.data import synthetic as j_synthetic
 from depthmodelhardening_tpu.physics import calibration as j_calibration
 from depthmodelhardening_tpu.physics import eot as j_eot
 from depthmodelhardening_tpu_torch.attacks.base import PhysObjAttackConfig
+from depthmodelhardening_tpu_torch.attacks.pgd_object import PGDObjectAttack
 from depthmodelhardening_tpu_torch.data import synthetic
 from depthmodelhardening_tpu_torch.device import require_cuda
 from depthmodelhardening_tpu_torch.evaluation.attack_eval import (
@@ -160,6 +164,15 @@ def _kernel_calls():
             x, torch.rand(4, 2, 3, 3), torch.rand(4), elu=True),
         "conv3x3_dgrad": lambda: conv.conv3x3_dgrad_cuda(
             x, torch.rand(2, 4, 3, 3)),
+        "conv3x3_fwd_bf16": lambda: conv.conv3x3_valid_cuda(
+            x.bfloat16(), torch.rand(4, 2, 3, 3).bfloat16(),
+            torch.rand(4).bfloat16(), elu=True),
+        "conv3x3_dgrad_bf16": lambda: conv.conv3x3_dgrad_cuda(
+            x.bfloat16(), torch.rand(2, 4, 3, 3).bfloat16()),
+        "maxpool3x3s2_fwd_bf16": lambda: pool.maxpool3x3s2_fwd_cuda(
+            x.bfloat16()),
+        "maxpool3x3s2_bwd_bf16": lambda: pool.maxpool3x3s2_bwd_cuda(
+            x.bfloat16(), torch.rand(1, 2, 5, 6).bfloat16()),
     }
 
 
@@ -167,8 +180,9 @@ def _kernel_calls():
 def test_kernel_entry_point_refuses_cpu_tensors(name):
     """A kernel is launched on a CUDA tensor or not at all."""
     kernel = next(k for k in (warp.FWD, warp.BWD, pool.FWD, pool.BWD,
-                              reproj.FWD, reproj.BWD_Q, reproj.BWD_GRAD,
-                              conv.FWD, conv.DGRAD)
+                              pool.FWD_BF16, pool.BWD_BF16, reproj.FWD,
+                              reproj.BWD_Q, reproj.BWD_GRAD, conv.FWD,
+                              conv.DGRAD, conv.FWD_BF16, conv.DGRAD_BF16)
                   if k.name == name)
     before = kernel.launches
     with pytest.raises(RuntimeError, match="CUDA tensor"):
@@ -213,6 +227,74 @@ def test_unported_norms_raise_and_name_their_roadmap_item(
 @pytest.mark.parametrize("kw", [dict(attack_scale=1),
                                 dict(attack_scale=2),
                                 dict(attack_view_dtype="bfloat16")])
-def test_unported_attack_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 3b"):
+def test_attack_options_are_accepted(tiny_predictor, kw):
+    """The coarse-scale objective and the bf16 view are options of the
+    attack's config; the coarse objective reads the head through the
+    `predict_scale` hook, which the trainer supplies, and raises JAX's
+    ValueError without it."""
+    cfg = PhysObjAttackConfig(obj_h=40, obj_w=60, **kw)
+    for name, value in kw.items():
+        assert getattr(cfg, name) == value
+    obj, mask = synthetic.make_car_object(60, 40)
+    atk = PGDObjectAttack(tiny_predictor, obj, mask, cfg)
+    assert atk.predict_scale is None
+    dt = getattr(torch, cfg.attack_view_dtype)
+    adv, masks = torch.rand(1, 64, 64, 3).to(dt), torch.ones(1, 64, 64, 1)
+    if cfg.attack_scale:
+        with pytest.raises(ValueError, match="needs predict_scale"):
+            atk._cost_tail(adv, masks, 1.0)
+        atk.predict_scale = lambda x: tiny_predictor.model(
+            x, head=cfg.attack_scale)
+    cost = atk._cost_tail(adv, masks, 1.0)
+    assert cost.dtype == torch.float32 and float(cost) > 0
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(attack_scale=3), "attack_scale must be 0, 1 or 2"),
+    (dict(attack_view_dtype="float16"), "attack_view_dtype must be"),
+    (dict(attack_scale_fine_steps=-1), "attack_scale_fine_steps must be"),
+])
+def test_attack_option_values_raise_jax_errors(kw, match):
+    with pytest.raises(ValueError, match=match):
         PhysObjAttackConfig(obj_h=40, obj_w=60, **kw)
+
+
+def test_hardening_bf16_names_its_slice():
+    with pytest.raises(NotImplementedError, match="float32.*slice 5"):
+        HardeningConfig(compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("name,call", [
+    ("warp A forward", lambda t: warp.vertical_resample_fwd_cuda(
+        t, torch.ones(1, 5), torch.zeros(1, 5), 6)),
+    ("warp A adjoint", lambda t: warp.vertical_resample_bwd_cuda(
+        t, torch.ones(1, 5), torch.zeros(1, 5), 8)),
+    ("reprojection C forward", lambda t: reproj.reproj_loss_fwd_cuda(t, t)),
+    ("reprojection C backward", lambda t: reproj.reproj_loss_bwd_cuda(
+        t, t, torch.rand(1, 9, 11).to(t.dtype))),
+])
+def test_float32_only_kernels_refuse_bf16(name, call):
+    """Warp A and kernel C have float32 instances only: a bf16 tensor
+    raises before anything is launched (warp A stays float32 under the
+    bf16 view, as in the JAX package)."""
+    t = torch.rand(1, 3, 9, 11 if "C" in name else 5).bfloat16()
+    with pytest.raises(TypeError, match="float32"):
+        call(t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+@pytest.mark.parametrize("op", ["conv", "pool"])
+def test_kernels_refuse_other_dtypes(op, dtype):
+    """Kernels D and B take float32 and bfloat16 only, on every device:
+    another dtype raises, never a silent cast."""
+    x = torch.rand(1, 2, 9, 11, dtype=dtype)
+    w = torch.rand(3, 2, 3, 3, dtype=dtype)
+    entry, dispatch = {
+        "conv": (lambda: conv.conv3x3_valid_cuda(x, w),
+                 lambda: conv.conv3x3_valid(x, w)),
+        "pool": (lambda: pool.maxpool3x3s2_fwd_cuda(x),
+                 lambda: pool.maxpool3x3s2(x)),
+    }[op]
+    for fn in (entry, dispatch):
+        with pytest.raises(TypeError, match="bfloat16"):
+            fn()
