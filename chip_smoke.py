@@ -35,15 +35,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1024x320, at ragged shapes (1, 3, 13, 64 channels in and out, 37x53)
    and at the 320x256 attack crop: forward, forward with bias + ELU, and
    input gradient. Then the bf16 instances of D and B at the bench
-   configuration's shapes: D within one bf16 ulp of its plain version
-   (float32 arithmetic, one rounding; plus 1e-5 of the output's largest
-   magnitude where the float32 sum cancels) at the decoder's convs at
-   1024x320, on the 320x256 crop and at the ragged shapes, its rows
-   timed over one decoder pass on the crop against F.conv2d and
-   conv2d_input in bf16 with cuDNN on, bound by bytes over 3.35 TB/s or
-   operations over 989 TFLOP/s (dense bf16); B1 and B2 equal to theirs
-   (torch.equal) on the crop's and the full frame's stem and at ragged
-   shapes.
+   configuration's shapes: D (the reflect pad folded in) within one bf16
+   ulp of its plain version (float32 arithmetic, one rounding; plus 1e-5
+   of the output's largest magnitude where the float32 sum cancels) in
+   reflect mode (unpadded x in, dx out) and in zero-border mode (xp in,
+   d xp out) at the decoder's convs at 1024x320, on the 320x256 crop, at
+   ragged shapes on both staging paths (W % 8 != 0 and == 0) and at maps
+   with H or W in {1, 2, 3}; its rows timed over one decoder pass on the
+   crop, each conv beside the same run's reflect_pad1 + zero-border
+   launch (forward) and zero-border launch + the pad's backward (input
+   gradient), which the fused pass must beat, against F.conv2d and
+   conv2d_input on xp in bf16 with cuDNN on, bound by the bytes of x, w,
+   b and out (g, w and dx) over 3.35 TB/s or operations over 989 TFLOP/s
+   (dense bf16); B1 and B2 equal to theirs (torch.equal) on the crop's
+   and the full frame's stem and at ragged shapes.
 4. golden: the port's Monodepth2-18 at 96x320 with the deterministic
    reference-layout weights of tests/golden_common.py against the
    frozen PyTorch-reference outputs in tests/golden/monodepth2_rand.npz.
@@ -82,7 +87,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and the unused disparity heads did not; that Adam steps on one fixed
    adversarial batch lower the MSE; one step with the cropped objective
    (320x256) launches D at the crop's shape; then the breakdown of a
-   step, its device ms by kernel and its idle share.
+   step, its device ms by kernel, its idle share and its reflection-pad
+   kernels (ms and launches, as predicted: every decoder conv pads).
 10. bench: the distillation step in bench.py's configuration
    (bench.py:81-115): DistillConfig with compute_dtype bfloat16, the
    320x256 cropped objective, the bf16 attack view and fold_bn, PGD-10,
@@ -94,9 +100,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    every launch counter reset before the timed steps and read after
    (kernel D's and B's bf16 instances must launch 48 + 44 and 12 + 11
    times per step, their float32 ones never): seconds per step, peak
-   memory, the idle share and device ms by kernel of one step; then one
-   untimed step with attack_scale 1 and one fine step, whose D launches
-   fall by the convs its coarse passes skip.
+   memory, the idle share and device ms by kernel of one step, its
+   reflection-pad kernels (ms and launches: D's bf16 convs pad nothing
+   but the student's weight-gradient inputs); then one untimed step with
+   attack_scale 1 and one fine step, whose D launches fall by the convs
+   its coarse passes skip.
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -135,6 +143,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
     make_monodepth2, predictor_from,
 )
 from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
+from depthmodelhardening_tpu_torch.ops.padding import reflect_pad1
 from depthmodelhardening_tpu_torch.ops.resize import bilinear_resize
 from depthmodelhardening_tpu_torch.training.config import (
     DistillConfig, HardeningConfig, SelfSupConfig,
@@ -171,7 +180,7 @@ REPROJ_TILE = (32, 32)
 # stack frame and no local memory, so nothing spills
 NO_SPILL = {"reproj_loss.cu": ("fwd_kernel", "bwd_grad_kernel"),
             "vertical_resample.cu": ("vert_fwd", "vert_bwd"),
-            "conv3x3.cu": ("conv3x3_mmaI13__nv_bfloat16",),
+            "conv3x3.cu": ("conv3x3_bf16_mma", "conv3x3_bf16_head"),
             "maxpool3x3s2.cu": ("pool_fwdI13__nv_bfloat16",
                                 "pool_bwdI13__nv_bfloat16")}
 CONV_KERNELS = ("conv3x3_fwd", "conv3x3_dgrad")
@@ -568,14 +577,16 @@ def _conv_inputs(gen, dev, B, cin, co, h, w):
     return xp, wt, b, g
 
 
-def check_conv(name, xp, wt, b, g) -> dict:
+def check_conv(name, xp, wt, b, g, x=None) -> dict:
     """Kernel D against its plain version: forward, forward + bias + ELU
     and input gradient; the worst error of each entry point. float32:
     within CONV_RTOL of the plain output's largest magnitude. bf16 (the
     plain version is float32 arithmetic on the bf16 operands, rounded
     once): every element within one bf16 ulp of the plain one, plus
     CONV_RTOL of that largest magnitude where the float32 sum cancels to
-    near 0 (the two sum in another order)."""
+    near 0 (the two sum in another order), in zero-border mode (xp in,
+    d xp out) and, given the unpadded x (xp = reflect_pad1(x)), in
+    reflect mode (x in, dx out)."""
     bf16 = xp.dtype == torch.bfloat16
     names = CONV_BF16_KERNELS if bf16 else CONV_KERNELS
     pairs = {
@@ -586,6 +597,17 @@ def check_conv(name, xp, wt, b, g) -> dict:
         "dgrad": (lambda: conv.conv3x3_dgrad_cuda(g, wt),
                   lambda: conv.conv3x3_dgrad_plain(g, wt)),
     }
+    if x is not None:
+        pairs.update({
+            "reflect fwd": (lambda: conv.conv3x3_reflect_cuda(x, wt),
+                            lambda: conv.conv3x3_reflect_plain(x, wt)),
+            "reflect fwd bias+elu": (
+                lambda: conv.conv3x3_reflect_cuda(x, wt, b, True),
+                lambda: conv.conv3x3_reflect_plain(x, wt, b, True)),
+            "reflect dgrad": (
+                lambda: conv.conv3x3_dgrad_reflect_cuda(g, wt),
+                lambda: conv.conv3x3_dgrad_reflect_plain(g, wt)),
+        })
     errs, msg = {n: 0.0 for n in names}, []
     for label, (kernel_fn, plain_fn) in pairs.items():
         out_k, out_p = kernel_fn(), plain_fn()
@@ -607,7 +629,7 @@ def check_conv(name, xp, wt, b, g) -> dict:
         if over:
             raise AssertionError(f"conv kernel {label} disagrees at {name}: "
                                  f"{err} > {tol} ({over} elements)")
-        which = names[1] if label == "dgrad" else names[0]
+        which = names[1] if label.endswith("dgrad") else names[0]
         errs[which] = max(errs[which], err)
         del out_k, out_p, diff
     B, cin, co = xp.shape[0], xp.shape[1], wt.shape[0]
@@ -700,6 +722,38 @@ CONV_CROP_SHAPES = (("upconv_1_0", 64, 32, 64, 80),
 POOL_CROP_SHAPE = (CONV_BATCH, 64, 128, 160)
 
 
+# the bf16 checks' further shapes: channels of CONV_RAGGED at W = 48 (W %
+# 8 == 0: the 16-byte staging path of the reflect mode and of the input
+# gradients; W = 53 takes the scalar one) and at W = 46 (xp's width 48:
+# the zero-border forward's 16-byte path), and maps with H or W in
+# {1, 2, 3} (reflection where a side has 1 or 2 pixels)
+CONV_BF16_RAGGED = tuple(
+    (f"ragged {cin}->{co} W%8=0", 2, cin, co, 37, 48)
+    for cin, co in ((1, 16), (3, 13), (13, 64), (16, 1), (16, 16), (32, 64),
+                    (64, 3), (64, 32))) + tuple(
+    (f"ragged {cin}->{co} (W+2)%8=0", 2, cin, co, 37, 46)
+    for cin, co in ((16, 16), (16, 1), (64, 32))) + tuple(
+    (f"small {cin}->{co}", 2, cin, co, h, w)
+    for cin, co in ((16, 16), (16, 1), (1, 16), (32, 64))
+    for h, w in ((1, 1), (1, 8), (2, 3), (3, 2), (3, 16), (2, 24)))
+
+
+def _conv_bf16_inputs(gen, dev, B, cin, co, h, w):
+    """x (B, Cin, H, W), w, b and g (B, Co, H, W) in bf16, at the float32
+    inputs' scales."""
+    x = torch.rand((B, cin, h, w), generator=gen).to(dev)
+    wt = (torch.randn((co, cin, 3, 3), generator=gen)
+          / (3.0 * cin ** 0.5)).to(dev)
+    b = (0.1 * torch.randn((co,), generator=gen)).to(dev)
+    g = torch.randn((B, co, h, w), generator=gen).to(dev)
+    return [t.bfloat16() for t in (x, wt, b, g)]
+
+
+def check_conv_bf16(name, x, wt, b, g) -> dict:
+    """`check_conv` in bf16, in both modes, on x and its reflect pad."""
+    return check_conv(name, reflect_pad1(x), wt, b, g, x=x)
+
+
 def bf16_ulp(t):
     """One bf16 ulp at |t| (2^(e - 7) for 2^e <= |t| < 2^(e + 1))."""
     a = t.float().abs().clamp(min=2.0 ** -126)
@@ -716,68 +770,86 @@ def bound_bf16(nbytes_: float, flops: float):
 
 def phase_bf16_kernels(dev, gen, row) -> None:
     """The bf16 instances of kernels D and B at the bench configuration's
-    shapes. D: checked (`check_conv`) at the decoder's four scale-0
-    convs at 1024x320 (the teacher's and the student's passes), at the
-    320x256 crop's (the attack's) and at the ragged shapes; its rows time
-    one decoder pass on the crop, against the plain version and against
-    F.conv2d / conv2d_input in bf16 with cuDNN on (the library call),
-    bound by bytes over 3.35 TB/s or operations over 989 TFLOP/s, the
-    larger, summed over the pass. B1 and B2: equal to their plain
-    versions (torch.equal: the max is exact; B2 sums in float32 in the
-    plain version's order and rounds once) at the stem's shapes of the
-    crop and of the full frame and at ragged ones; timed on the crop."""
-    bf = lambda *ts: [t.bfloat16() for t in ts]
-    for name, *shape in CONV_RAGGED:
-        check_conv(name, *bf(*_conv_inputs(gen, dev, *shape)))
+    shapes. D: checked (`check_conv_bf16`, reflect and zero-border mode)
+    at the decoder's four scale-0 convs at 1024x320 (the teacher's and the
+    student's passes), at the 320x256 crop's (the attack's), at the
+    ragged shapes and at CONV_BF16_RAGGED; its rows time one decoder pass
+    on the crop in reflect mode (the pad folded in), against the same
+    run's "before" (reflect_pad1 + the zero-border launch; the
+    zero-border input gradient + the pad's backward), which each
+    direction of the pass must beat, against the plain version and
+    against F.conv2d / conv2d_input on xp in bf16 with cuDNN on (the
+    library call), bound by the bytes of x, w, b and out (g, w and dx)
+    over 3.35 TB/s or operations over 989 TFLOP/s, the larger, summed over
+    the pass. B1 and B2: equal to their plain versions (torch.equal: the
+    max is exact; B2 sums in float32 in the plain version's order and
+    rounds once) at the stem's shapes of the crop and of the full frame
+    and at ragged ones; timed on the crop."""
+    for name, *shape in CONV_RAGGED + CONV_BF16_RAGGED:
+        check_conv_bf16(name, *_conv_bf16_inputs(gen, dev, *shape))
     for name, cin, co, h, w in CONV_SHAPES:
-        check_conv(f"{name} 1024x320", *bf(*_conv_inputs(
-            gen, dev, CONV_BATCH, cin, co, h, w)))
+        check_conv_bf16(f"{name} 1024x320", *_conv_bf16_inputs(
+            gen, dev, CONV_BATCH, cin, co, h, w))
     tot = {n: dict(err=0.0, ms=0.0, host_ms=0.0, plain_ms=0.0, lib=0.0,
-                   bytes=0.0, operations=0.0) for n in CONV_BF16_KERNELS}
+                   before=0.0, bytes=0.0, operations=0.0)
+           for n in CONV_BF16_KERNELS}
     for name, cin, co, h, w in CONV_CROP_SHAPES:
-        xp, wt, b, g = bf(*_conv_inputs(gen, dev, CONV_BATCH, cin, co, h, w))
-        for which, err in check_conv(f"{name} crop", xp, wt, b,
+        x, wt, b, g = _conv_bf16_inputs(gen, dev, CONV_BATCH, cin, co, h, w)
+        for which, err in check_conv_bf16(f"{name} crop", x, wt, b,
                                           g).items():
             tot[which]["err"] = max(tot[which]["err"], err)
+        xp = reflect_pad1(x)
         elu = co > 1
-        timed = {
+        timed = {  # the forward's output has g's shape, dx x's
             "conv3x3_fwd_bf16": (
-                lambda: conv.conv3x3_valid_cuda(xp, wt, b, elu),
-                lambda: conv.conv3x3_valid_plain(xp, wt, b, elu),
+                lambda: conv.conv3x3_reflect_cuda(x, wt, b, elu),
+                lambda: conv.conv3x3_valid_cuda(reflect_pad1(x), wt, b, elu),
+                lambda: conv.conv3x3_reflect_plain(x, wt, b, elu),
                 lambda: F.conv2d(xp, wt, b),
-                (nbytes(xp, wt, b, g),
+                (nbytes(x, wt, b, g),
                  2 * g.numel() * cin * 9 + (3 if elu else 1) * g.numel())),
             "conv3x3_dgrad_bf16": (
-                lambda: conv.conv3x3_dgrad_cuda(g, wt),
-                lambda: conv.conv3x3_dgrad_plain(g, wt),
+                lambda: conv.conv3x3_dgrad_reflect_cuda(g, wt),
+                lambda: torch.ops.aten.reflection_pad2d_backward(
+                    conv.conv3x3_dgrad_cuda(g, wt), x, [1, 1, 1, 1]),
+                lambda: conv.conv3x3_dgrad_reflect_plain(g, wt),
                 lambda: torch.nn.grad.conv2d_input(xp.shape, wt, g),
-                (nbytes(g, wt, xp), 2 * g.numel() * cin * 9)),
+                (nbytes(g, wt, x), 2 * g.numel() * cin * 9)),
         }
-        for which, (kernel_fn, plain_fn, lib_fn, work) in timed.items():
+        for which, (kernel_fn, before_fn, plain_fn, lib_fn,
+                    work) in timed.items():
             t = tot[which]
             k_ms = cuda_ms(kernel_fn, reps=10)
             h_ms = cuda_ms(kernel_fn, reps=10, queued=False)
+            before_ms = cuda_ms(before_fn, reps=10)
             p_ms = cuda_ms(plain_fn, reps=10)
             with cudnn_on():
                 lib_ms = cuda_ms(lib_fn, reps=10)
             b_ms, b_by = bound_bf16(*work)
             log(f"  {which} {name} crop: kernel {k_ms:.4f} ms ({h_ms:.4f} "
-                f"with host time), plain {p_ms:.4f}, library (cuDNN on, "
-                f"bf16) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+                f"with host time), before (pad + zero-border launch) "
+                f"{before_ms:.4f}, plain {p_ms:.4f}, library (cuDNN on, "
+                f"bf16, on xp) {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
             t["ms"] += k_ms
             t["host_ms"] += h_ms
+            t["before"] += before_ms
             t["plain_ms"] += p_ms
             t["lib"] += lib_ms
             t[b_by] += b_ms
-        del xp, g
+        del x, xp, g
     for which, kernel in (("conv3x3_fwd_bf16", conv.FWD_BF16),
                           ("conv3x3_dgrad_bf16", conv.DGRAD_BF16)):
         t = tot[which]
         bound_ms = t["bytes"] + t["operations"]
         log(f"  {which}, one decoder pass on the crop "
-            f"({len(CONV_CROP_SHAPES)} convs): kernel {t['ms']:.4f} ms, "
-            f"library {t['lib']:.4f}, bound {bound_ms:.4f} "
-            f"({bound_ms / t['ms']:.4f} of the kernel's time)")
+            f"({len(CONV_CROP_SHAPES)} convs, the pad folded in): kernel "
+            f"{t['ms']:.4f} ms, before (pad + zero-border launch) "
+            f"{t['before']:.4f}, library {t['lib']:.4f}, bound "
+            f"{bound_ms:.4f} ({bound_ms / t['ms']:.4f} of the kernel's "
+            f"time)")
+        if not t["ms"] < t["before"]:
+            raise AssertionError(f"{which}: the fused pass is not faster "
+                                 f"than the pad and the zero-border launch")
         row(kernel, t["err"], t["ms"], t["plain_ms"], t["lib"],
             (bound_ms, max(("bytes", "operations"), key=t.get)),
             host_ms=t["host_ms"])
@@ -992,7 +1064,7 @@ def phase_idle(attack, scenes) -> None:
     """Device idle share of one attack call (10 PGD steps + finals)."""
     draws = attack.draw(torch.Generator().manual_seed(SEED + 11),
                         CFG.batch_size)
-    busy_ms, wall_ms, n, _ = device_busy(
+    busy_ms, wall_ms, n, _, _ = device_busy(
         lambda: attack(scenes, CFG.batch_size, eval_mode=True, draws=draws))
     log(f"idle: one attack call (PGD-{CFG.step} + finals) under the "
         f"profiler: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms host "
@@ -1001,9 +1073,10 @@ def phase_idle(attack, scenes) -> None:
 
 
 def device_busy(fn):
-    """(busy ms, host wall ms, device activities, ms by activity name) of
-    one call of fn: the union of the card's kernel and copy intervals in
-    a torch.profiler trace, against the host clock around the call."""
+    """(busy ms, host wall ms, device activities, ms by activity name,
+    launches by activity name) of one call of fn: the union of the card's
+    kernel and copy intervals in a torch.profiler trace, against the host
+    clock around the call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1018,17 +1091,30 @@ def device_busy(fn):
               and not e.name.startswith(("Buffer Flush", "Activity Buffer"))]
     if not events:
         raise AssertionError("the profiler saw no device activity")
-    by_name = {}
+    by_name, counts = {}, {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
+        counts[e.name] = counts.get(e.name, 0) + 1
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
             busy_us += e - max(s, end)
             end = e
-    return busy_us / 1e3, wall_ms, len(spans), by_name
+    return busy_us / 1e3, wall_ms, len(spans), by_name, counts
+
+
+def reflect_pads(by_name, counts):
+    """(forward ms, launches, backward ms, launches) of the reflection-pad
+    kernels (F.pad's reflect mode and its backward) in a profile."""
+    out = [0.0, 0, 0.0, 0]
+    for k, ms in by_name.items():
+        if "reflection_pad2d" in k:
+            i = 2 if "backward" in k else 0
+            out[i] += ms
+            out[i + 1] += counts[k]
+    return tuple(out)
 
 
 # -- phase 8 -----------------------------------------------------------------
@@ -1148,7 +1234,7 @@ def phase_train_breakdown(trainer, state, frames, side, flip) -> None:
         f"{ss.width}x{ss.height} (median CUDA-event ms of 5):")
     for n in names:
         log(f"  {n}: {float(np.median(times[n])):.3f}")
-    busy_ms, wall_ms, n, by_name = device_busy(
+    busy_ms, wall_ms, n, by_name, _ = device_busy(
         lambda: trainer.selfsup_frames_step(state, frames, side, flip))
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
         f"ms of {wall_ms:.3f} ms host wall, idle share "
@@ -1252,6 +1338,16 @@ DISTILL_WARMUP, DISTILL_TIMED, DISTILL_FIT_STEPS = 2, 5, 6
 D_FWD_PER_STEP = 4 * (DISTILL_CFG.steps + 2)
 D_DGRAD_PER_STEP = 4 * (DISTILL_CFG.steps + 1)
 D_WGRAD_PER_STEP = 4
+# reflection-pad launches per step (F.pad's reflect kernel, its backward):
+# every decoder conv of the scale-0 path reflect-pads its input in each
+# forward pass, and the pad's backward runs in each input gradient pass;
+# 7 of its 11 convs have more than 64 channels in or out and take
+# F.conv2d (upconv_4_0 .. upconv_2_1 and upconv_1_1), the other 4 kernel
+# D. float32 D convs pad as well; bf16 D folds the pad in and pads only
+# for the student's weight gradients
+WIDE_CONVS = 7
+DISTILL_PADS = ((WIDE_CONVS + 4) * (DISTILL_CFG.steps + 2),
+                (WIDE_CONVS + 4) * (DISTILL_CFG.steps + 1))
 DISTILL_CROP = dict(attack_crop_w=320, attack_crop_h=256)  # bench.py's
 # the disparity heads at scales 1..3, which the step never evaluates
 UNUSED_HEADS = tuple(f"decoder.decoder.{i}.conv.{p}" for i in (11, 12, 13)
@@ -1458,7 +1554,7 @@ def phase_distill_breakdown(trainer, state, scenes) -> None:
         f"{DISTILL_CFG.scene_h} (median CUDA-event ms of 3):")
     for n in names:
         log(f"  {n}: {float(np.median(times[n])):.3f}")
-    busy_ms, wall_ms, n, by_name = device_busy(
+    busy_ms, wall_ms, n, by_name, counts = device_busy(
         lambda: trainer.train_step(state, scenes))
     d_ms = sum(ms for k, ms in by_name.items() if "conv3x3_" in k)
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
@@ -1466,9 +1562,22 @@ def phase_distill_breakdown(trainer, state, scenes) -> None:
         f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
     log(f"  kernel D: {d_ms:.3f} device ms of the step, "
         f"{d_ms / busy_ms:.4f} of its busy time")
+    check_reflect_pads("distill", by_name, counts, DISTILL_PADS)
     log("  device ms of the step by kernel (top 12):")
     for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {ms:9.3f}  {k[:110]}")
+
+
+def check_reflect_pads(label, by_name, counts, predicted) -> None:
+    """Logs a profiled step's reflection-pad kernels (ms and launches);
+    their launches must be `predicted` (forward, backward)."""
+    f_ms, f_n, b_ms, b_n = reflect_pads(by_name, counts)
+    log(f"  reflection pad: forward {f_ms:.3f} device ms in {f_n} "
+        f"launches, backward {b_ms:.3f} ms in {b_n} (predicted "
+        f"{predicted[0]} + {predicted[1]})")
+    if (f_n, b_n) != predicted:
+        raise AssertionError(f"{label}: reflection pads launched {f_n} + "
+                             f"{b_n} times, predicted {predicted}")
 
 
 def phase_distill_fit(trainer, scenes) -> None:
@@ -1530,6 +1639,8 @@ BENCH_PER_STEP = {"conv3x3_fwd_bf16": D_FWD_PER_STEP,
 # steps - 1 attack passes runs upconv_1_0 and dispconv_1 instead of the
 # scale-0 path's 4 convs of D (upconv_0_0, upconv_0_1 and dispconv_0
 # are not evaluated)
+BENCH_PADS = (WIDE_CONVS * (BENCH_CFG.steps + 2) + D_WGRAD_PER_STEP,
+              WIDE_CONVS * (BENCH_CFG.steps + 1))
 BENCH_SCALE = dict(attack_scale=1, attack_scale_fine_steps=1)
 _COARSE = BENCH_CFG.steps - BENCH_SCALE["attack_scale_fine_steps"]
 BENCH_SCALE_PER_STEP = {"conv3x3_fwd_bf16": D_FWD_PER_STEP - 2 * _COARSE,
@@ -1626,7 +1737,7 @@ def phase_bench(dev):
         raise AssertionError("kernels D and B did not launch as predicted")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite distillation loss: {losses}")
-    busy_ms, wall_ms, n, by_name = device_busy(
+    busy_ms, wall_ms, n, by_name, counts = device_busy(
         lambda: trainer.train_step(state, scenes))
     d_ms = sum(ms for k, ms in by_name.items() if "conv3x3_" in k)
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
@@ -1634,6 +1745,7 @@ def phase_bench(dev):
         f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
     log(f"  kernel D: {d_ms:.3f} device ms of the step, "
         f"{d_ms / busy_ms:.4f} of its busy time")
+    check_reflect_pads("bench", by_name, counts, BENCH_PADS)
     log("  device ms of the step by kernel (top 20):")
     for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
         log(f"    {ms:9.3f}  {k[:110]}")

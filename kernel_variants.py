@@ -1,18 +1,23 @@
-"""Layouts of kernel C's forward and warp A1 on the card, side by side.
+"""Layouts of kernels C's forward, warp A1 and D-bf16 on the card.
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [C] [A1] [D]   (default: all three)
 
-Each variant is a copy of `csrc/reproj_loss.cu` or
-`csrc/vertical_resample.cu` with layout constants replaced (rows and
-columns a thread, threads a block, blocks an SM), built with the
-library's nvcc flags into `build/variants/`, one nvcc per variant, all
-started together. Each variant is held with `torch.equal` against the
-plain version at the main path's shape and at ragged ones, then timed at
-the main path's shapes on the card alone (`chip_smoke.cuda_ms`), the
+Each variant is a copy of `csrc/reproj_loss.cu`,
+`csrc/vertical_resample.cu` or `csrc/conv3x3.cu` with layout constants
+replaced (rows and columns a thread or a warp, threads a block, blocks
+an SM, persistent blocks or one tile a block, stores through shared
+memory or straight from the registers), built with the library's nvcc
+flags into `build/variants/`, one nvcc per variant, all started
+together. Each variant is held against the plain version (C and A1 with
+`torch.equal`; D-bf16 within one bf16 ulp plus `CONV_RTOL` of the
+largest magnitude, `chip_smoke.check_conv`'s rule, both entry points in
+reflect mode) at the main path's shapes and at ragged ones, then timed
+at the main path's shapes on the card alone (`chip_smoke.cuda_ms`), the
 variants in turns, in three rounds (in order, reversed, in order).
-Prints each variant's registers, stack and local memory, and for warp
-A1 the time of a fill of its output alone (`out.zero_()`), the least a
-launch that writes that output takes. The first variant of each kernel
+Prints each variant's registers, stack and local memory, for warp A1
+the time of a fill of its output alone (`out.zero_()`), the least a
+launch that writes that output takes, and for D-bf16 the sum over the
+crop pass's four convs of each round. The first variant of each kernel
 is the source as committed. Needs one CUDA card; no jax.
 """
 
@@ -28,7 +33,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
-from depthmodelhardening_tpu_torch.ops import _build, reproj, warp
+from depthmodelhardening_tpu_torch.ops import _build, conv, reproj, warp
 
 OUT_DIR = Path(cs.REPO) / "build" / "variants"
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -41,13 +46,28 @@ VARIANTS = (
         "vertical_resample_fwd", [P, P, P, P, I, I, I, I, I, P],
         dict(kFwdRows=r, kFwdThreads=t, kFwdStrips=s))
        for r, t, s in ((1, 32, 4), (2, 32, 4), (4, 32, 4), (8, 32, 4),
-                       (1, 32, 8), (1, 64, 4))])
+                       (1, 32, 8), (1, 64, 4))]
+    + [(f"D-bf16 warps {nw}, rows/warp {r16}+{r64}, blocks/SM {mb}, "
+        f"{'persistent' if per else 'one tile a block'}, "
+        f"{'shared-memory' if sm else 'register'} stores", "conv3x3.cu",
+        "conv3x3_fwd_bf16", None,
+        dict(kBfWarps=nw, kBfRows16=r16, kBfRows64=r64, kBfBlocksPerSm=mb,
+             kBfPersistent=per, kBfSmemStores=sm))
+       for nw, r16, r64, mb, per, sm in (
+           (8, 2, 1, 2, 1, 1), (8, 2, 1, 2, 1, 0), (8, 2, 1, 2, 0, 1),
+           (8, 1, 1, 2, 1, 1), (4, 2, 1, 4, 1, 1), (4, 2, 2, 4, 1, 1),
+           (4, 4, 2, 3, 1, 1), (16, 1, 1, 1, 1, 1))])
 REPROJ_SHAPES = ((32, 3, 320, 1024), (3, 3, 37, 53), (2, 3, 33, 33),
                  (1, 3, 65, 132), (1, 3, 1, 37), (1, 3, 37, 1))
 WARP_CASES = (((12, 4, 200, 256, 256), "attack"),
               ((32, 4, 200, 256, 256), "attack"),
               ((4, 4, 200, 250, 200), "random"),
               ((3, 5, 37, 45, 53), "ragged"))
+# D-bf16: the crop pass's convs (name, Cin, Co, H, W) at batch 32, and
+# ragged shapes for both staging paths (W % 8 != 0 and == 0)
+CONV_CROP = cs.CONV_CROP_SHAPES
+CONV_CHECK = ((2, 16, 16, 37, 53), (2, 64, 32, 37, 48), (2, 32, 16, 19, 40),
+              (2, 3, 13, 2, 3), (2, 16, 1, 3, 16), (2, 16, 16, 1, 8))
 ROUNDS = 3
 
 
@@ -62,6 +82,7 @@ def variant_source(source: str, consts: dict) -> str:
 
 
 def build(variant):
+    """(label, entry point(s), resource usage of the variant's kernels)."""
     label, source, entry, argtypes, consts = variant
     stem = re.sub(r"\W+", "_", label).strip("_")
     src = OUT_DIR / f"{stem}.cu"
@@ -72,7 +93,14 @@ def build(variant):
                           text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {label}:\n{proc.stderr}")
-    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    dll = ctypes.CDLL(str(lib))
+    if source == "conv3x3.cu":
+        fwd, dgrad = dll.conv3x3_fwd_bf16, dll.conv3x3_dgrad_bf16
+        fwd.argtypes, fwd.restype = conv._FWD_ARGS, ctypes.c_int
+        dgrad.argtypes, dgrad.restype = conv._DGRAD_ARGS, ctypes.c_int
+        usage = [u for k, u in cs.resource_usage(lib) if "bf16" in k]
+        return label, (fwd, dgrad), usage
+    fn = getattr(dll, entry)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     kernel = "fwd_kernel" if entry == "reproj_loss_fwd" else "vert_fwd"
     usage = [u for k, u in cs.resource_usage(lib) if kernel in k]
@@ -148,22 +176,95 @@ def sweep_warp(gen, dev, fns) -> None:
            f"{len(WARP_CASES)} shapes")
 
 
+def _conv_calls(fns, x, w, b, g, elu):
+    """The reflect-mode forward (bias, ELU where the decoder has it) and
+    input gradient of one variant's entry points, as closures."""
+    B, cin, H, W = x.shape
+    co = w.shape[0]
+    out = torch.empty((B, co, H, W), dtype=x.dtype, device=x.device)
+    dx = torch.empty_like(x)
+    stream = _build.stream_handle(x)
+
+    def fwd():
+        launch(fns[0], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+               out.data_ptr(), B, cin, H, W, co, int(elu), 1, stream)
+        return out
+
+    def dgrad():
+        launch(fns[1], g.data_ptr(), w.data_ptr(), dx.data_ptr(), B, co, H,
+               W, cin, 1, stream)
+        return dx
+
+    return fwd, dgrad
+
+
+def _hold(label, got, want):
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    tol = cs.CONV_RTOL * float(want.float().abs().max())
+    over = int((diff > cs.bf16_ulp(want) + tol).sum())
+    if over or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{label}: {over} elements beyond one ulp")
+
+
+def sweep_conv(gen, dev, fns) -> None:
+    """Each D-bf16 variant against the plain versions at CONV_CHECK and
+    the crop; timed at the crop's four convs, in turns."""
+    for shape in CONV_CHECK + tuple((cs.CONV_BATCH,) + tuple(s[1:])
+                                    for s in CONV_CROP):
+        x, w, b, g = cs._conv_bf16_inputs(gen, dev, *shape)
+        want_f = conv.conv3x3_reflect_plain(x, w, b, True)
+        want_d = conv.conv3x3_dgrad_reflect_plain(g, w)
+        for label, pair in fns.items():
+            fwd, dgrad = _conv_calls(pair, x, w, b, g, True)
+            _hold(f"{label} forward at {shape}", fwd(), want_f)
+            _hold(f"{label} input gradient at {shape}", dgrad(), want_d)
+    cs.log(f"  every D-bf16 variant within one ulp at "
+           f"{len(CONV_CHECK) + len(CONV_CROP)} shapes, both directions")
+    totals = {}
+    for name, cin, co, h, w in CONV_CROP:
+        x, wt, b, g = cs._conv_bf16_inputs(gen, dev, cs.CONV_BATCH, cin, co,
+                                           h, w)
+        for d, which in enumerate(("forward", "input gradient")):
+            calls = {label: _conv_calls(pair, x, wt, b, g, co > 1)[d]
+                     for label, pair in fns.items()}
+            for label, ts in rounds(calls, lambda fn: fn()).items():
+                cs.log(f"  {label}, {name} crop {which}: "
+                       + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+                tot = totals.setdefault((label, which), [0.0] * ROUNDS)
+                for k, t in enumerate(ts):
+                    tot[k] += t
+    for (label, which), ts in totals.items():
+        cs.log(f"  {label}, crop pass {which}: "
+               + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+
+
 def main() -> int:
+    which = set(sys.argv[1:]) or {"C", "A1", "D"}
     dev = cs.phase_device()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(max_workers=len(VARIANTS)) as pool:
-        built = list(pool.map(build, VARIANTS))
+    variants = [v for v in VARIANTS if v[0].split()[0].split("-")[0]
+                in which]
+    with ThreadPoolExecutor(max_workers=len(variants)) as pool:
+        built = list(pool.map(build, variants))
     for label, _, usage in built:
         cs.log(f"  {label}: " + "; ".join(
             f"{u.get('REG')} registers, {u.get('STACK')} B stack, "
             f"{u.get('LOCAL')} B local" for u in usage))
     gen = torch.Generator().manual_seed(cs.SEED)
-    cs.log("kernel C's forward, (B, C, H, W), card alone:")
-    sweep_reproj(gen, dev, {name: fn for name, fn, _ in built
-                            if name.startswith("C")})
-    cs.log("warp A1, (B, C, OH, TH, TW), card alone:")
-    sweep_warp(gen, dev, {name: fn for name, fn, _ in built
-                          if name.startswith("A1")})
+    if "C" in which:
+        cs.log("kernel C's forward, (B, C, H, W), card alone:")
+        sweep_reproj(gen, dev, {name: fn for name, fn, _ in built
+                                if name.startswith("C")})
+    if "A1" in which:
+        cs.log("warp A1, (B, C, OH, TH, TW), card alone:")
+        sweep_warp(gen, dev, {name: fn for name, fn, _ in built
+                              if name.startswith("A1")})
+    if "D" in which:
+        cs.log("kernel D-bf16 in reflect mode, the crop's convs at batch "
+               f"{cs.CONV_BATCH}, card alone:")
+        sweep_conv(gen, dev, {name: fn for name, fn, _ in built
+                              if name.startswith("D-bf16")})
     return 0
 
 

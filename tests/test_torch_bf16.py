@@ -38,6 +38,12 @@ beside each test:
   the conv, the bias and the ELU (2^-7 measured, at outputs of 1..2);
   its input gradient within one bf16 ulp of JAX's (bit-equal at three of
   four shapes);
+* the fused route (`conv3x3_reflect` in bf16, the reflect pad folded
+  into D): forward one rounding of JAX's float32 `conv3x3_reflect` and
+  `conv3x3_reflect_same`; input gradient one rounding of their float32
+  VJPs, within one ulp of JAX's bf16 VJP inside and of its largest
+  magnitude at the edge rows and columns, where JAX rounds twice (each
+  with kernel D's 1e-5-of-the-max slack for cancelling sums);
 * B's bf16 plain version: bit-equal to the TPU kernels B1 and B2 in bf16
   (interpret mode) on relu outputs full of ties: both give every input
   bit-equal to its window's max the window's full cotangent and sum in
@@ -59,6 +65,7 @@ from jax.experimental import pallas as pl
 
 import depthmodelhardening_tpu.ops.pallas_conv as pc
 import depthmodelhardening_tpu.ops.pallas_pool as pp
+from depthmodelhardening_tpu.ops.padding import conv3x3_reflect_same
 from depthmodelhardening_tpu.data.synthetic import make_scene
 from depthmodelhardening_tpu.models.torch_import import (
     convert_depth_decoder, convert_resnet_encoder,
@@ -245,6 +252,80 @@ def test_bf16_conv_plain_matches_jax(shape):
     assert d_got.dtype == torch.bfloat16
     d_got = np.moveaxis(d_got.float().numpy(), 1, -1)
     assert (np.abs(d_got - d_want) <= _ulp(d_want)).all()
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 40, 16, 16), (2, 12, 20, 64, 32),
+                                   (1, 13, 21, 3, 5), (2, 24, 40, 16, 1),
+                                   (2, 3, 2, 16, 16), (1, 1, 5, 16, 1),
+                                   (2, 2, 1, 3, 5), (2, 1, 1, 16, 16)])
+def test_fused_bf16_conv_matches_jax(shape):
+    """The bf16 route with the reflect pad folded in (`conv3x3_reflect` on
+    bf16: `_Conv3x3Reflect`'s plain forward and its fused input gradient,
+    `conv3x3_dgrad_reflect_plain`) against JAX's `pallas_conv.
+    conv3x3_reflect` and `padding.conv3x3_reflect_same` and their VJPs,
+    at maps down to 1 x 1. Forward + bias + ELU: one rounding of JAX's
+    float32 result of the same bf16 operands (within half a bf16 ulp, plus
+    1e-6), for both JAX functions, and within one bf16 ulp of the largest
+    magnitude of JAX's bf16 `conv3x3_reflect` (the existing rule; JAX rounds
+    after the conv, the bias and the ELU). Input gradient of the conv, each
+    comparison with kernel D's slack of 1e-5 of the largest magnitude where
+    a float32 sum of up to 576 products cancels (a 7.4e-6 element, 2.5 of
+    its own ulps from JAX's, at (2, 12, 20, 64, 32)): one rounding of JAX's
+    float32 gradient of both functions (within one ulp of it
+    elementwise); within one bf16 ulp of JAX's bf16 gradient elementwise
+    in the interior and, at the edge rows and columns, within one bf16 ulp
+    of its largest magnitude: JAX rounds d xp to bf16 and again after
+    adding its halo (the two-rounding composition the route had before
+    the fold), one rounding here, so where the two summands cancel the
+    edge element differs by many of its own ulps (229 measured) but never
+    by more than one ulp of the gradient's scale (1.0 measured)."""
+    B, h, w, ci, co = shape
+    r = np.random.RandomState(ci * co + h)
+    x = r.rand(B, h, w, ci).astype(np.float32)
+    k = (r.randn(3, 3, ci, co) / (3 * ci ** 0.5)).astype(np.float32)
+    b = (0.1 * r.randn(co)).astype(np.float32)
+    g = r.randn(B, h, w, co).astype(np.float32)
+    xb, kb, bb, gb = (jnp.asarray(v, jnp.bfloat16) for v in (x, k, b, g))
+    f32 = lambda t: np.asarray(jnp.asarray(t, jnp.float32))
+    up = lambda *ts: [t.astype(jnp.float32) for t in ts]
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(f32(a), -1, 1))).bfloat16()
+    wt = torch.from_numpy(np.ascontiguousarray(
+        f32(kb).transpose(3, 2, 0, 1))).bfloat16()
+
+    got = conv.conv3x3_reflect(nchw(xb), wt,
+                               torch.from_numpy(f32(bb)).bfloat16(), True)
+    got = np.moveaxis(got.float().numpy(), 1, -1)
+    for fn in (pc.conv3x3_reflect, conv3x3_reflect_same):
+        exact = f32(jax.nn.elu(fn(*up(xb, kb, bb))))
+        assert (np.abs(got - exact) <= 0.5 * _ulp(exact) + 1e-6).all(), fn
+    want = f32(jax.nn.elu(pc.conv3x3_reflect(xb, kb, bb)))
+    assert np.abs(got - want).max() <= _ulp(np.abs(want).max())
+
+    xt = nchw(xb).requires_grad_(True)
+    out = conv.conv3x3_reflect(xt, wt)
+    assert type(out.grad_fn).__name__ == "_Conv3x3ReflectBackward"
+    out.backward(nchw(gb))
+    d_got = np.moveaxis(xt.grad.float().numpy(), 1, -1)
+    d_plain = np.moveaxis(conv.conv3x3_dgrad_reflect_plain(
+        nchw(gb), wt).float().numpy(), 1, -1)
+    np.testing.assert_array_equal(d_got, d_plain)
+    for fn in (pc.conv3x3_reflect, conv3x3_reflect_same):
+        _, vjp = jax.vjp(lambda t: fn(t, kb.astype(jnp.float32)),
+                         xb.astype(jnp.float32))
+        exact = f32(vjp(gb.astype(jnp.float32))[0])
+        slack = 1e-5 * np.abs(exact).max()
+        assert (np.abs(d_got - exact) <= _ulp(exact) + slack).all(), fn
+    _, vjp = jax.vjp(lambda t: pc.conv3x3_reflect(t, kb), xb)
+    d_want = f32(vjp(gb)[0])
+    edge = np.zeros((h, w), bool)
+    edge[[min(1, h - 1), max(h - 2, 0)], :] = True
+    edge[:, [min(1, w - 1), max(w - 2, 0)]] = True
+    edge = np.broadcast_to(edge[None, :, :, None], d_got.shape)
+    diff = np.abs(d_got - d_want)
+    slack = 1e-5 * np.abs(d_want).max()
+    assert (diff[~edge] <= _ulp(d_want)[~edge] + slack).all()
+    assert diff[edge].max() <= _ulp(np.abs(d_want).max()) + slack
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -262,3 +262,81 @@ def test_route_by_output_channels(co, tensor_cores):
     route: the 16 -> 1 head's forward runs on the CUDA cores, every other
     launch (its input gradient, 1 -> 16, included) on the tensor cores."""
     assert conv.uses_tensor_cores(co) is tensor_cores
+
+
+@pytest.mark.parametrize("hw", [(h, w) for h in (1, 2, 3, 5) for w in (1, 2, 3, 5)]
+                         + [(37, 53)])
+def test_reflect_dgrad_halo_matches_pad_autograd(hw):
+    """The fused input gradient's closed form (`conv3x3_dgrad_reflect_plain`:
+    the conv of g zero-padded by 1, then d xp's halo rows, columns and
+    corners, each g's edge line through one tap row or column, added onto
+    the row or column they reflect to) equals autograd of `reflect_pad1`
+    applied to `conv3x3_dgrad_plain`'s d xp, in float32, at 1 and 2 pixel
+    axes (which reflect onto themselves) and larger ones, for 1, 3, 16 and
+    64 channels in and out. Within CONV_RTOL of the largest magnitude (the
+    same sums in another order; 3.4e-7 measured)."""
+    H, W = hw
+    for cin in (1, 3, 16, 64):
+        for co in (1, 3, 16, 64):
+            rng = np.random.default_rng(H * 1000 + W * 100 + cin + co)
+            g = torch.from_numpy(rng.standard_normal((2, co, H, W))
+                                 .astype(np.float32))
+            w = torch.from_numpy((rng.standard_normal((co, cin, 3, 3)) / 3.0)
+                                 .astype(np.float32))
+            x = torch.zeros((2, cin, H, W), requires_grad=True)
+            want, = torch.autograd.grad(conv.reflect_pad1(x), x,
+                                        conv.conv3x3_dgrad_plain(g, w))
+            got = conv.conv3x3_dgrad_reflect_plain(g, w)
+            tol = CONV_RTOL * float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("weights_need_grad", [False, True])
+def test_bf16_conv_pads_only_for_the_weight_gradient(monkeypatch,
+                                                     weights_need_grad):
+    """A bf16 conv on kernel D's route reads the pad in its staging:
+    forward and input gradient make no padded copy. Only the weight
+    gradient needs one, made from the saved x in the backward, so a conv
+    on detached weights (the attack's passes) calls `reflect_pad1` never
+    and the student's once. (On the CPU the plain forward, the kernel's
+    statement, pads x itself; it keeps the unpatched pad, so only the
+    Function's own calls count.)"""
+    calls = []
+    orig = conv.reflect_pad1
+    monkeypatch.setattr(conv, "reflect_pad1",
+                        lambda t: calls.append(t.shape) or orig(t))
+    monkeypatch.setattr(conv, "conv3x3_reflect_plain",
+                        lambda x, w, bias=None, elu=False:
+                        conv.conv3x3_valid_plain(orig(x), w, bias, elu))
+    gen = torch.Generator().manual_seed(9)
+    x = torch.rand((2, 16, 6, 9), generator=gen).bfloat16()
+    x.requires_grad_(True)
+    w = torch.randn((16, 16, 3, 3), generator=gen).bfloat16()
+    w.requires_grad_(weights_need_grad)
+    out = conv.conv3x3_reflect(x, w, elu=True)
+    assert type(out.grad_fn).__name__ == "_Conv3x3ReflectBackward"
+    out.float().sum().backward()
+    assert x.grad is not None
+    assert calls == ([(2, 16, 6, 9)] if weights_need_grad else [])
+    assert (w.grad is not None) is weights_need_grad
+
+
+@pytest.mark.parametrize("cin,co,kernel", [(64, 64, True), (16, 1, True),
+                                           (1, 16, True), (96, 32, False),
+                                           (64, 128, False)])
+def test_bf16_dispatch_by_shape(cin, co, kernel):
+    """In bf16 kernel D's route is the reflect-mode Function (the pad
+    folded in); any other conv pads and takes F.conv2d. Both compute one
+    rounding of the float32 conv + ELU of the bf16 operands."""
+    gen = torch.Generator().manual_seed(cin + co)
+    x = torch.rand((1, cin, 5, 7), generator=gen).bfloat16()
+    w = torch.randn((co, cin, 3, 3), generator=gen).bfloat16()
+    w.requires_grad_(True)
+    out = conv.conv3x3_reflect(x, w, elu=True)
+    name = type(out.grad_fn).__name__
+    assert (name == "_Conv3x3ReflectBackward") is kernel, name
+    want = F.elu(F.conv2d(F.pad(x.float(), (1, 1, 1, 1), mode="reflect"),
+                          w.float())).bfloat16()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp(min=2.0 ** -126))) - 7)
+    assert ((out.float() - want.float()).abs() <= ulp).all()

@@ -190,6 +190,24 @@ def test_kernel_entry_point_refuses_cpu_tensors(name):
     assert kernel.launches == before
 
 
+@pytest.mark.parametrize("direction", ["forward", "input gradient"])
+def test_reflect_entry_points_refuse_cpu_and_float32(direction):
+    """Kernel D's reflect-mode wrappers (bf16 only, the pad folded in)
+    launch on a CUDA tensor or not at all, and refuse float32 before
+    looking at the device."""
+    kernel = conv.FWD_BF16 if direction == "forward" else conv.DGRAD_BF16
+    call = {"forward": lambda t: conv.conv3x3_reflect_cuda(
+                t, torch.rand(4, 2, 3, 3).to(t.dtype)),
+            "input gradient": lambda t: conv.conv3x3_dgrad_reflect_cuda(
+                t, torch.rand(2, 4, 3, 3).to(t.dtype))}[direction]
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match="CUDA tensor"):
+        call(torch.rand(1, 2, 9, 11).bfloat16())
+    with pytest.raises(TypeError, match="bfloat16"):
+        call(torch.rand(1, 2, 9, 11))
+    assert kernel.launches == before
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
