@@ -48,7 +48,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    conv2d_input on xp in bf16 with cuDNN on, bound by the bytes of x, w,
    b and out (g, w and dx) over 3.35 TB/s or operations over 989 TFLOP/s
    (dense bf16); B1 and B2 equal to theirs (torch.equal) on the crop's
-   and the full frame's stem and at ragged shapes.
+   and the full frame's stem (both timed), at ragged shapes that
+   straddle the bf16 kernels' row strips (W % 8 != 0 with W even and
+   odd, W % 16 != 0 with W % 8 == 0, H and W in {1, 2, 3}), on views
+   that are not 16-byte aligned, and on sparse inputs whose cotangents
+   make the backward's float32 sum order show in the bits.
 4. golden: the port's Monodepth2-18 at 96x320 with the deterministic
    reference-layout weights of tests/golden_common.py against the
    frozen PyTorch-reference outputs in tests/golden/monodepth2_rand.npz.
@@ -99,7 +103,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    plain versions (bf16 both); then 2 warm-up and 5 timed steps with
    every launch counter reset before the timed steps and read after
    (kernel D's and B's bf16 instances must launch 48 + 44 and 12 + 11
-   times per step, their float32 ones never): seconds per step, peak
+   times per step, their float32 ones never; B-bf16 10 + 10 times on the
+   crop's stem and 2 + 1 at full frame): seconds per step, peak
    memory, the idle share and device ms by kernel of one step, its
    reflection-pad kernels (ms and launches: D's bf16 convs pad nothing
    but the student's weight-gradient inputs); then one untimed step with
@@ -181,8 +186,7 @@ REPROJ_TILE = (32, 32)
 NO_SPILL = {"reproj_loss.cu": ("fwd_kernel", "bwd_grad_kernel"),
             "vertical_resample.cu": ("vert_fwd", "vert_bwd"),
             "conv3x3.cu": ("conv3x3_bf16_mma", "conv3x3_bf16_head"),
-            "maxpool3x3s2.cu": ("pool_fwdI13__nv_bfloat16",
-                                "pool_bwdI13__nv_bfloat16")}
+            "maxpool3x3s2.cu": ("pool_fwd_bf16", "pool_bwd_bf16")}
 CONV_KERNELS = ("conv3x3_fwd", "conv3x3_dgrad")
 CONV_BF16_KERNELS = ("conv3x3_fwd_bf16", "conv3x3_dgrad_bf16")
 SLICE1_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
@@ -383,21 +387,26 @@ def phase_kernels(dev) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     rows = {}
 
-    def row(kernel, err, ms, plain_ms, library_ms, work, host_ms=None):
+    def row(kernel, err, ms, plain_ms, library_ms, work, host_ms=None,
+            label=None):
         """`ms`: the kernel's time on the card alone, and `host_ms` with
         the host time in front of each launch (queued=False); or `ms` is
-        the kernel's call, and both are timed here."""
+        the kernel's call, and both are timed here. With a `label` the
+        row is logged under it and kept out of the JSON line (which
+        holds one row a kernel)."""
         if callable(ms):
             host_ms, ms = cuda_ms(ms, queued=False), cuda_ms(ms)
         bound_ms, bound_by = work if isinstance(work[1], str) else \
             bound(*work)
-        rows[kernel.name] = dict(
+        entry = dict(
             name=kernel.name, route="cuda", source=kernel.source_path,
             replaces=kernel.replaces, max_abs_err=err, ms=ms,
             host_ms=host_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by=bound_by, library_ms=library_ms)
+        if label is None:
+            rows[kernel.name] = entry
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"  {kernel.name}: max|kernel-plain| {err:.3e}  "
+        log(f"  {kernel.name}{label or ''}: max|kernel-plain| {err:.3e}  "
             f"kernel {ms:.4f} ms ({host_ms:.4f} with host time)  plain "
             f"{plain_ms:.4f} ms  library {lib}  bound {bound_ms:.4f} ms "
             f"({bound_by})")
@@ -720,6 +729,25 @@ CONV_CROP_SHAPES = (("upconv_1_0", 64, 32, 64, 80),
                     ("upconv_0_1", 16, 16, 256, 320),
                     ("dispconv_0", 16, 1, 256, 320))
 POOL_CROP_SHAPE = (CONV_BATCH, 64, 128, 160)
+POOL_FULL_SHAPE = (CONV_BATCH, 64, 160, 512)  # the teacher's and student's
+POOL_BF16_TIMED = (POOL_CROP_SHAPE, POOL_FULL_SHAPE)
+# (shape, 16-byte aligned, sparse) of the bf16 pool's checks: the bench
+# step's two stems; ragged shapes for the row strips of both kernels (8
+# columns a thread; the backward's 2 window rows): W % 8 != 0 with W even
+# and odd (the element-wise path), W % 16 != 0 with W % 8 == 0 (Wo % 8 !=
+# 0, and Wo % 4 != 0), ragged rows; H and W in {1, 2, 3}; views one
+# element past a 16-byte boundary (the element-wise path on any width);
+# sparse (`_pool_bf16_inputs`): ties of all four covering windows are
+# common and the cotangents are +-1 and +-2^25, so the float32 sum's
+# order shows in the bits
+POOL_BF16_CHECKS = tuple((s, True, False) for s in (
+    POOL_CROP_SHAPE, POOL_FULL_SHAPE, (2, 3, 17, 23), (1, 2, 66, 130),
+    (1, 2, 67, 132), (2, 3, 34, 94), (2, 3, 35, 95), (1, 4, 40, 208),
+    (1, 4, 45, 200), (1, 4, 44, 232), (2, 3, 3, 16), (2, 3, 1, 32))) + tuple(
+    ((2, 3, h, w), True, False) for h in (1, 2, 3) for w in (1, 2, 3)) + tuple(
+    (s, False, False) for s in (POOL_CROP_SHAPE, (2, 3, 34, 94),
+                                (1, 4, 40, 208))) + (
+    (POOL_CROP_SHAPE, True, True), ((2, 3, 35, 95), True, True))
 
 
 # the bf16 checks' further shapes: channels of CONV_RAGGED at W = 48 (W %
@@ -854,36 +882,65 @@ def phase_bf16_kernels(dev, gen, row) -> None:
             (bound_ms, max(("bytes", "operations"), key=t.get)),
             host_ms=t["host_ms"])
 
-    for shape in (POOL_CROP_SHAPE, (CONV_BATCH, 64, 160, 512),
-                  (2, 3, 17, 23), (1, 2, 66, 130), (1, 2, 67, 132)):
-        x = torch.relu(torch.randn(shape, generator=gen)).to(dev).bfloat16()
-        y_k = pool.maxpool3x3s2_fwd_cuda(x)
+    for shape, aligned, sparse in POOL_BF16_CHECKS:
+        x, g = _pool_bf16_inputs(gen, dev, shape, aligned, sparse)
         y_p = pool.maxpool3x3s2_plain(x)
-        g = torch.randn(y_p.shape, generator=gen).to(dev).bfloat16()
+        y_k = pool.maxpool3x3s2_fwd_cuda(x)
         dx_k = pool.maxpool3x3s2_bwd_cuda(x, g)
         dx_p = pool.maxpool3x3s2_backward_plain(x, g)
         torch.cuda.synchronize()
         e_f = float((y_k.float() - y_p.float()).abs().max())
         e_b = float((dx_k.float() - dx_p.float()).abs().max())
         exact = torch.equal(y_k, y_p) and torch.equal(dx_k, dx_p)
-        log(f"pool bf16 {shape}: fwd err {e_f:.3e}, bwd err {e_b:.3e}, "
-            f"bit-exact {exact}")
+        log(f"pool bf16 {shape}{'' if aligned else ', not 16-byte aligned'}"
+            f"{', sparse' if sparse else ''}: fwd err {e_f:.3e}, bwd err "
+            f"{e_b:.3e}, bit-exact {exact}")
         if not exact:
             raise AssertionError(f"bf16 pool kernel is not bit-exact at "
-                                 f"{shape}")
-        if shape == POOL_CROP_SHAPE:
+                                 f"{shape}, aligned {aligned}, sparse "
+                                 f"{sparse}")
+        if shape in POOL_BF16_TIMED and aligned and not sparse:
+            # the row: the crop's stem; the full frame's logged beside it
+            label = None if shape == POOL_CROP_SHAPE else f" {shape}"
             _, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
             row(pool.FWD_BF16, e_f,
                 lambda: pool.maxpool3x3s2_fwd_cuda(x),
                 cuda_ms(lambda: pool.maxpool3x3s2_plain(x)),
                 cuda_ms(lambda: F.max_pool2d(x, 3, 2, 1)),
-                bound(nbytes(x, y_k), 8 * y_k.numel()))
+                bound(nbytes(x, y_k), 8 * y_k.numel()), label=label)
             row(pool.BWD_BF16, e_b,
                 lambda: pool.maxpool3x3s2_bwd_cuda(x, g),
                 cuda_ms(lambda: pool.maxpool3x3s2_backward_plain(x, g)),
                 cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                     g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)),
-                bound(nbytes(x, g, dx_k), 26 * g.numel()))
+                bound(nbytes(x, g, dx_k), 26 * g.numel()), label=label)
+        del x, g, y_k, y_p, dx_k, dx_p
+
+
+def _pool_bf16_inputs(gen, dev, shape, aligned=True, sparse=False):
+    """x and g in bf16 for the pool: x relu outputs (ties at 0), or with
+    `sparse` relu(randn - 1.5) (93% zeros) and g of +-1 and +-2^25 (1 +
+    2^25 rounds to 2^25 in float32: a sum of four absorbs or cancels by
+    its order); with `aligned` False both start one element past a
+    16-byte boundary."""
+    x = torch.randn(shape, generator=gen)
+    x = torch.relu(x - 1.5 if sparse else x)
+    g = torch.randn(shape[:2] + (pool.pooled_size(shape[2]),
+                                 pool.pooled_size(shape[3])), generator=gen)
+    if sparse:
+        g = torch.sign(g) * torch.exp2(25.0 * torch.randint(
+            0, 2, g.shape, generator=gen).float())
+    x, g = x.to(dev).bfloat16(), g.to(dev).bfloat16()
+    return (x, g) if aligned else (_unaligned(x), _unaligned(g))
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data starts one element past a
+    16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def _reproj_inputs(gen, dev, shape):
@@ -1372,21 +1429,23 @@ def counting_weight_grads():
 
 
 @contextlib.contextmanager
-def recording_conv_shapes():
-    """Records (B, Cin, H + 2, W + 2, Co) of each kernel D forward launch
-    while active; the launches still count."""
+def recording_shapes(kernel, args: slice):
+    """Records tuple(launch arguments[args]) of each launch of `kernel`
+    while active (kernel D's forward: slice(4, 9), (B, Cin, H + 2, W + 2,
+    Co); the pool's forward slice(2, 6), its backward slice(3, 7), (B, C,
+    H, W)); the launches still count."""
     shapes = []
-    orig = conv.FWD.launch
+    orig = kernel.launch
 
-    def launch(*args):
-        orig(*args)
-        shapes.append(tuple(args[4:9]))
+    def launch(*a):
+        orig(*a)
+        shapes.append(tuple(a[args]))
 
-    conv.FWD.launch = launch
+    kernel.launch = launch
     try:
         yield shapes
     finally:
-        del conv.FWD.launch
+        del kernel.launch
 
 
 def _distill_trainer(dev, cfg, sd, obj, mask, seed):
@@ -1603,7 +1662,7 @@ def phase_distill_crop(dev, sd, obj, mask, scenes) -> None:
     cfg = dataclasses.replace(DISTILL_CFG, **DISTILL_CROP)
     trainer = _distill_trainer(dev, cfg, sd, obj, mask, SEED + 46)
     state = trainer.make_state()
-    with recording_conv_shapes() as shapes:
+    with recording_shapes(conv.FWD, slice(4, 9)) as shapes:
         state, m = trainer.train_step(state, scenes)
         torch.cuda.synchronize()
     want = (cfg.batch_size, 16, cfg.attack_crop_h + 2, cfg.attack_crop_w + 2,
@@ -1635,6 +1694,14 @@ BENCH_PER_STEP = {"conv3x3_fwd_bf16": D_FWD_PER_STEP,
                   "maxpool3x3s2_bwd_bf16": BENCH_CFG.steps + 1,
                   "conv3x3_fwd": 0, "conv3x3_dgrad": 0,
                   "maxpool3x3s2_fwd": 0, "maxpool3x3s2_bwd": 0}
+# B-bf16's launches a step by input shape: the attack's PGD passes on the
+# crop's stem, forward and input gradient; at full frame the teacher's
+# and the student's forward and the student's backward
+BENCH_POOL_SHAPES = {
+    "maxpool3x3s2_fwd_bf16": {POOL_CROP_SHAPE: BENCH_CFG.steps,
+                              POOL_FULL_SHAPE: 2},
+    "maxpool3x3s2_bwd_bf16": {POOL_CROP_SHAPE: BENCH_CFG.steps,
+                              POOL_FULL_SHAPE: 1}}
 # the coarse objective at scale 1 with one fine step: each of the other
 # steps - 1 attack passes runs upconv_1_0 and dispconv_1 instead of the
 # scale-0 path's 4 convs of D (upconv_0_0, upconv_0_1 and dispconv_0
@@ -1705,12 +1772,14 @@ def phase_bench(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(BENCH_TIMED):
-        state, m = trainer.train_step(state, scenes)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    secs = (time.perf_counter() - t0) / BENCH_TIMED
+    with recording_shapes(pool.FWD_BF16, slice(2, 6)) as pool_fwd, \
+            recording_shapes(pool.BWD_BF16, slice(3, 7)) as pool_bwd:
+        t0 = time.perf_counter()
+        for _ in range(BENCH_TIMED):
+            state, m = trainer.train_step(state, scenes)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / BENCH_TIMED
     launches = {k.name: k.launches for k in _build.KERNELS}
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [float(v) for v in losses]
@@ -1735,6 +1804,16 @@ def phase_bench(dev):
         raise AssertionError(f"kernels never launched in phase 10: {bad}")
     if per_step != {n: float(v) for n, v in BENCH_PER_STEP.items()}:
         raise AssertionError("kernels D and B did not launch as predicted")
+    by_shape = {n: {str(sh): shapes.count(sh) / BENCH_TIMED
+                    for sh in sorted(set(shapes))}
+                for n, shapes in (("maxpool3x3s2_fwd_bf16", pool_fwd),
+                                  ("maxpool3x3s2_bwd_bf16", pool_bwd))}
+    want = {n: {str(sh): float(k) for sh, k in v.items()}
+            for n, v in BENCH_POOL_SHAPES.items()}
+    log(f"  B-bf16 launches a step by input shape {json.dumps(by_shape)} "
+        f"(predicted {json.dumps(want)})")
+    if by_shape != want:
+        raise AssertionError("B-bf16 did not launch at the predicted shapes")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite distillation loss: {losses}")
     busy_ms, wall_ms, n, by_name, counts = device_busy(
@@ -1745,6 +1824,10 @@ def phase_bench(dev):
         f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
     log(f"  kernel D: {d_ms:.3f} device ms of the step, "
         f"{d_ms / busy_ms:.4f} of its busy time")
+    for k in ("pool_fwd_bf16", "pool_bwd_bf16"):
+        k_ms = sum(ms for n, ms in by_name.items() if k in n)
+        k_n = sum(c for n, c in counts.items() if k in n)
+        log(f"  {k}: {k_ms:.3f} device ms of the step in {k_n} launches")
     check_reflect_pads("bench", by_name, counts, BENCH_PADS)
     log("  device ms of the step by kernel (top 20):")
     for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:

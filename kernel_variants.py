@@ -1,14 +1,16 @@
-"""Layouts of kernels C's forward, warp A1 and D-bf16 on the card.
+"""Layouts of kernels C's forward, warp A1, D-bf16 and B-bf16 on the card.
 
-    python3 kernel_variants.py [C] [A1] [D]   (default: all three)
+    python3 kernel_variants.py [C] [A1] [D] [B] [--before DIR ...]
+    (default: all four)
 
 Each variant is a copy of `csrc/reproj_loss.cu`,
-`csrc/vertical_resample.cu` or `csrc/conv3x3.cu` with layout constants
-replaced (rows and columns a thread or a warp, threads a block, blocks
-an SM, persistent blocks or one tile a block, stores through shared
-memory or straight from the registers), built with the library's nvcc
-flags into `build/variants/`, one nvcc per variant, all started
-together. Each variant is held against the plain version (C and A1 with
+`csrc/vertical_resample.cu`, `csrc/conv3x3.cu` or `csrc/maxpool3x3s2.cu`
+with layout constants replaced (rows and columns a thread or a warp,
+threads a block, blocks an SM, persistent blocks or one tile a block,
+stores through shared memory or straight from the registers), built
+with the library's nvcc flags into `build/variants/`, one nvcc per
+variant, all started together. Each
+variant is held against the plain version (C, A1 and B-bf16 with
 `torch.equal`; D-bf16 within one bf16 ulp plus `CONV_RTOL` of the
 largest magnitude, `chip_smoke.check_conv`'s rule, both entry points in
 reflect mode) at the main path's shapes and at ragged ones, then timed
@@ -18,7 +20,10 @@ Prints each variant's registers, stack and local memory, for warp A1
 the time of a fill of its output alone (`out.zero_()`), the least a
 launch that writes that output takes, and for D-bf16 the sum over the
 crop pass's four convs of each round. The first variant of each kernel
-is the source as committed. Needs one CUDA card; no jax.
+is the source as committed. `--before DIR`: DIR is another checkout of
+the repository (e.g. an older commit's `git archive`); its
+`maxpool3x3s2.cu` joins the B-bf16 variants as it is, timed in the same
+turns (repeat the option for more). Needs one CUDA card; no jax.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
-from depthmodelhardening_tpu_torch.ops import _build, conv, reproj, warp
+from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
 
 OUT_DIR = Path(cs.REPO) / "build" / "variants"
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -56,7 +61,18 @@ VARIANTS = (
        for nw, r16, r64, mb, per, sm in (
            (8, 2, 1, 2, 1, 1), (8, 2, 1, 2, 1, 0), (8, 2, 1, 2, 0, 1),
            (8, 1, 1, 2, 1, 1), (4, 2, 1, 4, 1, 1), (4, 2, 2, 4, 1, 1),
-           (4, 4, 2, 3, 1, 1), (16, 1, 1, 1, 1, 1))])
+           (4, 4, 2, 3, 1, 1), (16, 1, 1, 1, 1, 1))]
+    + [(f"B-bf16 forward {c} columns x {r} rows a thread, {t} threads; "
+        f"backward {br} window rows x {bc} columns a thread, {bt} threads, "
+        f"blocks/SM >= {mb}", "maxpool3x3s2.cu", None, None,
+        dict(kFwdCols=c, kFwdRows=r, kFwdThreads=t, kBwdRows=br, kBwdCols=bc,
+             kBwdThreads=bt, kBwdMinBlocks=mb))
+       for (c, r, t), (br, bc, bt, mb) in zip(
+           ((8, 1, 64), (8, 2, 64), (4, 1, 64), (16, 1, 64), (8, 1, 128),
+            (4, 2, 64), (8, 4, 64), (8, 1, 256)),
+           ((1, 16, 64, 1), (2, 8, 64, 1), (1, 8, 128, 1), (1, 16, 128, 1),
+            (2, 16, 128, 1), (1, 24, 128, 1), (1, 32, 128, 1),
+            (1, 16, 64, 16)))])
 REPROJ_SHAPES = ((32, 3, 320, 1024), (3, 3, 37, 53), (2, 3, 33, 33),
                  (1, 3, 65, 132), (1, 3, 1, 37), (1, 3, 37, 1))
 WARP_CASES = (((12, 4, 200, 256, 256), "attack"),
@@ -74,15 +90,18 @@ ROUNDS = 3
 def variant_source(source: str, consts: dict) -> str:
     text = (_build.CSRC / source).read_text()
     for name, value in consts.items():
-        text, n = re.subn(rf"\b{name} = \d+", f"{name} = {value}", text,
-                          count=1)
+        # the first assignment outside a comment line: a note may name a
+        # constant with its value
+        text, n = re.subn(rf"^(?!\s*//)(.*?\b{name} = )\d+",
+                          rf"\g<1>{value}", text, count=1, flags=re.M)
         if n != 1:
             raise ValueError(f"{name} not found in {source}")
     return text
 
 
 def build(variant):
-    """(label, entry point(s), resource usage of the variant's kernels)."""
+    """(label, entry point(s), resource usage of the variant's kernels).
+    A B-bf16 variant may name its source by path (`--before`)."""
     label, source, entry, argtypes, consts = variant
     stem = re.sub(r"\W+", "_", label).strip("_")
     src = OUT_DIR / f"{stem}.cu"
@@ -100,6 +119,13 @@ def build(variant):
         dgrad.argtypes, dgrad.restype = conv._DGRAD_ARGS, ctypes.c_int
         usage = [u for k, u in cs.resource_usage(lib) if "bf16" in k]
         return label, (fwd, dgrad), usage
+    if source.endswith("maxpool3x3s2.cu"):
+        fwd, bwd = dll.maxpool3x3s2_fwd_bf16, dll.maxpool3x3s2_bwd_bf16
+        fwd.argtypes, fwd.restype = pool._FWD_ARGS, ctypes.c_int
+        bwd.argtypes, bwd.restype = pool._BWD_ARGS, ctypes.c_int
+        usage = [u for k, u in cs.resource_usage(lib)
+                 if "bf16" in k or "bfloat16" in k]
+        return label, (fwd, bwd), usage
     fn = getattr(dll, entry)
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     kernel = "fwd_kernel" if entry == "reproj_loss_fwd" else "vert_fwd"
@@ -239,12 +265,73 @@ def sweep_conv(gen, dev, fns) -> None:
                + ", ".join(f"{t:.4f}" for t in ts) + " ms")
 
 
+def _pool_calls(pair, x, g):
+    """One B-bf16 variant's forward and backward on x and g, as closures
+    (outputs allocated here, 16-byte aligned)."""
+    B, C, H, W = x.shape
+    Ho, Wo = g.shape[2:]
+    y = torch.full((B, C, Ho, Wo), float("nan"), dtype=x.dtype,
+                   device=x.device)
+    dx = torch.full_like(x, float("nan"))
+    stream = _build.stream_handle(x)
+
+    def fwd():
+        launch(pair[0], x.data_ptr(), y.data_ptr(), B, C, H, W, Ho, Wo,
+               stream)
+        return y
+
+    def bwd():
+        launch(pair[1], x.data_ptr(), g.data_ptr(), dx.data_ptr(), B, C, H,
+               W, Ho, Wo, stream)
+        return dx
+
+    return fwd, bwd
+
+
+def sweep_pool(gen, dev, fns) -> None:
+    """Each B-bf16 variant equal to the plain versions at chip_smoke's
+    POOL_BF16_CHECKS; timed at the bench step's two stems, in turns."""
+    for shape, aligned, sparse in cs.POOL_BF16_CHECKS:
+        x, g = cs._pool_bf16_inputs(gen, dev, shape, aligned, sparse)
+        want_f = pool.maxpool3x3s2_plain(x)
+        want_b = pool.maxpool3x3s2_backward_plain(x, g)
+        for label, pair in fns.items():
+            fwd, bwd = _pool_calls(pair, x, g)
+            got_f, got_b = fwd(), bwd()
+            torch.cuda.synchronize()
+            if not (torch.equal(got_f, want_f) and torch.equal(got_b, want_b)):
+                raise AssertionError(f"{label} disagrees at {shape}, "
+                                     f"aligned {aligned}, sparse {sparse}")
+    cs.log(f"  every B-bf16 variant equal to the plain versions at "
+           f"{len(cs.POOL_BF16_CHECKS)} shapes, both directions")
+    for shape in cs.POOL_BF16_TIMED:
+        x, g = cs._pool_bf16_inputs(gen, dev, shape)
+        for d, which in enumerate(("forward", "backward")):
+            calls = {label: _pool_calls(pair, x, g)[d]
+                     for label, pair in fns.items()}
+            for label, ts in rounds(calls, lambda fn: fn()).items():
+                cs.log(f"  {label}, {which} at {shape}: "
+                       + ", ".join(f"{t:.4f}" for t in ts) + " ms")
+        del x, g
+
+
 def main() -> int:
-    which = set(sys.argv[1:]) or {"C", "A1", "D"}
+    args = sys.argv[1:]
+    before = []
+    while "--before" in args:
+        i = args.index("--before")
+        before.append(Path(args[i + 1]).resolve())
+        del args[i:i + 2]
+    which = set(args) or {"C", "A1", "D", "B"}
     dev = cs.phase_device()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     variants = [v for v in VARIANTS if v[0].split()[0].split("-")[0]
                 in which]
+    for d in before if "B" in which else ():
+        source = d / "depthmodelhardening_tpu_torch" / "csrc" / \
+            "maxpool3x3s2.cu"
+        variants.append((f"B-bf16 before ({d.name})", str(source), None,
+                         None, {}))
     with ThreadPoolExecutor(max_workers=len(variants)) as pool:
         built = list(pool.map(build, variants))
     for label, _, usage in built:
@@ -265,6 +352,10 @@ def main() -> int:
                f"{cs.CONV_BATCH}, card alone:")
         sweep_conv(gen, dev, {name: fn for name, fn, _ in built
                               if name.startswith("D-bf16")})
+    if "B" in which:
+        cs.log("kernel B-bf16, (B, C, H, W) of its input, card alone:")
+        sweep_pool(gen, dev, {name: fn for name, fn, _ in built
+                              if name.startswith("B-bf16")})
     return 0
 
 

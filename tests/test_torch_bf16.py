@@ -363,6 +363,42 @@ def test_bf16_pool_plain_matches_tpu_kernel(seed):
     np.testing.assert_array_equal(gx_t.float().numpy(), gx_j)
 
 
+
+@pytest.mark.parametrize("shape", [(2, 4, 32, 64), (1, 2, 64, 128)])
+def test_bf16_pool_decompositions_match_tpu_kernel(shape):
+    """The bf16 kernels' decompositions (`maxpool3x3s2_separable_plain`,
+    `maxpool3x3s2_backward_strips_plain` in POOL_BWD_STRIP strips) against B1
+    and B2 in bf16 (interpret mode, the width-packed layout), on relu
+    outputs with ties: bit-equal."""
+    B, C, h, w = shape  # B2 needs h/2 % 8 == 0 and w/4 % 8 == 0
+    rng = np.random.RandomState(h)
+    x = np.maximum(rng.randn(B, C, h, w), 0).astype(np.float32)
+    x[:, :, ::5, ::3] = 0.5
+    g = rng.randn(B, C, h // 2, w // 2).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    gb = jnp.asarray(g, jnp.bfloat16)
+    xp4 = wpack(xb.transpose(0, 2, 3, 1), 4)
+    gp2 = wpack(gb.transpose(0, 2, 3, 1), 2)
+
+    def b2():
+        y, vjp = jax.vjp(lambda t: pp.wpack4_maxpool3x3s2_pallas(t, C), xp4)
+        return y, vjp(gp2)[0]
+
+    y_j, gx_j = _interp(b2)
+    f32 = lambda t: np.asarray(jnp.asarray(t, jnp.float32))
+    y_j = f32(wunpack(y_j, 2)).transpose(0, 3, 1, 2)
+    gx_j = f32(wunpack(gx_j, 4)).transpose(0, 3, 1, 2)
+
+    xt = torch.from_numpy(f32(xb)).bfloat16()
+    gt = torch.from_numpy(f32(gb)).bfloat16()
+    y_t = pool.maxpool3x3s2_separable_plain(xt)
+    gx_t = pool.maxpool3x3s2_backward_strips_plain(xt, gt)
+    assert y_t.dtype == gx_t.dtype == torch.bfloat16
+    assert (gx_t != 0).sum() > y_t.numel() // 2
+    np.testing.assert_array_equal(y_t.float().numpy(), y_j)
+    np.testing.assert_array_equal(gx_t.float().numpy(), gx_j)
+
+
 # -- the attack and the distillation step -----------------------------------
 B, OBJ_H, OBJ_W = 2, 40, 60
 KW = dict(batch_size=B, steps=2, scene_h=H, scene_w=W)

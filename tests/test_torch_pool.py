@@ -7,7 +7,10 @@ package.
   against the TPU kernel B2 (`ops/pallas_pool.py:_bwd_kernel`) in
   interpret mode, on the JAX package's width-packed layout;
 * relu -> pool: the same input gradient either way, because relu's
-  backward zeroes the cotangent of every tied zero.
+  backward zeroes the cotangent of every tied zero;
+* the bf16 kernels' decompositions (`maxpool3x3s2_separable_plain`,
+  `maxpool3x3s2_backward_strips_plain`) against the plain versions, bit
+  for bit, in float32 and bf16 at ragged shapes.
 
 Cotangents are small integers so that every sum of window
 contributions is exact in float32 in any order: the comparisons are
@@ -24,6 +27,7 @@ from jax.experimental import pallas as pl
 
 import depthmodelhardening_tpu.ops.pallas_pool as pp
 from depthmodelhardening_tpu.ops.wpack_decoder import wpack, wunpack
+from depthmodelhardening_tpu_torch.ops import pool
 from depthmodelhardening_tpu_torch.ops.pool import (
     maxpool3x3s2, maxpool3x3s2_backward_plain, maxpool3x3s2_plain,
 )
@@ -122,3 +126,102 @@ def test_relu_pool_input_gradient_matches_flax():
     assert (np.asarray(y_j) == 0).any()  # windows of tied zeros exist
     np.testing.assert_array_equal(gx_t.numpy().transpose(0, 2, 3, 1),
                                   np.asarray(gx_j))
+
+
+# -- the bf16 kernels' decompositions ----------------------------------------
+SIZES = (1, 2, 3, 17, 23, 66, 67, 130, 160)
+
+
+def _relu_with_ties(rng, shape, dtype):
+    """relu outputs (ties at 0) with ties between positive values too."""
+    x = np.maximum(rng.randn(*shape), 0).astype(np.float32)
+    x.reshape(-1)[::7] = 0.5
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", SIZES)
+def test_separable_forward_equals_plain(h, dtype):
+    """B1-bf16's decomposition (a column max over each window's 3 rows,
+    then a max of 3 columns at stride 2) is the plain forward, bit for
+    bit, at H = h and every W of SIZES."""
+    rng = np.random.RandomState(h)
+    for w in SIZES:
+        x = _relu_with_ties(rng, (2, 3, h, w), dtype)
+        got = pool.maxpool3x3s2_separable_plain(x)
+        assert got.dtype == dtype
+        assert torch.equal(got, maxpool3x3s2_plain(x)), (h, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", SIZES)
+def test_strips_backward_equals_plain(h, dtype):
+    """B2-bf16's decomposition (strips of POOL_BWD_STRIP windows, each
+    window's max from the strip's slab, cotangent 0 outside the map, the
+    float32 sum in the kernel's order, rounded once) is the plain
+    backward, bit for bit, at H = h and every W of SIZES."""
+    rng = np.random.RandomState(100 + h)
+    for w in SIZES:
+        x = _relu_with_ties(rng, (2, 3, h, w), dtype)
+        g = torch.from_numpy(rng.randn(2, 3, pool.pooled_size(h),
+                                       pool.pooled_size(w)).astype(
+            np.float32)).to(dtype)
+        got = pool.maxpool3x3s2_backward_strips_plain(x, g)
+        assert got.dtype == dtype
+        assert torch.equal(got, maxpool3x3s2_backward_plain(x, g)), (h, w)
+
+
+@pytest.mark.parametrize("strip", [(2, 4), (1, 4), (2, 8), (1, 16), (16, 16),
+                                   (3, 12)])
+def test_strips_backward_does_not_depend_on_the_strip(strip):
+    """The strips kernel_variants.py B sweeps (1 or 2 window rows of 4, 8,
+    12 or 16 windows a thread) and others give the same bits: a strip
+    changes which thread routes an input, not its sum."""
+    rng = np.random.RandomState(7)
+    for h, w in ((66, 130), (67, 23), (160, 160), (3, 17)):
+        x = _relu_with_ties(rng, (1, 2, h, w), torch.bfloat16)
+        g = torch.from_numpy(rng.randn(1, 2, pool.pooled_size(h),
+                                       pool.pooled_size(w)).astype(
+            np.float32)).bfloat16()
+        assert torch.equal(pool.maxpool3x3s2_backward_strips_plain(x, g,
+                                                                  strip),
+                           maxpool3x3s2_backward_plain(x, g)), (h, w)
+
+
+def _backward_rows_swapped(x, g):
+    """`maxpool3x3s2_backward_plain` with the two covering window rows
+    added in the other order."""
+    x, g = x.float(), g.float()
+    H, W = x.shape[2:]
+    Ho, Wo = g.shape[2:]
+    m = maxpool3x3s2_plain(x)
+    ylo, yhi, y2 = pool._cover(H, Ho, x.device)
+    xlo, xhi, x2 = pool._cover(W, Wo, x.device)
+    dx = torch.zeros_like(x)
+    for oy, vy in ((yhi, y2), (ylo, None)):
+        for ox, vx in ((xlo, None), (xhi, x2)):
+            hit = x == m[:, :, oy][:, :, :, ox]
+            if vy is not None:
+                hit = hit & vy[:, None]
+            if vx is not None:
+                hit = hit & vx[None, :]
+            dx = dx + torch.where(hit, g[:, :, oy][:, :, :, ox], 0.0)
+    return dx.bfloat16()
+
+
+def test_strips_backward_keeps_the_sum_order():
+    """On sparse inputs (most windows all zero, so an input often ties
+    with all four covering windows) and cotangents of +-1 and +-2^25 (1 +
+    2^25 rounds to 2^25 in float32, so a sum of four absorbs or cancels
+    by its order), the order shows in the bits: the decomposition
+    matches the plain version, and the same sum with the window rows
+    swapped does not."""
+    rng = np.random.RandomState(11)
+    x = torch.relu(torch.from_numpy(rng.randn(2, 3, 66, 130).astype(
+        np.float32)) - 1.5).bfloat16()
+    g = torch.from_numpy((rng.choice([-1.0, 1.0], (2, 3, 33, 65)) * np.exp2(
+        25.0 * rng.randint(0, 2, (2, 3, 33, 65)))).astype(
+        np.float32)).bfloat16()
+    want = maxpool3x3s2_backward_plain(x, g)
+    assert torch.equal(pool.maxpool3x3s2_backward_strips_plain(x, g), want)
+    assert not torch.equal(_backward_rows_swapped(x, g), want)
