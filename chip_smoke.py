@@ -26,8 +26,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    pool backward B2 bit for bit, also at the distillation step's shape
    and at shapes that straddle its tiles; kernel C both ways bit for
    bit, also at shapes that straddle its tiles; warp A on random, ragged
-   (maps and strips) and the attack's own row maps (timed at batch 12
-   and 32, the row's times from the attack's maps at batch 12), its
+   (maps and strips), the attack's own row maps (timed at batch 12
+   and 32, the row's times from the attack's maps at batch 12) and the
+   hardening synthesis' (the 300x200 car at 375x1242 into its 248x296
+   tile through either eye's extrinsic, 7 and 4 channels), its
    forward equal to the plain version, its adjoint bit for bit against
    a float32 sum over tile rows in increasing order, the kernel's own
    order. Kernel D (the decoder's narrow
@@ -52,7 +54,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    straddle the bf16 kernels' row strips (W % 8 != 0 with W even and
    odd, W % 16 != 0 with W % 8 == 0, H and W in {1, 2, 3}), on views
    that are not 16-byte aligned, and on sparse inputs whose cotangents
-   make the backward's float32 sum order show in the bits.
+   make the backward's float32 sum order show in the bits. Every pool
+   kernel (B1, B2 and their bf16 instances) on inputs holding NaN
+   (inside a window, on a window's edge, filling a window, scattered):
+   the forward NaN exactly where the plain version's is and equal
+   elsewhere, the backward equal to the plain version.
 4. golden: the port's Monodepth2-18 at 96x320 with the deterministic
    reference-layout weights of tests/golden_common.py against the
    frozen PyTorch-reference outputs in tests/golden/monodepth2_rand.npz.
@@ -110,6 +116,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    but the student's weight-gradient inputs); then one untimed step with
    attack_scale 1 and one fine step, whose D launches fall by the convs
    its coarse passes skip.
+11. harden: the full hardening step (BASELINE config 4) through
+   HardeningTrainer.train_step at the CLI's `train-hardening --fine-tune
+   --norm-type l_0` defaults (Monodepth2-18, 4 scales, 1024x320 float32,
+   batch 32, frames ("0", "s"), the L0 attack with 10 steps (up to 20
+   iterations) on attack batch 12, supervised + contrastive + photometric,
+   Adam lr 1e-5), student and teacher from the golden weights, synthetic
+   375x1242 frames ("s" shifted by 12 columns) and scenes, the 300x200
+   car: first one small step on the card against the CPU's plain
+   versions (the L0 iteration count and first-iteration gradients, the
+   synthesis, then the training half on the CPU's batch); then 2 warm-up
+   and 5 timed steps with every launch counter reset before the timed
+   steps and read after: seconds per step, peak memory, each step's L0
+   iterations and early break, launches against the counts predicted
+   from the code and the iterations (`harden_launches`; no bf16 launch),
+   finite loss terms, the student's, BatchNorm's and the SimSiam head's
+   weights moved; the breakdown of a step, the L0 attack's ms an
+   iteration, the idle share and device ms by kernel of one step; then
+   one untimed L0 attack-eval batch (build_attack(l_0) +
+   evaluate_attacks) and one untimed distillation step with adv_type
+   "object_l0".
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -150,11 +176,19 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
 from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
 from depthmodelhardening_tpu_torch.ops.padding import reflect_pad1
 from depthmodelhardening_tpu_torch.ops.resize import bilinear_resize
+from depthmodelhardening_tpu_torch.physics.eot import (
+    ANGLE_RANGE, TRAIN_DIST_RANGE, stereo_T,
+)
+from depthmodelhardening_tpu_torch.training.adv_synth import (
+    make_synth_compositor, synth_tile,
+)
 from depthmodelhardening_tpu_torch.training.config import (
-    DistillConfig, HardeningConfig, SelfSupConfig,
+    AdvSynthConfig, DistillConfig, HardeningConfig, SelfSupConfig,
 )
 from depthmodelhardening_tpu_torch.training.distill import DistillTrainer
-from depthmodelhardening_tpu_torch.training.hardening import HardeningTrainer
+from depthmodelhardening_tpu_torch.training.hardening import (
+    HardeningTrainer, StepDraws,
+)
 from depthmodelhardening_tpu_torch.training.selfsup import (
     compute_selfsup_losses,
 )
@@ -177,6 +211,8 @@ CONV_RTOL = 1e-5
 # the tensor cores
 PEAK_BYTES_S, PEAK_F32_S, PEAK_TF32_S = 3.35e12, 67e12, 495e12
 PEAK_BF16_S = 989e12
+# the hardening batch's synthesis tile at 375x1242 (training/adv_synth.py)
+SYNTH_TILE = synth_tile(375, 1242)
 # the tile of csrc/reproj_loss.cu's fwd_kernel and bwd_grad_kernel,
 # kTileH x kTileW pixels: phase 3 checks both at shapes that straddle it
 REPROJ_TILE = (32, 32)
@@ -291,10 +327,27 @@ def _attack_row_maps(gen, Bn):
     return A, B
 
 
+def _synth_row_maps(gen, Bn):
+    """A, B (Bn, 296) of the hardening batch's synthesis: the 300x200 car
+    warped at native resolution (375x1242, Monodepth2's K) into its
+    248x296 tile, each sample at a training distance and yaw, through
+    the identity or the 0.54 m stereo extrinsic (both eyes)."""
+    th, tw = synth_tile(375, 1242)
+    z, a = (torch.tensor(r)[torch.randint(len(r), (Bn,), generator=gen)]
+            for r in (TRAIN_DIST_RANGE, ANGLE_RANGE))
+    T = torch.where((torch.arange(Bn) % 2 == 0)[:, None, None],
+                    torch.eye(4), torch.from_numpy(stereo_T(0.54, "l")))
+    _, A, B, _, _ = make_synth_compositor(200, 300)._separable_geometry(
+        z, a, 375, 1242, th, tw, T)
+    return A, B
+
+
 def _warp_inputs(gen, dev, Bn, C, OH, TH, TW, maps: str):
     inter = torch.rand((Bn, C, OH, TW), generator=gen).to(dev)
     if maps == "attack":
         A, B = _attack_row_maps(gen, Bn)
+    elif maps == "synth":
+        A, B = _synth_row_maps(gen, Bn)
     elif maps == "ragged":
         # every corner case of the row map: negative, zero and tiny slopes
         A = torch.empty((Bn, TW)).uniform_(-3.0, 3.0, generator=gen)
@@ -423,7 +476,10 @@ def phase_kernels(dev) -> dict:
             ("ragged", (3, 5, 37, 45, 53), "ragged"),
             ("ragged strips", (4, 4, 200, 250, 200), "random"),
             ("attack maps", (12, 4, 200, 256, 256), "attack"),
-            ("attack maps, distillation", (32, 4, 200, 256, 256), "attack")):
+            ("attack maps, distillation", (32, 4, 200, 256, 256), "attack"),
+            ("synthesis maps, the pair", (32, 7, 200) + SYNTH_TILE, "synth"),
+            ("synthesis maps, the other eye", (32, 4, 200) + SYNTH_TILE,
+             "synth")):
         Bn, C, OH, TH, TW = shape
         inter, A, B = _warp_inputs(gen, dev, Bn, C, OH, TH, TW, maps)
         g = torch.randn((Bn, C, TH, TW), generator=gen).to(dev)
@@ -504,6 +560,8 @@ def phase_kernels(dev) -> dict:
                 cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                     g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)),
                 (nbytes(x, g, dx_k), 26 * g.numel()))
+
+    check_pool_nan(dev, gen)
 
     # kernel C at the training step's shape, a ragged one, H or W = 2
     # (reflect edges), and shapes that straddle the tiles of its forward
@@ -917,6 +975,64 @@ def phase_bf16_kernels(dev, gen, row) -> None:
         del x, g, y_k, y_p, dx_k, dx_p
 
 
+# (dtype, shape, 16-byte aligned) of the pool's NaN checks: the attack's
+# stem in float32, the crop's in bf16, ragged shapes for the tiles and
+# strips, one not 16-byte aligned, a 3x3 map
+POOL_NAN_CHECKS = (
+    (torch.float32, (12, 64, 160, 512), True),
+    (torch.float32, (2, 3, 17, 23), True), (torch.float32, (1, 2, 67, 132),
+                                            True),
+    (torch.bfloat16, POOL_CROP_SHAPE, True),
+    (torch.bfloat16, (2, 3, 35, 95), True),
+    (torch.bfloat16, (2, 3, 35, 95), False),
+    (torch.bfloat16, (2, 3, 3, 3), True))
+
+
+def _with_nans(x, gen):
+    """x with NaN inside a window (an even row and column: one covering
+    window), on a window's edge (odd, odd: four), over a whole 3x3
+    window, and at 0.1% of the elements."""
+    x = x.clone()
+    H, W = x.shape[2:]
+    nan = float("nan")
+    x[:, :, min(4, H - 1), min(6, W - 1)] = nan
+    x[:, :, min(9, H - 1), min(13, W - 1)] = nan
+    x[:, :, 15:18, 21:24] = nan
+    x[torch.rand(x.shape, generator=gen).to(x.device) < 1e-3] = nan
+    return x
+
+
+def check_pool_nan(dev, gen) -> None:
+    """Every pool kernel keeps a NaN as the plain version (amax) does: the
+    forward NaN exactly where the plain version's is and equal elsewhere;
+    the backward, where a window's max is NaN and routes nowhere, equal
+    to the plain version (torch.equal)."""
+    for dtype, shape, aligned in POOL_NAN_CHECKS:
+        x = _with_nans(torch.relu(torch.randn(shape, generator=gen)), gen)
+        g = torch.randn(shape[:2] + (pool.pooled_size(shape[2]),
+                                     pool.pooled_size(shape[3])),
+                        generator=gen)
+        x, g = x.to(dev, dtype), g.to(dev, dtype)
+        if not aligned:
+            x, g = _unaligned(x), _unaligned(g)
+        y_k = pool.maxpool3x3s2_fwd_cuda(x)
+        y_p = pool.maxpool3x3s2_plain(x)
+        dx_k = pool.maxpool3x3s2_bwd_cuda(x, g)
+        dx_p = pool.maxpool3x3s2_backward_plain(x, g)
+        torch.cuda.synchronize()
+        n_nan = int(torch.isnan(y_p).sum())
+        fwd = (torch.equal(torch.isnan(y_k), torch.isnan(y_p))
+               and torch.equal(y_k.nan_to_num(0.0), y_p.nan_to_num(0.0)))
+        bwd = torch.equal(dx_k, dx_p)
+        log(f"pool NaN {str(dtype)[6:]} {shape}"
+            f"{'' if aligned else ', not 16-byte aligned'}: {n_nan} NaN "
+            f"windows, forward NaN kept and equal {fwd}, backward equal "
+            f"{bwd}")
+        if not (fwd and bwd and n_nan > 0):
+            raise AssertionError(f"the {dtype} pool kernels do not keep NaN "
+                                 f"as the plain version at {shape}")
+
+
 def _pool_bf16_inputs(gen, dev, shape, aligned=True, sparse=False):
     """x and g in bf16 for the pool: x relu outputs (ties at 0), or with
     `sparse` relu(randn - 1.5) (93% zeros) and g of +-1 and +-2^25 (1 +
@@ -1207,6 +1323,7 @@ def phase_train(dev):
     B = TRAIN_CFG.batch_size
     frames, side, flip = _train_inputs(dev)
     trainer = HardeningTrainer(TRAIN_CFG, torch.Generator().manual_seed(SEED),
+                               *make_car_object(300, 200, seed=SEED),
                                device=dev)
     state = trainer.make_state()
     start = {k: v.clone() for k, v in state.model.state_dict().items()}
@@ -1347,7 +1464,8 @@ def phase_train_parity(dev) -> None:
                         generator=torch.Generator().manual_seed(SEED + 31))
     def step_on(d):
         trainer = HardeningTrainer(
-            cfg, torch.Generator().manual_seed(SEED + 32), device=d)
+            cfg, torch.Generator().manual_seed(SEED + 32),
+            *make_car_object(36, 24, seed=SEED), device=d)
         state, m = trainer.selfsup_frames_step(
             trainer.make_state(), {k: v.to(d) for k, v in frames.items()},
             side.to(d), flip.to(d), identity_noise=noise.to(d))
@@ -1372,6 +1490,7 @@ def phase_converge(dev, frames, side, flip) -> None:
     loss below step 0's."""
     cfg = dataclasses.replace(TRAIN_CFG, learning_rate=CONVERGE_LR)
     trainer = HardeningTrainer(cfg, torch.Generator().manual_seed(SEED + 1),
+                               *make_car_object(300, 200, seed=SEED),
                                device=dev)
     state = trainer.make_state()
     losses = []
@@ -1903,26 +2022,435 @@ def phase_bench_scale(dev, teacher_sd, obj, mask, scenes) -> None:
                              "convs of its coarse passes")
 
 
+# -- phase 11 ----------------------------------------------------------------
+# the CLI's `train-hardening --fine-tune --norm-type l_0` (cli/main.py:594-
+# 627): frames ("0", "s"), L0 with 10 steps on attack batch 12, batch 32,
+# lr 1e-5, supervised + contrastive + photometric, fold_bn
+HARDEN_CFG = HardeningConfig(
+    selfsup=SelfSupConfig(height=320, width=1024, frame_ids=("0", "s")),
+    adv=AdvSynthConfig(norm_type="l_0", steps=10, attack_batch_size=12),
+    batch_size=32, learning_rate=1e-5)
+HARDEN_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
+                  "maxpool3x3s2_fwd", "maxpool3x3s2_bwd", "reproj_loss_fwd",
+                  "reproj_loss_bwd_q", "reproj_loss_bwd_grad") + CONV_KERNELS
+HARDEN_WARMUP, HARDEN_TIMED = 2, 5
+# each float32 kernel's functions as the profiler names them
+HARDEN_KERNEL_NAMES = {
+    "A (warp)": ("::vert_fwd", "::vert_bwd"),
+    "B (pool)": ("::pool_fwd<", "::pool_bwd<"),
+    "C (reprojection)": ("::fwd_kernel(", "::bwd_q_kernel(",
+                         "::bwd_grad_kernel("),
+    "D (conv)": ("::conv3x3_",)}
+# small-step parity on the card against the CPU: gradients within 1e-2
+# relative L2 over all tensors (phase 9's rule) and 0.1 per tensor, a
+# tensor below 1e-3 of the largest tensor's norm held relative to that
+# floor (the coarsest head's one-value bias gradient is a sum that
+# cancels). The step's gradient amplifies rounding (a warped pixel of a
+# flat block one ulp either side of its target flips the SSIM clip's
+# derivative): phase 11 logs, beside the card's reading, the CPU's step
+# against itself with every weight one ulp away. A zeroed tensor reads
+# 1.0, a sign-flipped one 2.0.
+HARDEN_GRAD_L2, HARDEN_GRAD_L2_ALL, HARDEN_GRAD_FLOOR = 0.1, 1e-2, 1e-3
+
+
+def harden_launches(iterations: int) -> dict:
+    """Kernel launches of one hardening step whose L0 attack ran
+    `iterations` Adam iterations: warp A forward in each iteration's view
+    and twice in the synthesis (the pair, the other eye), its adjoint in
+    each iteration; the stem pool forward in each attack pass, the
+    student's forward, the benign encode and the teacher's forward, its
+    backward in each attack pass and through both student passes; C in
+    the photometric loss (the identity reprojection and 4 scales forward,
+    4 backward); D's 4 scale-0 convs forward and input gradient in each
+    attack pass, the student's 6 (the scale-0 path and dispconv_1, _2)
+    forward and input gradient, the teacher's 4 forward."""
+    i = iterations
+    return {"vertical_resample_fwd": i + 2, "vertical_resample_bwd": i,
+            "maxpool3x3s2_fwd": i + 3, "maxpool3x3s2_bwd": i + 2,
+            "reproj_loss_fwd": 5, "reproj_loss_bwd_q": 4,
+            "reproj_loss_bwd_grad": 4, "conv3x3_fwd": 4 * i + 10,
+            "conv3x3_dgrad": 4 * i + 6, "conv3x3_fwd_bf16": 0,
+            "conv3x3_dgrad_bf16": 0, "maxpool3x3s2_fwd_bf16": 0,
+            "maxpool3x3s2_bwd_bf16": 0}
+
+
+def _harden_trainer(dev, cfg, sd, obj, mask, seed):
+    """Student and frozen teacher from the golden weights (--fine-tune);
+    the SimSiam head from `seed`."""
+    teacher = make_monodepth2()
+    teacher.load_state_dict(sd)
+    return HardeningTrainer(cfg, torch.Generator().manual_seed(seed), obj,
+                            mask, predictor_from(teacher.to(dev)),
+                            device=dev, init_state_dict=sd)
+
+
+def _harden_inputs(dev, cfg, seed):
+    """Synthetic 375x1242 frames ("s" is "0" shifted by 12 columns), sides
+    and flips mixed over the batch, and one scene for the attack."""
+    B = cfg.batch_size
+    f0 = torch.from_numpy(make_scene(B, cfg.adv.ori_h, cfg.adv.ori_w,
+                                     seed=seed))
+    frames = {"0": f0.to(dev), "s": torch.roll(f0, 12, dims=2).to(dev)}
+    side = torch.arange(B, device=dev) % 2 == 0
+    flip = torch.arange(B, device=dev) % 4 < 2
+    scene = torch.from_numpy(make_scene(1, cfg.adv.ori_h, cfg.adv.ori_w,
+                                        seed=seed + 1)).to(dev)
+    return frames, side, flip, scene
+
+
+def _head_and_model(state):
+    return {**{f"model.{k}": v for k, v in state.model.state_dict().items()},
+            **{f"simsiam.{k}": v
+               for k, v in state.simsiam.state_dict().items()}}
+
+
+def phase_harden(dev):
+    """The hardening step at config 4; returns the launch counts of the
+    timed steps."""
+    phase_harden_parity(dev)
+    cfg = HARDEN_CFG
+    B = cfg.batch_size
+    _, sd = _golden_weights()
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    frames, side, flip, scene = _harden_inputs(dev, cfg, SEED + 70)
+    trainer = _harden_trainer(dev, cfg, sd, obj, mask, SEED + 71)
+    state = trainer.make_state()
+    start = {k: v.clone() for k, v in _head_and_model(state).items()}
+    metrics, iters = [], []
+
+    def step():
+        nonlocal state
+        state, m = trainer.train_step(state, frames, side, flip, scene)
+        metrics.append(m)
+        iters.append((trainer.attack.last_iterations,
+                      trainer.attack.last_early_break))
+
+    for _ in range(HARDEN_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(HARDEN_TIMED):
+        step()
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / HARDEN_TIMED
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    timed = iters[HARDEN_WARMUP:]
+    predicted = {}
+    for n_it, _ in timed:
+        for k, v in harden_launches(n_it).items():
+            predicted[k] = predicted.get(k, 0) + v
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+
+    log(f"harden: HardeningTrainer.train_step at config 4: Monodepth2-"
+        f"{cfg.num_layers} student and teacher from the golden weights, "
+        f"{cfg.selfsup.width}x{cfg.selfsup.height} f32, scales "
+        f"{cfg.selfsup.scales}, frames {cfg.selfsup.frame_ids}, L0 attack "
+        f"steps {cfg.adv.steps} (up to {2 * cfg.adv.steps} iterations) on "
+        f"attack batch {cfg.adv.attack_batch_size}, supervised + "
+        f"contrastive + photometric, batch {B} of {cfg.adv.ori_w}x"
+        f"{cfg.adv.ori_h} frames, car 300x200, Adam lr {cfg.learning_rate}")
+    log(f"  seconds per step {secs:.4f} (host clock around {HARDEN_TIMED} "
+        f"steps after {HARDEN_WARMUP} warm-up, synchronised)")
+    log(f"  max_memory_allocated {peak} B")
+    log(f"  L0 iterations and early break per step {json.dumps(iters)}")
+    log(f"  losses {json.dumps(losses)}")
+    log(f"  launches {json.dumps(launches)}")
+    log(f"  predicted from the code and the iterations "
+        f"{json.dumps(predicted)}")
+    bad = [n for n in HARDEN_KERNELS if launches[n] <= 0]
+    if bad:
+        raise AssertionError(f"kernels never launched in phase 11: {bad}")
+    if {k: launches[k] for k in predicted} != predicted:
+        raise AssertionError("the hardening step's kernels did not launch "
+                             "as predicted")
+    if not all(math.isfinite(v) for m in losses for v in m.values()) or \
+            set(losses[0]) != {"sup_loss", "contras_loss", "selfsup_loss",
+                               "loss"}:
+        raise AssertionError(f"non-finite or missing loss terms: {losses}")
+    end = _head_and_model(state)
+    moved = set(_moved(start, end))
+    params = [f"model.{n}" for n, _ in state.model.named_parameters()] + [
+        f"simsiam.{n}" for n, _ in state.simsiam.named_parameters()]
+    stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
+    still = (set(params) | set(stats)) - moved
+    if still or state.step != HARDEN_WARMUP + HARDEN_TIMED:
+        raise AssertionError(f"not moved: {sorted(still)[:5]}; step "
+                             f"{state.step}")
+    log(f"  moved: all {len(params)} parameters of the student and the "
+        f"SimSiam head and {len(stats)} running statistics; step "
+        f"{state.step}")
+    phase_harden_breakdown(trainer, state, frames, side, flip, scene)
+    del state, trainer
+    torch.cuda.empty_cache()
+    phase_harden_eval(dev, sd, obj, mask)
+    phase_harden_distill(dev, sd, obj, mask)
+    return launches
+
+
+def phase_harden_breakdown(trainer, state, frames, side, flip, scene):
+    """Median CUDA-event ms of the three parts `train_step` runs (3
+    steps), the L0 attack's ms an iteration, then one whole step under
+    the profiler: idle share and device ms by kernel."""
+    cfg = HARDEN_CFG
+    names = ("attack (refresh_texture: the L0 loop)", "synthesis "
+             "(synth_batch: 375x1242 pair and other eye, resize)",
+             "update (_update: student, teacher, benign encode, SimSiam, "
+             "photometric loss, backward, Adam)")
+    times = {n: [] for n in names}
+    per_iter = []
+    for _ in range(3):
+        draws = trainer.draw(cfg.batch_size)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        obj_adv = trainer.refresh_texture(state, scene, draws)
+        ev[1].record()
+        batch = trainer.synth_batch(frames, side, flip, obj_adv, draws)
+        ev[2].record()
+        state, _ = trainer._update(state, batch, draws.identity_noise)
+        ev[3].record()
+        ev[3].synchronize()
+        for i, n in enumerate(names):
+            times[n].append(ev[i].elapsed_time(ev[i + 1]))
+        per_iter.append(ev[0].elapsed_time(ev[1])
+                        / max(trainer.attack.last_iterations, 1))
+    log(f"harden breakdown at batch {cfg.batch_size}, {cfg.selfsup.width}x"
+        f"{cfg.selfsup.height} (median CUDA-event ms of 3):")
+    for n in names:
+        log(f"  {n}: {float(np.median(times[n])):.3f}")
+    log(f"  L0 attack ms an iteration (attack batch "
+        f"{cfg.adv.attack_batch_size}): {float(np.median(per_iter)):.3f}")
+    busy_ms, wall_ms, n, by_name, _ = device_busy(
+        lambda: trainer.train_step(state, frames, side, flip, scene))
+    log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
+        f"ms of {wall_ms:.3f} ms host wall, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
+    for kernel, marks in HARDEN_KERNEL_NAMES.items():
+        k_ms = sum(ms for name, ms in by_name.items()
+                   if any(m in name for m in marks))
+        log(f"  kernel {kernel}: {k_ms:.3f} device ms of the step")
+    log("  device ms of the step by kernel (top 15):")
+    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"    {ms:9.3f}  {k[:110]}")
+
+
+def _l2_with_floor(got, want, floor):
+    """(worst per-tensor, its name, overall) relative L2 error of the
+    tensors of `got` to `want` (dicts), each relative to the larger of
+    its norm and `floor` times the largest tensor norm."""
+    big = max(float(w.double().norm()) for w in want.values())
+    worst, name_, num, den = 0.0, None, 0.0, 0.0
+    for name, w in want.items():
+        w = w.double()
+        err = float((got[name].detach().cpu().double() - w).norm())
+        ref = float(w.norm())
+        if err / max(ref, floor * big) > worst:
+            worst, name_ = err / max(ref, floor * big), name
+        num, den = num + err ** 2, den + ref ** 2
+    return worst, name_, (num / den) ** 0.5
+
+
+def phase_harden_parity(dev) -> None:
+    """One small hardening step (the model at 64x192, 96x320 frames, a
+    24x36 car, batch 4, attack batch 2, L0 steps=2) on the card and on
+    the CPU's plain versions, from the same weights and draws: the L0
+    loop's iteration count and its first iteration's gradients (rtol
+    1e-3, atol 1e-3 of their largest magnitude: Adam turns rounding at
+    near-zero gradients into moves of up to lr, so the trajectories
+    part, as the CPU tests show against JAX); the synthesis from the
+    CPU's texture within 1e-5; then the training half on the CPU's
+    batch: each loss term within 1e-5 relative (contrastive 1e-5
+    absolute), the student's and the head's gradients within
+    HARDEN_GRAD_L2 per tensor and HARDEN_GRAD_L2_ALL overall, parameters
+    within 2.5 lr (on a first Adam step each parameter moves by less
+    than lr on either side, so this rule catches only NaN and infinity).
+    Beside it, the CPU's step against itself with every weight one ulp
+    away: the scale of the rounding the step amplifies."""
+    ss = dataclasses.replace(HARDEN_CFG.selfsup, height=64, width=192)
+    adv = dataclasses.replace(HARDEN_CFG.adv, steps=2, attack_batch_size=2,
+                              ori_h=96, ori_w=320)
+    cfg = dataclasses.replace(HARDEN_CFG, selfsup=ss, adv=adv, batch_size=4,
+                              learning_rate=CONVERGE_LR)
+    _, sd = _golden_weights()
+    obj, mask = make_car_object(36, 24, seed=SEED)
+    frames, side, flip, scene = _harden_inputs(torch.device("cpu"), cfg,
+                                               SEED + 72)
+    cpu_dev = torch.device("cpu")
+    trainers = [_harden_trainer(d, cfg, sd, obj, mask, SEED + 73)
+                for d in (cpu_dev, dev)]
+    draws = trainers[0].draw(cfg.batch_size,
+                             torch.Generator().manual_seed(SEED + 74))
+    draws.identity_noise = torch.randn(
+        (cfg.batch_size, ss.height, ss.width, 1),
+        generator=torch.Generator().manual_seed(SEED + 75))
+    states = [t.make_state() for t in trainers]
+    texs, grads, iters = [], [], []
+    for t, st in zip(trainers, states):
+        texs.append(t.refresh_texture(st, scene.to(t.device), draws).cpu())
+        atk = t.attack
+        iters.append(atk.last_iterations)
+        full = atk._replicate(scene.to(t.device), 2)
+        d = draws.attack
+        _, g = atk.cost_and_grads(full, d.pos.to(t.device),
+                                  d.neg.to(t.device), d.z0s[0], d.alphas[0],
+                                  atk.mask_wt)
+        grads.append([x.cpu() for x in g])
+    g_err = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(grads[1], grads[0]))
+    split = float(((texs[1] - texs[0]).abs() > 1e-4).float().mean())
+    batches = []
+    for t in trainers:
+        to = lambda v: v.to(t.device)
+        batches.append(t.synth_batch({k: to(v) for k, v in frames.items()},
+                                     to(side), to(flip), to(texs[0]), draws))
+    s_err = max(float((batches[1][k].cpu() - batches[0][k]).abs().max())
+                for k in ("color_ben", "objmask"))
+    s_err = max([s_err] + [float((batches[1][g][f].cpu()
+                                  - batches[0][g][f]).abs().max())
+                           for g in ("color", "color_aug")
+                           for f in ("0", "s")])
+    cpu_batch = batches[0]
+    nudged = trainers[0].make_state()
+    nudged.model.load_state_dict(_ulp_nudged(nudged.model.state_dict(),
+                                             SEED + 76))
+    out = []
+    for t, st in zip(trainers + trainers[:1], states + [nudged]):
+        batch = {k: ({f: v.to(t.device) for f, v in x.items()}
+                     if isinstance(x, dict) else x.to(t.device))
+                 for k, x in cpu_batch.items()}
+        st, m = t._update(st, batch, draws.identity_noise.to(t.device))
+        out.append(({k: float(v) for k, v in m.items()}, st))
+    (m_cpu, s_cpu), (m_gpu, s_gpu), (_, s_ulp) = out
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    g_cpu = {n: p.grad for n, p in _named_params(s_cpu)}
+    g_gpu = {n: p.grad for n, p in _named_params(s_gpu)}
+    gw, gw_name, ga = _l2_with_floor(g_gpu, g_cpu, HARDEN_GRAD_FLOOR)
+    uw, uw_name, ua = _l2_with_floor(
+        {n: p.grad for n, p in _named_params(s_ulp)}, g_cpu,
+        HARDEN_GRAD_FLOOR)
+    worst = max(float((p.detach().cpu() - q.detach()).abs().max())
+                for (_, p), (_, q) in zip(_named_params(s_gpu),
+                                          _named_params(s_cpu)))
+    lr = cfg.learning_rate
+    log(f"harden parity: one step at 64x192 batch 4, L0 steps 2 on attack "
+        f"batch 2: iterations card {iters[1]} CPU {iters[0]}, first "
+        f"iteration's gradients {g_err:.3e} of their max, textures split "
+        f"{split:.4%} (logged: the trajectories part); synthesis from the "
+        f"CPU's texture {s_err:.3e}; on the CPU's batch: losses "
+        f"{json.dumps(m_gpu)} vs {json.dumps(m_cpu)} (rel "
+        f"{json.dumps(rel)}), gradient rel L2 {gw:.3e} worst tensor "
+        f"({gw_name}), {ga:.3e} overall, max |param difference| "
+        f"{worst / lr:.3f} lr; the CPU against itself with every weight "
+        f"one ulp away: {uw:.3e} worst tensor ({uw_name}), {ua:.3e} overall")
+    limits = {"L0 iterations": (abs(iters[0] - iters[1]), 0),
+              "first iteration's gradients": (g_err, 1e-3),
+              "synthesis": (s_err, 1e-5),
+              "contrastive loss": (abs(m_gpu["contras_loss"]
+                                       - m_cpu["contras_loss"]), 1e-5),
+              "gradient, worst tensor": (gw, HARDEN_GRAD_L2),
+              "gradient, overall": (ga, HARDEN_GRAD_L2_ALL),
+              "parameters": (worst, 2.5 * lr)}
+    limits.update({f"{k} (rel)": (rel[k], 1e-5) for k in rel
+                   if k != "contras_loss"})
+    bad = {k: v for k, (v, lim) in limits.items() if not v <= lim}
+    if bad:
+        raise AssertionError(f"the card's hardening step disagrees with the "
+                             f"plain versions on the CPU: {bad}")
+
+
+def _ulp_nudged(sd, seed):
+    """`sd` with every float moved one ulp up or down at random."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in sd.items():
+        if v.is_floating_point():
+            up = torch.randint(0, 2, v.shape, generator=gen).bool()
+            v = torch.nextafter(v, torch.where(up, math.inf, -math.inf))
+        out[k] = v
+    return out
+
+
+def _named_params(state):
+    return [(f"model.{n}", p) for n, p in state.model.named_parameters()] + [
+        (f"simsiam.{n}", p) for n, p in state.simsiam.named_parameters()]
+
+
+def phase_harden_eval(dev, sd, obj, mask) -> None:
+    """One untimed L0 attack-eval batch (`eval-attacks`' default norm)
+    through build_attack + evaluate_attacks, batch 12, 10 steps."""
+    cfg = AttackEvalConfig(norm_type="l_0", step=10, batch_size=12,
+                           eval_count=1)
+    model = make_monodepth2()
+    model.load_state_dict(sd)
+    predictor = predictor_from(model.to(dev))
+    attack = build_attack(cfg, predictor, obj, mask)
+    scenes = make_scene(cfg.batch_size, cfg.ori_h, cfg.ori_w, seed=SEED + 80)
+    t0 = time.perf_counter()
+    res = evaluate_attacks(predictor, attack, [scenes], cfg,
+                           generator=torch.Generator().manual_seed(SEED + 81))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"L0 eval: build_attack(l_0) + evaluate_attacks, batch "
+        f"{cfg.batch_size}, {cfg.step} steps: {attack.last_iterations} "
+        f"iterations, early break {attack.last_early_break}, {secs:.4f} s "
+        f"(untimed batch, host clock), metrics mean "
+        f"{json.dumps(res['mean'])}")
+    vals = list(res["mean"].values()) + list(res["max"].values())
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"non-finite L0 eval metrics: {res}")
+
+
+def phase_harden_distill(dev, sd, obj, mask) -> None:
+    """One untimed distillation step with adv_type "object_l0" (config
+    3b) at batch 32."""
+    cfg = DistillConfig(adv_type="object_l0", batch_size=32)
+    trainer = _distill_trainer(dev, cfg, sd, obj, mask, SEED + 82)
+    scenes = torch.from_numpy(make_scene(cfg.batch_size, cfg.ori_h,
+                                         cfg.ori_w, seed=SEED + 83)).to(dev)
+    state = trainer.make_state()
+    t0 = time.perf_counter()
+    state, m = trainer.train_step(state, scenes)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"L0 distill: DistillTrainer.train_step, adv_type object_l0, batch "
+        f"{cfg.batch_size}: {trainer.attack.last_iterations} iterations, "
+        f"early break {trainer.attack.last_early_break}, loss "
+        f"{float(m['loss']):.6e}, {secs:.4f} s (untimed step, host clock)")
+    if not math.isfinite(float(m["loss"])) or state.step != 1:
+        raise AssertionError("the L0 distillation step failed")
+
+
 def main() -> int:
-    dev = phase_device()
-    phase_build()
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[{name}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
+    dev = timed("phase 1", phase_device)
+    timed("phase 2", phase_build)
     log("kernels vs plain versions:")
-    rows = phase_kernels(dev)
-    phase_golden(dev)
-    launches, attack, predictor, scenes = phase_slice(dev)
-    phase_cost(attack, scenes)
-    phase_breakdown(attack, predictor, scenes, rows)
-    phase_idle(attack, scenes)
+    rows = timed("phase 3", phase_kernels, dev)
+    timed("phase 4", phase_golden, dev)
+    launches, attack, predictor, scenes = timed("phase 5", phase_slice, dev)
+    timed("phase 6", lambda: (phase_cost(attack, scenes), phase_breakdown(
+        attack, predictor, scenes, rows)))
+    timed("phase 7", phase_idle, attack, scenes)
     del attack, predictor, scenes
     torch.cuda.empty_cache()
-    train_launches = phase_train(dev)
+    train_launches = timed("phase 8", phase_train, dev)
     torch.cuda.empty_cache()
-    distill_launches = phase_distill(dev)
+    distill_launches = timed("phase 9", phase_distill, dev)
     torch.cuda.empty_cache()
-    bench_launches = phase_bench(dev)
+    bench_launches = timed("phase 10", phase_bench, dev)
+    torch.cuda.empty_cache()
+    harden = timed("phase 11", phase_harden, dev)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
-                         + distill_launches[name] + bench_launches[name])
+                         + distill_launches[name] + bench_launches[name]
+                         + harden[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "host_ms",

@@ -28,7 +28,7 @@ full-frame objective and `exact_composite` are never affected.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -212,14 +212,19 @@ class PhysObjAttack:
                 ch if ch is not None and ch < cfg.scene_h else None)
 
     def _objective(self, scenes_full, obj_adv, z0s, alphas,
-                   scenes_model=None, fine: bool = False):
+                   scenes_model=None, fine: bool = False,
+                   transform: Optional[Callable] = None):
         """The inner-loop cost: EoT view + targeted masked-disparity MSE.
         With the cropped objective on the tiled warp (JAX `_objective`'s
         fused route) the view is `_model_view_cropped`, in the view
         dtype; else the full-frame view in float32, cropped afterwards
-        when the crop is on. `fine`: read disp0 whatever attack_scale."""
+        when the crop is on. `fine`: read disp0 whatever attack_scale.
+        `transform` (the L0 attack's colour jitter) maps the full-frame
+        composites before the model sees them; it forces the full-frame
+        path (JAX `attacks/base.py:255-286`), because the jitter's
+        contrast term reads the whole image's mean."""
         cw, ch = self._crop_window()
-        if (cw is not None or ch is not None) and \
+        if (cw is not None or ch is not None) and transform is None and \
                 not self.cfg.exact_composite:
             adv, masks, scale = self._model_view_cropped(
                 scenes_full, obj_adv, z0s, alphas, cw or self.cfg.scene_w,
@@ -227,6 +232,8 @@ class PhysObjAttack:
             return self._cost_tail(adv, masks, scale, fine)
         adv_scenes, masks = self._model_view(scenes_full, obj_adv, z0s,
                                              alphas, scenes_model)
+        if transform is not None:
+            adv_scenes = transform(adv_scenes)
         return self._targeted_cost(adv_scenes, masks, fine)
 
     def _model_view_cropped(self, scenes_full, obj_adv, z0s, alphas,

@@ -41,17 +41,22 @@
 // their latency (64-bit index division, nine guarded 2-byte loads an
 // output, float32 staging), not by memory. So both work on bf16 pairs:
 // bf16 -> float32 is exact and a max returns one of its inputs, so
-// __hmax2 on __nv_bfloat162 gives the bits today's float32 fmaxf gave,
+// __hmax2_nan on __nv_bfloat162 gives the bits the float32 max gives,
 // and an equality test of bf16 values (__heq2_mask) is the float32 one.
-// NaN is outside what either kernel is held to: both maxes drop a NaN
-// and keep the other input, as fmaxf does. __hmax2 ranks +0 above -0;
-// the stem's relu outputs hold +0 only.
+// Every max of the four kernels keeps a NaN, as jnp.maximum and the
+// plain version's amax do (a NaN in a window makes the window's max
+// NaN, so a run that diverges shows it): float32 by max.NaN (max_nan),
+// bf16 pairs by __hmax2_nan. No input equals a
+// NaN max, so in both backwards a window whose max is NaN routes its
+// cotangent nowhere, and a NaN input receives nothing, as in the plain
+// version. +0 against -0 is as the max instructions rank them; the
+// stem's relu outputs hold +0 only.
 //
 // pool_fwd_bf16 runs row strips: a thread owns kFwdRows output rows of
 // kFwdCols = 8 columns (one 16-byte store each). It reads the 2 kFwdRows +
 // 1 input rows under them with two 16-byte loads a row, takes the column
 // max over each window's 3 rows, then the max of columns (2j - 1, 2j, 2j
-// + 1) from bf16 pairs (__byte_perm + __hmax2); the column left of its 16
+// + 1) from bf16 pairs (__byte_perm + __hmax2_nan); the column left of its 16
 // comes from the neighbouring lane (__shfl_up_sync), or from memory at a
 // warp's first lane. kFwdRows = 1: 2 and 4 rows, which read a row shared
 // by two windows once, were slower (kernel_variants.py B). Indices are
@@ -117,6 +122,16 @@ constexpr int kBY = 16, kBX = 64;  // windows per backward block
 constexpr int kXR = 2 * kBY + 3;   // staged rows: 2 oy0 - 1 .. 2 (oy0 + kBY) + 1
 constexpr int kXC = 2 * kBX + 8;   // staged columns: 2 ox0 - 4 .. 2 (ox0 + kBX) + 3
 
+// max(a, b), NaN if either is (fmaxf returns the other input): PTX's
+// max.NaN (sm_80 and later), one instruction. The explicit tests a != a
+// ? a : (b != b ? b : fmaxf(a, b)) cost B1 15% (0.1571 against 0.1365 ms
+// at the attack's stem on an H100).
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 template <typename E>
 __device__ __forceinline__ float window_max(const E* __restrict__ p,
                                             int H, int W, int oy, int ox) {
@@ -127,7 +142,7 @@ __device__ __forceinline__ float window_max(const E* __restrict__ p,
     for (int dx = -1; dx <= 1; ++dx) {
       const int w = 2 * ox + dx;
       if (w < 0 || w >= W) continue;
-      m = fmaxf(m, to_f32(p[(long long)h * W + w]));
+      m = max_nan(m, to_f32(p[(long long)h * W + w]));
     }
   }
   return m;
@@ -199,7 +214,7 @@ pool_bwd(const E* __restrict__ x, const E* __restrict__ g,
     if (oy0 + wy < Ho && ox0 + wx < Wo) {
       for (int dy = 0; dy < 3; ++dy)
         for (int dxx = 0; dxx < 3; ++dxx)
-          m = fmaxf(m, sx[2 * wy + dy][2 * wx + 3 + dxx]);
+          m = max_nan(m, sx[2 * wy + dy][2 * wx + 3 + dxx]);
     }
     smax[wy][wx] = m;
   }
@@ -282,8 +297,8 @@ using bf162 = __nv_bfloat162;
 constexpr uint32_t kNegInf2 = 0xff80ff80u;  // (-inf, -inf)
 
 __device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
-  const bf162 m = __hmax2(*reinterpret_cast<const bf162*>(&a),
-                          *reinterpret_cast<const bf162*>(&b));
+  const bf162 m = __hmax2_nan(*reinterpret_cast<const bf162*>(&a),
+                              *reinterpret_cast<const bf162*>(&b));
   return *reinterpret_cast<const uint32_t*>(&m);
 }
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..attacks.base import PhysObjAttackConfig
+from ..attacks.l0_object import L0_EVAL_PIN_Z0, L0ObjectAttack
 from ..attacks.pgd_object import PGDObjectAttack
 from ..ops.metrics import compute_errors_masked, scaled_clamped_depth
 from ..physics.eot import VEHICLE_SIZES
@@ -33,7 +34,6 @@ METRIC_NAMES = ("abs_err", "abs_rel", "sq_rel", "rmse", "rmse_log",
 # ROADMAP item that brings each
 _SLICE6 = "Queue 1, slice 6 (the other attacks and evaluations)"
 _LATER = {
-    "l_0": "Queue 1, slice 4 (L0 attack)",
     "image": _SLICE6,
     "l_2": _SLICE6,
     "arbi": _SLICE6,
@@ -49,12 +49,15 @@ _LATER = {
 @dataclasses.dataclass(frozen=True)
 class AttackEvalConfig:
     """The fields of the reference's eval attack-args dicts
-    (evaluate_depth.py:403-517) that the L-inf path reads."""
+    (evaluate_depth.py:403-517) that the L-inf and L0 paths read."""
 
     norm_type: str = "l_inf"
     epsilon: float = 0.1
     alpha: float = 0.005
     step: int = 10
+    adam_lr: float = 0.5  # the L0 attack's (evaluate_depth.py:463-467)
+    mask_wt: float = 0.05
+    l0_thresh: float = 0.1
     batch_size: int = 12
     eval_count: int = 10
     start_idx: int = 42  # evaluate_depth.py:160
@@ -72,7 +75,7 @@ def build_attack(cfg: AttackEvalConfig, predictor, obj_img, obj_mask):
     if nt in _LATER:
         raise NotImplementedError(
             f"norm_type {nt!r} is not ported yet: ROADMAP {_LATER[nt]}")
-    if nt != "l_inf":
+    if nt not in ("l_inf", "l_0"):
         raise ValueError(f"unknown norm_type {nt}")
     oh, ow = obj_img.shape[1:3]
     veh_h, veh_w = VEHICLE_SIZES[next(
@@ -80,7 +83,11 @@ def build_attack(cfg: AttackEvalConfig, predictor, obj_img, obj_mask):
     base = PhysObjAttackConfig(
         obj_h=oh, obj_w=ow, scene_h=cfg.scene_h, scene_w=cfg.scene_w,
         ori_h=cfg.ori_h, ori_w=cfg.ori_w, veh_h=veh_h, veh_w=veh_w,
-        eval_pin_z0=7.0)
+        eval_pin_z0=L0_EVAL_PIN_Z0 if nt == "l_0" else 7.0)
+    if nt == "l_0":
+        return L0ObjectAttack(predictor, obj_img, obj_mask, base,
+                              adam_lr=cfg.adam_lr, steps=cfg.step,
+                              mask_wt=cfg.mask_wt, l0_thresh=cfg.l0_thresh)
     return PGDObjectAttack(predictor, obj_img, obj_mask, base,
                            eps=cfg.epsilon, alpha=cfg.alpha, steps=cfg.step)
 

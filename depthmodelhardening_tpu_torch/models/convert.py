@@ -8,6 +8,10 @@
     `from_jax_train_state` takes the JAX trainer's collections
     ({"params": {"depth": ...}, "batch_stats": {"depth": ...}});
     `from_jax_distill_state` a JAX `DistillState` with its Adam moments.
+    A JAX `HardeningTrainer`'s contrastive head, the `simsiam`
+    collection, converts with `from_jax_simsiam` (Dense kernels
+    transposed; BatchNorm scale/bias/mean/var); `from_jax_hardening_state`
+    takes the whole JAX trainer state: student, head, Adam moments, step.
 (b) `load_reference_state_dict`: the reference checkpoints'
     `encoder.pth` / `depth.pth` key layout ("encoder."-prefixed
     torchvision trunk with fc head and metadata keys; "decoder.<idx>"
@@ -105,23 +109,73 @@ def from_jax_train_state(variables: Mapping,
          "batch_stats": variables["batch_stats"]["depth"]}, scales)
 
 
+def from_jax_simsiam(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax SimSiam variables {"params": {...}, "batch_stats": {...}} (or
+    a tree of gradients, {"params": grads}) -> the state dict of the
+    port's `models/simsiam.py:SimSiam`: module names as flax's, Dense
+    kernels (in, out) -> Linear weights (out, in), BatchNorm scale ->
+    weight."""
+    sd: Dict[str, torch.Tensor] = {}
+    for (mod, leaf), v in _flatten(variables["params"]).items():
+        if leaf == "kernel":
+            sd[f"{mod}.weight"] = _t(np.asarray(v).T)
+        else:
+            sd[f"{mod}.{'weight' if leaf == 'scale' else leaf}"] = _t(v)
+    for (mod, leaf), v in _flatten(variables.get("batch_stats", {})).items():
+        sd[f"{mod}.running_{leaf}"] = _t(v)
+        sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def _adam_state(adam, mu: Mapping, nu: Mapping):
+    """optax's moments (converted) -> {parameter name: torch.optim.Adam
+    state}. optax keeps one step count for all parameters, torch one per
+    parameter: each gets the count."""
+    count = torch.tensor(float(np.asarray(adam.count)))
+    return {name: {"step": count.clone(), "exp_avg": mu[name],
+                   "exp_avg_sq": nu[name]} for name in mu}
+
+
+def from_jax_hardening_state(state, scales: Sequence[int] = (0, 1, 2, 3)
+                             ) -> Dict[str, object]:
+    """A JAX `HardeningTrainer` state (params and batch_stats keyed by
+    collection, "depth" and, with the contrastive branch, "simsiam";
+    `optax.adam`'s opt_state; step; arrays or numpy) -> {"model": the
+    student's state dict, "simsiam": the head's (or None), "adam":
+    {"model": {parameter name: torch.optim.Adam state}, "simsiam":
+    {...}}, "step": int}, for `HardeningTrainer.make_state(resume=...)`."""
+    adam = state.opt_state[0]  # optax.adam = chain(scale_by_adam, lr)
+    out = {"model": from_jax_variables(
+        {"params": state.params["depth"],
+         "batch_stats": state.batch_stats["depth"]}, scales),
+        "simsiam": None, "adam": {}, "step": int(np.asarray(state.step))}
+    out["adam"]["model"] = _adam_state(
+        adam, from_jax_variables({"params": adam.mu["depth"]}, scales),
+        from_jax_variables({"params": adam.nu["depth"]}, scales))
+    if "simsiam" in state.params:
+        out["simsiam"] = from_jax_simsiam(
+            {"params": state.params["simsiam"],
+             "batch_stats": state.batch_stats["simsiam"]})
+        out["adam"]["simsiam"] = _adam_state(
+            adam, from_jax_simsiam({"params": adam.mu["simsiam"]}),
+            from_jax_simsiam({"params": adam.nu["simsiam"]}))
+    return out
+
+
 def from_jax_distill_state(state, scales: Sequence[int] = (0, 1, 2, 3)
                            ) -> Dict[str, object]:
     """A JAX `DistillState` (params, batch_stats, `optax.adam`'s opt_state
     and step; arrays or numpy) -> {"model": the port's state dict,
     "adam": {parameter name: torch.optim.Adam state}, "step": int}, for
-    `DistillTrainer.make_state(resume=...)`. optax keeps one step count
-    for all parameters, torch one per parameter: each gets the count."""
+    `DistillTrainer.make_state(resume=...)`."""
     adam = state.opt_state[0]  # optax.adam = chain(scale_by_adam, lr)
-    count = torch.tensor(float(np.asarray(adam.count)))
-    mu = from_jax_variables({"params": adam.mu}, scales)
-    nu = from_jax_variables({"params": adam.nu}, scales)
     return {
         "model": from_jax_variables({"params": state.params,
                                      "batch_stats": state.batch_stats},
                                     scales),
-        "adam": {name: {"step": count.clone(), "exp_avg": mu[name],
-                        "exp_avg_sq": nu[name]} for name in mu},
+        "adam": _adam_state(
+            adam, from_jax_variables({"params": adam.mu}, scales),
+            from_jax_variables({"params": adam.nu}, scales)),
         "step": int(np.asarray(state.step)),
     }
 

@@ -65,6 +65,13 @@ class MonodepthModel(nn.Module):
                                 self.fold_bn)
         return features, self.decoder(features, scales, self.dtype)
 
+    def encode(self, images):
+        """The encoder's features (NCHW, shallow to deep) of images (B, H,
+        W, 3), in the model's mode: the contrastive branch's benign view
+        (JAX `MonodepthModel.encode`)."""
+        return self.encoder(images.permute(0, 3, 1, 2), self.dtype,
+                            self.fold_bn)
+
     def forward(self, images, head: int = 0):
         """disp at scale `head` (B, H / 2^head, W / 2^head, 1); no other
         head is evaluated."""

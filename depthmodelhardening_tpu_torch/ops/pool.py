@@ -11,6 +11,11 @@ window's full cotangent, so ties duplicate it (autograd of a max picks
 one winner instead). Behind a relu every tied zero has zero cotangent,
 so the model's input gradient is the same under either rule.
 
+A NaN is kept, as `jnp.maximum` keeps it: a window that holds one has a
+NaN max, no input equals it, so the backward routes that window's
+cotangent nowhere (and a NaN input receives nothing). The kernels do the
+same.
+
 On a CUDA tensor both directions launch the kernels of
 `csrc/maxpool3x3s2.cu`; on a CPU tensor they run the plain version
 below (unfold-and-max forward, the same equality-routed backward,

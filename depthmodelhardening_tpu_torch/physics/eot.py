@@ -96,15 +96,18 @@ def quad_corners_world(z0, alpha_deg, veh_w: float = VEH_W,
 
 def project_corners(world, P, eps: float = 1e-7):
     """(B, 4, 3) corners -> (B, 4, 2) pixel coords truncated toward zero
-    (the reference's astype(np.int32), physicalTrans.py:75/186).
+    (the reference's astype(np.int32), physicalTrans.py:75/186). P: (3,
+    4), or (B, 3, 4) per sample.
 
     The 4-term dot products are summed pairwise, (x p0 + y p1) +
     (z p2 + p3): that is the float32 rounding of the JAX package's
     projection on CPU, so a corner that lands within an ulp of an
     integer truncates the same way (a library matmul's order moves
     the tile offsets by a pixel there)."""
-    t = world[..., None, :] * P[:, :3]  # (B, 4, 3 rows of P, xyz)
-    cam = (t[..., 0] + t[..., 1]) + (t[..., 2] + P[:, 3])
+    if P.dim() == 3:
+        P = P[:, None]  # (B, 1, 3, 4): one P per sample, its 4 corners
+    t = world[..., None, :] * P[..., :3]  # (B, 4, 3 rows of P, xyz)
+    cam = (t[..., 0] + t[..., 1]) + (t[..., 2] + P[..., 3])
     pix = cam[..., :2] / (cam[..., 2:3] + eps)
     return torch.trunc(pix)
 
@@ -148,14 +151,15 @@ def _adjugate3(M):
     ], 1)
 
 
-def _matmul3(X, Y):
-    """(B, 3, 3) float32 X @ Y, accumulated as the JAX package's CPU dot
-    does: the first product, then two fused multiply-adds (each product
-    is exact in float64, each step rounds once to float32)."""
-    acc = X[:, :, 0, None] * Y[:, None, 0, :]
-    for k in (1, 2):
-        acc = (acc.double() + X[:, :, k, None].double()
-               * Y[:, None, k, :].double()).float()
+def _matmul_xla(X, Y):
+    """(..., n, k) @ (..., k, m) in float32, accumulated as the JAX
+    package's CPU dot does: the first product, then a fused multiply-add
+    for each further term (each product is exact in float64, each step
+    rounds once to float32)."""
+    acc = X[..., :, 0, None] * Y[..., None, 0, :]
+    for k in range(1, X.shape[-1]):
+        acc = (acc.double() + X[..., :, k, None].double()
+               * Y[..., None, k, :].double()).float()
     return acc
 
 
@@ -166,7 +170,8 @@ def solve_homography(endpoints, startpoints):
     startpoints (4, 2) or (B, 4, 2)."""
     e = endpoints.to(_F32)
     s = startpoints.to(_F32).expand_as(e)
-    H = _matmul3(_unit_square_to_quad(s), _adjugate3(_unit_square_to_quad(e)))
+    H = _matmul_xla(_unit_square_to_quad(s),
+                    _adjugate3(_unit_square_to_quad(e)))
     H = H / H[:, 2:3, 2:3]
     return H.reshape(-1, 9)[:, :8]
 
@@ -234,15 +239,27 @@ class EoTCompositor:
         self.P = torch.from_numpy(cfg.resolved_projection())
 
     # -- geometry (CPU, float32) ------------------------------------------------
-    def corners(self, z0s, alphas):
-        """(B, 4, 2) integer-truncated projected corners."""
-        world = quad_corners_world(_cpu_f32(z0s), _cpu_f32(alphas),
-                                   self.cfg.veh_w, self.cfg.veh_h,
-                                   self.cfg.cam_h)
-        return project_corners(world, self.P, self.cfg.proj_eps)
+    def corners(self, z0s, alphas, T=None):
+        """(B, 4, 2) integer-truncated projected corners. T: an optional
+        extrinsic applied before the projection, (4, 4) or (B, 4, 4) per
+        sample (physicalTrans.py:168-196, the other stereo eye): the
+        projection becomes (P4 @ T)[:3], P4 = P with the row (0, 0, 0,
+        1), summed as the JAX package's CPU dot sums it (JAX
+        `physics/eot.py:388-403`)."""
+        z0s = _cpu_f32(z0s)
+        world = quad_corners_world(z0s, _cpu_f32(alphas), self.cfg.veh_w,
+                                   self.cfg.veh_h, self.cfg.cam_h)
+        P = self.P
+        if T is not None:
+            T = torch.as_tensor(T, dtype=_F32).cpu()
+            P4 = torch.cat([P, torch.tensor([[0.0, 0.0, 0.0, 1.0]])])
+            P = _matmul_xla(P4, T)[..., :3, :]
+            if P.dim() == 2:
+                P = P.expand(z0s.shape[0], 3, 4)
+        return project_corners(world, P, self.cfg.proj_eps)
 
     def _separable_geometry(self, z0s, alphas, model_h: int, model_w: int,
-                            tile_h: int, tile_w: int):
+                            tile_h: int, tile_w: int, T=None):
         """Per-sample separable warp parameters at model resolution:
         (sx (B, TW), A (B, TW), B (B, TW), y0 (B,), x0 (B,)).
 
@@ -250,10 +267,11 @@ class EoTCompositor:
           sx(x) = (a X + c) / (g X + 1),  sy(x, y) = A(x) y + B(x),
           A = e / (g X + 1), X the global output column.
         (y0, x0) is the tile's integer-valued offset in the model frame.
+        T: the extrinsic of `corners`.
         """
         sx_f = model_w / self.cfg.scene_w
         sy_f = model_h / self.cfg.scene_h
-        ep = self.corners(z0s, alphas)
+        ep = self.corners(z0s, alphas, T)
         # the torch half-pixel resize folded into the endpoints
         ep_m = torch.stack([(ep[..., 0] + 0.5) * sx_f - 0.5,
                             (ep[..., 1] + 0.5) * sy_f - 0.5], -1)
@@ -300,11 +318,11 @@ class EoTCompositor:
 
     def tiles_separable(self, textures: Sequence[torch.Tensor], mask,
                         z0s, alphas, model_h: int, model_w: int,
-                        tile_h: int, tile_w: int, dtype=_F32):
+                        tile_h: int, tile_w: int, dtype=_F32, T=None):
         """Warp textures + mask (channel-stacked, mask last) into
         (B, tile_h, tile_w, sum(C) + 1) tiles of `dtype`; returns (tiles,
         y0s, x0s) with integer tile offsets (lists of ints) in the model
-        frame.
+        frame. T: the extrinsic of `corners`.
 
         A view dtype other than float32 (JAX `tiles_separable`,
         eot.py:535-590) rounds pass 1's weights and inputs to it and
@@ -315,7 +333,7 @@ class EoTCompositor:
         oh, ow = self.cfg.obj_h, self.cfg.obj_w
         dev = textures[0].device
         sx, A, B, y0, x0 = self._separable_geometry(
-            z0s, alphas, model_h, model_w, tile_h, tile_w)
+            z0s, alphas, model_h, model_w, tile_h, tile_w, T)
         sx, A, B = sx.to(dev), A.to(dev), B.to(dev)
 
         # pass 1 (horizontal): wx[b, j, x] = tri(sx[b, x] - j); the zero
@@ -342,14 +360,14 @@ class EoTCompositor:
 
     def _tiled_separable(self, scenes_model, textures, mask, z0s, alphas,
                          model_h: int, model_w: int, tile_h: int,
-                         tile_w: int) -> Tuple[List[torch.Tensor],
-                                               torch.Tensor]:
+                         tile_w: int, T=None) -> Tuple[List[torch.Tensor],
+                                                       torch.Tensor]:
         """tiles_separable in the scenes' dtype + per-sample paste into
         the model-resolution scenes. Returns ([composite per texture],
         mask_full)."""
         tiles, y0s, x0s = self.tiles_separable(
             textures, mask, z0s, alphas, model_h, model_w, tile_h, tile_w,
-            dtype=scenes_model.dtype)
+            dtype=scenes_model.dtype, T=T)
         return self.paste_tiles(scenes_model, tiles, y0s, x0s,
                                 [t.shape[-1] for t in textures])
 
@@ -377,22 +395,33 @@ class EoTCompositor:
 
     def composite_tiled_pair(self, scenes_model, obj_a, obj_b, mask, z0s,
                              alphas, model_h: int, model_w: int,
-                             tile_h: int = 256, tile_w: int = 256):
-        """Two textures against the same scenes, mask and EoT samples in
-        one warp -> (comp_a, comp_b, mask)."""
+                             tile_h: int = 256, tile_w: int = 256, T=None):
+        """Two textures against the same scenes, mask, EoT samples and
+        extrinsic T (of `corners`) in one warp -> (comp_a, comp_b,
+        mask)."""
         comps, mask_full = self._tiled_separable(
             scenes_model, (obj_a, obj_b), mask, z0s, alphas, model_h,
-            model_w, tile_h, tile_w)
+            model_w, tile_h, tile_w, T)
         return comps[0], comps[1], mask_full
 
     def composite_tiled_model(self, scenes_model, obj, mask, z0s, alphas,
                               model_h: int, model_w: int, tile_h: int = 256,
-                              tile_w: int = 256):
+                              tile_w: int = 256, T=None):
         """Warp + composite at model resolution inside a tile around the
         quad, through the exact separable warp; scenes_model
-        (B, model_h, model_w, 3) is the resized scene batch. Returns
-        (adv_model, mask_model), both full frame."""
+        (B, model_h, model_w, 3) is the resized scene batch; T: the
+        extrinsic of `corners`. Returns (adv_model, mask_model), both
+        full frame."""
         comps, mask_full = self._tiled_separable(
             scenes_model, (obj,), mask, z0s, alphas, model_h, model_w,
-            tile_h, tile_w)
+            tile_h, tile_w, T)
         return comps[0], mask_full
+
+
+def stereo_T(baseline: float = 0.54, side: str = "l") -> np.ndarray:
+    """The stereo extrinsic of the other eye's placement
+    (mono_dataset.py:112-117): an x-translation of -baseline for the left
+    side, +baseline for the right."""
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = (-1.0 if side == "l" else 1.0) * baseline
+    return T

@@ -11,10 +11,12 @@ JAX benchmark's configuration, `bench.py:81-115`), the eval-clone
 BatchNorm fold `fold_bn` (default on, as in JAX), and the attack's
 `attack_scale` (0, 1 or 2), `attack_scale_fine_steps` and
 `attack_view_dtype`, which the attack's own config checks
-(`attacks/base.py:PhysObjAttackConfig`). It leaves out the options that
-only unported code reads (`adam_lr`, `mask_wt`, `l0_thresh`: the L0
-attack; `epochs`, `obj_name`: the CLI). `HardeningConfig` trains in
-float32 only: its bfloat16 compute dtype is ROADMAP Queue 1, slice 5.
+(`attacks/base.py:PhysObjAttackConfig`), and the L0 attack's `adam_lr`,
+`mask_wt` and `l0_thresh` (`adv_type="object_l0"`). It leaves out the
+options that only unported code reads (`epochs`, `obj_name`: the CLI).
+`HardeningConfig` carries `fold_bn` (the attack's eval view of the
+student) and trains in float32 only: its bfloat16 compute dtype is
+ROADMAP Queue 1, slice 5e.
 """
 
 from __future__ import annotations
@@ -119,13 +121,16 @@ class HardeningConfig:
     model_family: str = "monodepth2"
     manydepth_num_depth_bins: int = 96
     manydepth_real_lookup: bool = False
+    # fold eval-mode BatchNorm into the convs of the attack's view of the
+    # student (exact algebra); the student's training passes never fold
+    fold_bn: bool = True
 
     def __post_init__(self):
         if self.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the hardening "
                 "trainer runs in float32 only; its bfloat16 path is not "
-                "ported yet (ROADMAP Queue 1, slice 5)")
+                "ported yet (ROADMAP Queue 1, slice 5e)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +142,9 @@ class DistillConfig:
     epsilon: float = 0.1
     alpha: float = 0.005
     steps: int = 10
+    adam_lr: float = 0.5  # the L0 attack's (adv_type "object_l0")
+    mask_wt: float = 0.05
+    l0_thresh: float = 0.1
     batch_size: int = 16
     learning_rate: float = 1e-4  # simple_adv_training.py:115
     # the student's and its attack views' compute dtype: "float32" or

@@ -6,7 +6,7 @@ simple_adv_training.py:126-141):
 
   1. attack the student's current weights, in eval mode (BatchNorm
      running statistics) and with no weight gradients, with the L-inf
-     PGD object attack; the finals are the training-time ones
+     PGD object attack (or the L0 attack); the finals are the training-time ones
      (`eval_mode=False`: no pinned sample, the tiled pair warp);
   2. the frozen teacher's disp0 on the benign composites, with no
      gradient, is the pseudo ground truth;
@@ -33,9 +33,9 @@ teacher is the caller's: in `bench.py`'s configuration a bf16, folded
 
 The state is a model and its optimizer, updated in place; `train_step`
 also returns it. Random draws come from a CPU `torch.Generator` or are
-injected as `PGDDraws`. Unported: `adv_type="image"` (slice 6) and
-`"object_l0"` (slice 4) and the eval's logger images (slice 7) raise
-NotImplementedError.
+injected as `PGDDraws` (`L0Draws` for `adv_type="object_l0"`, the L0
+attack: BASELINE config 3b). Unported: `adv_type="image"` (slice 6) and
+the eval's logger images (slice 7) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..attacks.base import PhysObjAttackConfig
+from ..attacks.l0_object import L0_EVAL_PIN_Z0, L0ObjectAttack
 from ..attacks.pgd_object import PGDObjectAttack
 from ..device import resolve_device
 from ..models.wrappers import EvalView, init_monodepth2, make_monodepth2
@@ -59,30 +60,36 @@ DistillState = TrainState
 
 _LATER = {
     "image": "ROADMAP Queue 1, slice 6 (the other attacks)",
-    "object_l0": "ROADMAP Queue 1, slice 4 (L0 attack and L0 distill)",
 }
 
 
 def build_attack(cfg: DistillConfig, predictor, obj_img, obj_mask):
     """get_atk_model (simple_adv_training.py:38-56) for adv_type
-    "object": L-inf PGD on the object texture, eval sample pinned at
-    7 m."""
+    "object" (L-inf PGD on the object texture, eval sample pinned at
+    7 m) and "object_l0" (the L0 attack, pinned at 6.1 m: BASELINE
+    config 3b)."""
     if cfg.adv_type in _LATER:
         raise NotImplementedError(f"adv_type={cfg.adv_type!r} is not "
                                   f"ported yet ({_LATER[cfg.adv_type]})")
-    if cfg.adv_type != "object":
+    if cfg.adv_type not in ("object", "object_l0"):
         raise ValueError(f"unknown adv_type {cfg.adv_type}")
+    l0 = cfg.adv_type == "object_l0"
     oh, ow = np.shape(obj_img)[1:3]
     atk_cfg = PhysObjAttackConfig(
         obj_h=oh, obj_w=ow,
         dist_range=tuple(float(x) for x in EVAL_DIST_RANGE),
         scene_h=cfg.scene_h, scene_w=cfg.scene_w,
-        ori_h=cfg.ori_h, ori_w=cfg.ori_w, eval_pin_z0=7.0,
+        ori_h=cfg.ori_h, ori_w=cfg.ori_w,
+        eval_pin_z0=L0_EVAL_PIN_Z0 if l0 else 7.0,
         tile_h=cfg.tile_h, tile_w=cfg.tile_w,
         attack_crop_w=cfg.attack_crop_w, attack_crop_h=cfg.attack_crop_h,
         attack_scale=cfg.attack_scale,
         attack_scale_fine_steps=cfg.attack_scale_fine_steps,
         attack_view_dtype=cfg.attack_view_dtype)
+    if l0:
+        return L0ObjectAttack(predictor, obj_img, obj_mask, atk_cfg,
+                              adam_lr=cfg.adam_lr, steps=cfg.steps,
+                              mask_wt=cfg.mask_wt, l0_thresh=cfg.l0_thresh)
     return PGDObjectAttack(predictor, obj_img, obj_mask, atk_cfg,
                            eps=cfg.epsilon, alpha=cfg.alpha, steps=cfg.steps)
 
@@ -152,7 +159,7 @@ class DistillTrainer:
         """The student's weights and BatchNorm statistics (a state dict)."""
         return state.model.state_dict()
 
-    def attack_student(self, state: DistillState) -> PGDObjectAttack:
+    def attack_student(self, state: DistillState):
         """The attack, aimed at `state`'s student as it is now."""
         self.student_view.model = state.model
         if self.scale_view is not None:
@@ -189,7 +196,7 @@ class DistillTrainer:
         """One distillation step on a scene batch (batch_size, ori_h,
         ori_w, 3) (or one scene, replicated). The attack's draws come
         from `generator` (default: the trainer's) unless `draws`
-        (`PGDDraws`) are given. Returns (state, {"loss"})."""
+        (`PGDDraws`, or `L0Draws` for "object_l0") are given. Returns (state, {"loss"})."""
         B = self.cfg.batch_size
         scenes = torch.as_tensor(scenes, dtype=torch.float32,
                                  device=self.device)

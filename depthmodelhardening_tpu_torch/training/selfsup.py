@@ -44,7 +44,7 @@ def _stereo_is_pure_x(T) -> bool:
 def predict_poses(*args, **kwargs):
     raise NotImplementedError(
         "pose networks (monocular frame ids) are not ported yet: ROADMAP "
-        "Queue 1, slice 5 (models/pose.py, with config 4)")
+        "Queue 1, slice 5b (models/pose.py)")
 
 
 def generate_images_pred(disps, batch, poses, cfg: SelfSupConfig):

@@ -423,7 +423,6 @@ def test_eval_atk_perf_matches_jax(ref, port):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(adv_type="image"), NotImplementedError, "ROADMAP.*slice 6"),
-    (dict(adv_type="object_l0"), NotImplementedError, "ROADMAP.*slice 4"),
     (dict(adv_type="l_2"), ValueError, "unknown adv_type"),
 ])
 def test_unported_attack_types_raise(ref, kw, err, match):
@@ -433,7 +432,7 @@ def test_unported_attack_types_raise(ref, kw, err, match):
 
 @pytest.mark.parametrize("kw,err,match", [
     (dict(wpack_decoder=True), TypeError, "wpack_decoder"),
-    (dict(mask_wt=0.1), TypeError, "mask_wt"),
+    (dict(epochs=3), TypeError, "epochs"),
 ])
 def test_unported_config_options_raise(ref, kw, err, match):
     """Options with no reader in the port are not fields."""

@@ -60,8 +60,10 @@ def _port_modules():
 def test_every_module_imports_without_jax():
     mods = _port_modules()
     assert len(mods) >= 20
-    assert {"depthmodelhardening_tpu_torch.ops.conv",
-            "depthmodelhardening_tpu_torch.training.distill"} <= set(mods)
+    assert {"depthmodelhardening_tpu_torch." + m for m in (
+        "ops.conv", "training.distill", "attacks.l0_object", "ops.color",
+        "models.simsiam", "training.adv_synth",
+        "training.hardening")} <= set(mods)
     code = "\n".join(
         ["import sys"]
         + [f"sys.modules[{m!r}] = None" for m in BLOCKED]
@@ -123,23 +125,36 @@ def test_require_cuda_raises_without_a_card():
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
-@pytest.mark.parametrize("make", ["hardening", "distill"])
+@pytest.mark.parametrize("make", ["hardening", "distill", "hardening_l0",
+                                  "distill_l0"])
 def test_trainers_run_on_the_card_or_raise(make, device):
     """A trainer runs on the CUDA card unless given "cpu": without
     `device=`, or asked for "cuda", it checks for the card before it
-    builds anything (`device.resolve_device`) and raises here."""
+    builds anything (`device.resolve_device`) and raises here. The
+    hardening step at config 4 (the L0 attack, the synthesis, SimSiam,
+    the teacher) and the L0 distillation likewise; the L0 attack, the
+    colour jitter, SimSiam and the synthesis run where their inputs
+    are."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     obj, mask = synthetic.make_car_object(width=60, height=40)
     kw = {} if device is None else {"device": device}
+    teacher = predictor_from(init_monodepth2(torch.Generator().manual_seed(0)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if make == "hardening":
             HardeningTrainer(HardeningConfig(supervised_adv=False,
                                              contrastive_learning=False),
-                             torch.Generator().manual_seed(0), **kw)
+                             torch.Generator().manual_seed(0), obj, mask,
+                             **kw)
+        elif make == "hardening_l0":
+            HardeningTrainer(HardeningConfig(),
+                             torch.Generator().manual_seed(0), obj, mask,
+                             teacher, **kw)
         else:
-            DistillTrainer(DistillConfig(), torch.Generator().manual_seed(0),
-                           obj, mask, None, **kw)
+            DistillTrainer(DistillConfig(adv_type="object_l0" if
+                                         make == "distill_l0" else "object"),
+                           torch.Generator().manual_seed(0), obj, mask, None,
+                           **kw)
 
 
 def _kernel_calls():
@@ -231,8 +246,7 @@ def tiny_predictor():
     return predictor_from(init_monodepth2(torch.Generator().manual_seed(0)))
 
 
-@pytest.mark.parametrize("norm,item", [("l_0", "slice 4"),
-                                       ("l_2", "slice 6"),
+@pytest.mark.parametrize("norm,item", [("l_2", "slice 6"),
                                        ("Square", "slice 6")])
 def test_unported_norms_raise_and_name_their_roadmap_item(
         tiny_predictor, norm, item):

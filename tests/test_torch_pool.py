@@ -225,3 +225,75 @@ def test_strips_backward_keeps_the_sum_order():
     want = maxpool3x3s2_backward_plain(x, g)
     assert torch.equal(pool.maxpool3x3s2_backward_strips_plain(x, g), want)
     assert not torch.equal(_backward_rows_swapped(x, g), want)
+
+
+# -- NaN ---------------------------------------------------------------------
+def _with_nans(rng, B, C, H, W):
+    """relu outputs with ties, and NaN in three places of each plane: inside
+    a window (an even row and column, covered by one window), on a
+    window's edge (an odd row and column, covered by four windows), and a
+    whole 3x3 window (rows and columns 2 oy - 1 .. 2 oy + 1)."""
+    x = _relu_with_ties(rng, (B, C, H, W), torch.float32).numpy().copy()
+    x[:, :, 4, 6] = np.nan
+    x[:, :, 9, 13] = np.nan
+    x[:, :, 15:18, 21:24] = np.nan  # window (8, 11), all NaN
+    return x
+
+
+def test_pool_keeps_nan_as_the_tpu_kernel_does():
+    """NaN inside a window, on a window's edge and filling a window: the
+    plain forward and backward and both decompositions against the TPU
+    kernels B1 and B2 in interpret mode, bit for bit (NaN where theirs
+    is NaN): each window that holds a NaN pools to NaN and routes its
+    cotangent nowhere."""
+    B, C, H, W = 2, 4, 32, 64  # B2 needs H/2 % 8 == 0 and W/4 % 8 == 0
+    rng = np.random.RandomState(21)
+    x = _with_nans(rng, B, C, H, W)
+    g = _int_cotangent(rng, (B, C, H // 2, W // 2))
+    xp4 = wpack(jnp.asarray(x.transpose(0, 2, 3, 1)), 4)
+    gp2 = wpack(jnp.asarray(g.transpose(0, 2, 3, 1)), 2)
+
+    def b2():
+        y, vjp = jax.vjp(lambda t: pp.wpack4_maxpool3x3s2_pallas(t, C), xp4)
+        return y, vjp(gp2)[0]
+
+    y_j, gx_j = _interp(b2)
+    y_j = np.asarray(wunpack(y_j, 2)).transpose(0, 3, 1, 2)
+    gx_j = np.asarray(wunpack(gx_j, 4)).transpose(0, 3, 1, 2)
+    assert np.isnan(y_j[:, :, 8, 11]).all()
+    # a plane's NaN windows: 1 (inside), 4 (edge), 3 x 3 (the NaN window
+    # and its neighbours, which share its border rows and columns)
+    assert np.isnan(y_j).sum() == B * C * (1 + 4 + 9)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    for name, got in (("plain", maxpool3x3s2_plain(xt)),
+                      ("separable", pool.maxpool3x3s2_separable_plain(xt))):
+        np.testing.assert_array_equal(got.numpy(), y_j, err_msg=name)
+    for name, got in (
+            ("plain", maxpool3x3s2_backward_plain(xt, gt)),
+            ("strips", pool.maxpool3x3s2_backward_strips_plain(xt, gt))):
+        np.testing.assert_array_equal(got.numpy(), gx_j, err_msg=name)
+    assert not np.isnan(gx_j).any()
+    assert (gx_j[:, :, 14:19, 20:25] == 0).all()  # the NaN window's rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_decompositions_keep_nan(dtype):
+    """At ragged shapes, in float32 and bf16: the decompositions equal the
+    plain versions with NaN inside, on the edge of and filling a window
+    (NaN where theirs is NaN, every other element bit for bit)."""
+    rng = np.random.RandomState(22)
+    for h, w in ((23, 67), (24, 26), (66, 130)):
+        x = torch.from_numpy(_with_nans(rng, 2, 3, h, w)).to(dtype)
+        g = torch.from_numpy(rng.randn(2, 3, pool.pooled_size(h),
+                                       pool.pooled_size(w)).astype(
+            np.float32)).to(dtype)
+        y = maxpool3x3s2_plain(x)
+        assert torch.isnan(y).any()
+        np.testing.assert_array_equal(
+            pool.maxpool3x3s2_separable_plain(x).float().numpy(),
+            y.float().numpy(), err_msg=str((h, w)))
+        dx = maxpool3x3s2_backward_plain(x, g)
+        assert not torch.isnan(dx).any()
+        np.testing.assert_array_equal(
+            pool.maxpool3x3s2_backward_strips_plain(x, g).float().numpy(),
+            dx.float().numpy(), err_msg=str((h, w)))
