@@ -136,6 +136,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    one untimed L0 attack-eval batch (build_attack(l_0) +
    evaluate_attacks) and one untimed distillation step with adv_type
    "object_l0".
+12. cli: the CLI's `train-hardening --fine-tune` defaults as they are
+   (cli/main.py:594-656): HardeningTrainer.train_step with the student
+   in bfloat16 (compute_dtype, the CLI's default) and the CLI's float32
+   teacher, both from the golden weights with BatchNorm statistics
+   calibrated on synthetic scenes (phase 10's), otherwise phase 11's
+   configuration: 12a with frames ("0", "s"), 12b with ("0", "-1", "1",
+   "s") (mono+stereo: the float32 pose networks; "-1" and "1" are "0"
+   shifted by 8 columns and 6 rows). First one small bf16 step (frames
+   ("0", "s"), seeded student) on the card against the CPU's: the
+   supervised branch under phase 10's rule, with the photometric and
+   contrastive branches logged beside it with the CPU's step against
+   itself one ulp away; and one small float32
+   mono+stereo step under phase 11's, the pose networks' gradients
+   included; then for each of 12a and 12b 2 warm-up and 3 timed steps
+   with the counters reset before the timed ones and read after:
+   seconds per step, peak memory, L0 iterations, launches against
+   `harden_launches` (every kernel instance but float32 D's input gradient
+   launches in 12b), finite loss terms, every parameter and running
+   statistic moved, then one profiled step (idle share, device ms by
+   kernel instance); after 12a a checkpoint round trip (save_state,
+   restore_state into a fresh trainer: every tensor and the generators'
+   states equal, the next step's loss on the same draws within 1e-6);
+   after 12b predict_pair_poses on 16 synthetic 1024x320 pairs, card
+   against CPU within 1e-4, and trajectory_ates on a synthetic ground
+   truth.
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -151,6 +176,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -164,6 +190,7 @@ from depthmodelhardening_tpu_torch.data.synthetic import (
     make_car_object, make_scene,
 )
 from depthmodelhardening_tpu_torch.device import require_cuda, use_f32_numerics
+from depthmodelhardening_tpu_torch.evaluation import pose_eval
 from depthmodelhardening_tpu_torch.evaluation.attack_eval import (
     AttackEvalConfig, _batch_metrics, build_attack, evaluate_attacks,
 )
@@ -179,6 +206,7 @@ from depthmodelhardening_tpu_torch.ops.resize import bilinear_resize
 from depthmodelhardening_tpu_torch.physics.eot import (
     ANGLE_RANGE, TRAIN_DIST_RANGE, stereo_T,
 )
+from depthmodelhardening_tpu_torch.training import checkpoints
 from depthmodelhardening_tpu_torch.training.adv_synth import (
     make_synth_compositor, synth_tile,
 )
@@ -2030,17 +2058,16 @@ HARDEN_CFG = HardeningConfig(
     selfsup=SelfSupConfig(height=320, width=1024, frame_ids=("0", "s")),
     adv=AdvSynthConfig(norm_type="l_0", steps=10, attack_batch_size=12),
     batch_size=32, learning_rate=1e-5)
-HARDEN_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
-                  "maxpool3x3s2_fwd", "maxpool3x3s2_bwd", "reproj_loss_fwd",
-                  "reproj_loss_bwd_q", "reproj_loss_bwd_grad") + CONV_KERNELS
 HARDEN_WARMUP, HARDEN_TIMED = 2, 5
-# each float32 kernel's functions as the profiler names them
-HARDEN_KERNEL_NAMES = {
+# each kernel instance's functions as the profiler names them
+KERNEL_NAMES = {
     "A (warp)": ("::vert_fwd", "::vert_bwd"),
-    "B (pool)": ("::pool_fwd<", "::pool_bwd<"),
+    "B (pool, float32)": ("::pool_fwd<", "::pool_bwd<"),
+    "B-bf16 (pool)": ("pool_fwd_bf16", "pool_bwd_bf16"),
     "C (reprojection)": ("::fwd_kernel(", "::bwd_q_kernel(",
                          "::bwd_grad_kernel("),
-    "D (conv)": ("::conv3x3_",)}
+    "D (conv, float32)": ("::conv3x3_mma", "::conv3x3_co1"),
+    "D-bf16 (conv)": ("conv3x3_bf16_",)}
 # small-step parity on the card against the CPU: gradients within 1e-2
 # relative L2 over all tensors (phase 9's rule) and 0.1 per tensor, a
 # tensor below 1e-3 of the largest tensor's norm held relative to that
@@ -2053,25 +2080,110 @@ HARDEN_KERNEL_NAMES = {
 HARDEN_GRAD_L2, HARDEN_GRAD_L2_ALL, HARDEN_GRAD_FLOOR = 0.1, 1e-2, 1e-3
 
 
-def harden_launches(iterations: int) -> dict:
+def harden_launches(iterations: int, temporal: int = 0,
+                    bf16: bool = False) -> dict:
     """Kernel launches of one hardening step whose L0 attack ran
-    `iterations` Adam iterations: warp A forward in each iteration's view
-    and twice in the synthesis (the pair, the other eye), its adjoint in
-    each iteration; the stem pool forward in each attack pass, the
-    student's forward, the benign encode and the teacher's forward, its
-    backward in each attack pass and through both student passes; C in
-    the photometric loss (the identity reprojection and 4 scales forward,
-    4 backward); D's 4 scale-0 convs forward and input gradient in each
-    attack pass, the student's 6 (the scale-0 path and dispconv_1, _2)
-    forward and input gradient, the teacher's 4 forward."""
-    i = iterations
-    return {"vertical_resample_fwd": i + 2, "vertical_resample_bwd": i,
-            "maxpool3x3s2_fwd": i + 3, "maxpool3x3s2_bwd": i + 2,
-            "reproj_loss_fwd": 5, "reproj_loss_bwd_q": 4,
-            "reproj_loss_bwd_grad": 4, "conv3x3_fwd": 4 * i + 10,
-            "conv3x3_dgrad": 4 * i + 6, "conv3x3_fwd_bf16": 0,
-            "conv3x3_dgrad_bf16": 0, "maxpool3x3s2_fwd_bf16": 0,
-            "maxpool3x3s2_bwd_bf16": 0}
+    `iterations` Adam iterations, with `temporal` temporal source frames,
+    the student in bf16 or float32 (the teacher and the pose networks are
+    float32): warp A (float32) forward in each iteration's view and twice
+    in the synthesis (the pair, the other eye), its adjoint in each
+    iteration; the student's stem pool forward in each attack pass, the
+    student's forward and the benign encode, its backward in each attack
+    pass and through both student passes; float32 B in the teacher's
+    forward and in each pose-encoder pass, forward and backward; C in the
+    photometric loss, an identity and 4 scales forward and 4 backward for
+    each source frame; the student's D in its 4 scale-0 convs forward and
+    input gradient in each attack pass and in its 6 (the scale-0 path and
+    dispconv_1, _2) forward and input gradient; float32 D in the
+    teacher's 4 convs forward."""
+    i, t = iterations, temporal
+    sfx = "_bf16" if bf16 else ""
+    out = {k.name: 0 for k in _build.KERNELS}
+    out.update({"vertical_resample_fwd": i + 2, "vertical_resample_bwd": i,
+                "maxpool3x3s2_fwd": 1 + t, "maxpool3x3s2_bwd": t,
+                "reproj_loss_fwd": 5 * (1 + t),
+                "reproj_loss_bwd_q": 4 * (1 + t),
+                "reproj_loss_bwd_grad": 4 * (1 + t), "conv3x3_fwd": 4})
+    for name, n in (("maxpool3x3s2_fwd", i + 2), ("maxpool3x3s2_bwd", i + 2),
+                    ("conv3x3_fwd", 4 * i + 6), ("conv3x3_dgrad", 4 * i + 6)):
+        out[name + sfx] += n
+    return out
+
+
+def run_hardening_steps(label, trainer, inputs, warmup, timed):
+    """`warmup` + `timed` `train_step`s of `trainer` on `inputs` (frames,
+    sides, flips, scene) with every launch counter reset before the timed
+    ones and read after: logs seconds per step, peak memory, each step's
+    L0 iterations and early break, the loss terms and the launches beside
+    `harden_launches` of the iterations; fails unless the launches are
+    the predicted ones, the loss terms finite and complete, and every
+    parameter and running statistic of the state's modules moved. Returns
+    (state, launches)."""
+    cfg = trainer.cfg
+    frames, side, flip, scene = inputs
+    dev = trainer.device
+    state = trainer.make_state()
+    start = {k: v.clone() for k, v in _state_tensors(state).items()}
+    metrics, iters = [], []
+    for n in range(warmup + timed):
+        if n == warmup:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+        state, m = trainer.train_step(state, frames, side, flip, scene)
+        metrics.append(m)
+        iters.append((trainer.attack.last_iterations,
+                      trainer.attack.last_early_break))
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / timed
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    predicted = {k.name: 0 for k in _build.KERNELS}
+    for n_it, _ in iters[warmup:]:
+        for k, v in harden_launches(
+                n_it, len(cfg.selfsup.temporal_source_ids),
+                cfg.compute_dtype == "bfloat16").items():
+            predicted[k] += v
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    log(f"  seconds per step {secs:.4f} (host clock around {timed} steps "
+        f"after {warmup} warm-up, synchronised)")
+    log(f"  max_memory_allocated {peak} B")
+    log(f"  L0 iterations and early break per step {json.dumps(iters)}")
+    log(f"  losses {json.dumps(losses)}")
+    log(f"  launches {json.dumps(launches)}")
+    log(f"  predicted from the code and the iterations "
+        f"{json.dumps(predicted)}")
+    if launches != predicted:
+        raise AssertionError(f"phase {label}'s kernels did not launch as "
+                             "predicted")
+    expect = {"sup_loss", "contras_loss", "selfsup_loss", "loss"}
+    if not all(math.isfinite(v) for m in losses for v in m.values()) or \
+            any(set(m) != expect for m in losses):
+        raise AssertionError(f"non-finite or missing loss terms: {losses}")
+    moved = set(_moved(start, _state_tensors(state)))
+    params = [n for n, _ in _named_params(state)]
+    stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
+    still = (set(params) | set(stats)) - moved
+    if still or state.step != warmup + timed:
+        raise AssertionError(f"not moved: {sorted(still)[:5]}; step "
+                             f"{state.step}")
+    log(f"  moved: all {len(params)} parameters of "
+        f"{'/'.join(state.modules())} and {len(stats)} running statistics; "
+        f"step {state.step}")
+    return state, launches
+
+
+def log_kernel_ms(by_name, counts) -> None:
+    """Device ms and launches of each kernel instance in a profile, and
+    the top 15 kernels by device ms."""
+    for kernel, marks in KERNEL_NAMES.items():
+        hit = [name for name in by_name if any(m in name for m in marks)]
+        log(f"  kernel {kernel}: {sum(by_name[n] for n in hit):.3f} device "
+            f"ms of the step in {sum(counts[n] for n in hit)} launches")
+    log("  device ms of the step by kernel (top 15):")
+    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"    {ms:9.3f}  {k[:110]}")
 
 
 def _harden_trainer(dev, cfg, sd, obj, mask, seed):
@@ -2085,12 +2197,18 @@ def _harden_trainer(dev, cfg, sd, obj, mask, seed):
 
 
 def _harden_inputs(dev, cfg, seed):
-    """Synthetic 375x1242 frames ("s" is "0" shifted by 12 columns), sides
-    and flips mixed over the batch, and one scene for the attack."""
+    """Synthetic 375x1242 frames ("s" is "0" shifted by 12 columns; the
+    temporal frames, where configured, "0" shifted by 8 columns ("-1") and
+    by 6 rows ("1")), sides and flips mixed over the batch, and one scene
+    for the attack."""
     B = cfg.batch_size
     f0 = torch.from_numpy(make_scene(B, cfg.adv.ori_h, cfg.adv.ori_w,
                                      seed=seed))
     frames = {"0": f0.to(dev), "s": torch.roll(f0, 12, dims=2).to(dev)}
+    shifts = {"-1": (8, 2), "1": (6, 1)}
+    for fid in cfg.selfsup.temporal_source_ids:
+        n, dim = shifts[fid]
+        frames[fid] = torch.roll(f0, n, dims=dim).to(dev)
     side = torch.arange(B, device=dev) % 2 == 0
     flip = torch.arange(B, device=dev) % 4 < 2
     scene = torch.from_numpy(make_scene(1, cfg.adv.ori_h, cfg.adv.ori_w,
@@ -2098,10 +2216,11 @@ def _harden_inputs(dev, cfg, seed):
     return frames, side, flip, scene
 
 
-def _head_and_model(state):
-    return {**{f"model.{k}": v for k, v in state.model.state_dict().items()},
-            **{f"simsiam.{k}": v
-               for k, v in state.simsiam.state_dict().items()}}
+def _state_tensors(state):
+    """Every weight and statistic of the state's trained modules (the
+    student, the SimSiam head, the pose networks), by "<module>.<name>"."""
+    return {f"{key}.{k}": v for key, m in state.modules().items()
+            for k, v in m.state_dict().items()}
 
 
 def phase_harden(dev):
@@ -2114,36 +2233,6 @@ def phase_harden(dev):
     obj, mask = make_car_object(300, 200, seed=SEED)
     frames, side, flip, scene = _harden_inputs(dev, cfg, SEED + 70)
     trainer = _harden_trainer(dev, cfg, sd, obj, mask, SEED + 71)
-    state = trainer.make_state()
-    start = {k: v.clone() for k, v in _head_and_model(state).items()}
-    metrics, iters = [], []
-
-    def step():
-        nonlocal state
-        state, m = trainer.train_step(state, frames, side, flip, scene)
-        metrics.append(m)
-        iters.append((trainer.attack.last_iterations,
-                      trainer.attack.last_early_break))
-
-    for _ in range(HARDEN_WARMUP):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(HARDEN_TIMED):
-        step()
-    torch.cuda.synchronize()
-    secs = (time.perf_counter() - t0) / HARDEN_TIMED
-    launches = {k.name: k.launches for k in _build.KERNELS}
-    peak = torch.cuda.max_memory_allocated(dev)
-    timed = iters[HARDEN_WARMUP:]
-    predicted = {}
-    for n_it, _ in timed:
-        for k, v in harden_launches(n_it).items():
-            predicted[k] = predicted.get(k, 0) + v
-    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
-
     log(f"harden: HardeningTrainer.train_step at config 4: Monodepth2-"
         f"{cfg.num_layers} student and teacher from the golden weights, "
         f"{cfg.selfsup.width}x{cfg.selfsup.height} f32, scales "
@@ -2152,36 +2241,9 @@ def phase_harden(dev):
         f"attack batch {cfg.adv.attack_batch_size}, supervised + "
         f"contrastive + photometric, batch {B} of {cfg.adv.ori_w}x"
         f"{cfg.adv.ori_h} frames, car 300x200, Adam lr {cfg.learning_rate}")
-    log(f"  seconds per step {secs:.4f} (host clock around {HARDEN_TIMED} "
-        f"steps after {HARDEN_WARMUP} warm-up, synchronised)")
-    log(f"  max_memory_allocated {peak} B")
-    log(f"  L0 iterations and early break per step {json.dumps(iters)}")
-    log(f"  losses {json.dumps(losses)}")
-    log(f"  launches {json.dumps(launches)}")
-    log(f"  predicted from the code and the iterations "
-        f"{json.dumps(predicted)}")
-    bad = [n for n in HARDEN_KERNELS if launches[n] <= 0]
-    if bad:
-        raise AssertionError(f"kernels never launched in phase 11: {bad}")
-    if {k: launches[k] for k in predicted} != predicted:
-        raise AssertionError("the hardening step's kernels did not launch "
-                             "as predicted")
-    if not all(math.isfinite(v) for m in losses for v in m.values()) or \
-            set(losses[0]) != {"sup_loss", "contras_loss", "selfsup_loss",
-                               "loss"}:
-        raise AssertionError(f"non-finite or missing loss terms: {losses}")
-    end = _head_and_model(state)
-    moved = set(_moved(start, end))
-    params = [f"model.{n}" for n, _ in state.model.named_parameters()] + [
-        f"simsiam.{n}" for n, _ in state.simsiam.named_parameters()]
-    stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
-    still = (set(params) | set(stats)) - moved
-    if still or state.step != HARDEN_WARMUP + HARDEN_TIMED:
-        raise AssertionError(f"not moved: {sorted(still)[:5]}; step "
-                             f"{state.step}")
-    log(f"  moved: all {len(params)} parameters of the student and the "
-        f"SimSiam head and {len(stats)} running statistics; step "
-        f"{state.step}")
+    state, launches = run_hardening_steps(
+        "11", trainer, (frames, side, flip, scene), HARDEN_WARMUP,
+        HARDEN_TIMED)
     phase_harden_breakdown(trainer, state, frames, side, flip, scene)
     del state, trainer
     torch.cuda.empty_cache()
@@ -2222,18 +2284,12 @@ def phase_harden_breakdown(trainer, state, frames, side, flip, scene):
         log(f"  {n}: {float(np.median(times[n])):.3f}")
     log(f"  L0 attack ms an iteration (attack batch "
         f"{cfg.adv.attack_batch_size}): {float(np.median(per_iter)):.3f}")
-    busy_ms, wall_ms, n, by_name, _ = device_busy(
+    busy_ms, wall_ms, n, by_name, counts = device_busy(
         lambda: trainer.train_step(state, frames, side, flip, scene))
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
         f"ms of {wall_ms:.3f} ms host wall, idle share "
         f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
-    for kernel, marks in HARDEN_KERNEL_NAMES.items():
-        k_ms = sum(ms for name, ms in by_name.items()
-                   if any(m in name for m in marks))
-        log(f"  kernel {kernel}: {k_ms:.3f} device ms of the step")
-    log("  device ms of the step by kernel (top 15):")
-    for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        log(f"    {ms:9.3f}  {k[:110]}")
+    log_kernel_ms(by_name, counts)
 
 
 def _l2_with_floor(got, want, floor):
@@ -2252,9 +2308,10 @@ def _l2_with_floor(got, want, floor):
     return worst, name_, (num / den) ** 0.5
 
 
-def phase_harden_parity(dev) -> None:
+def phase_harden_parity(dev, frame_ids=("0", "s")) -> None:
     """One small hardening step (the model at 64x192, 96x320 frames, a
-    24x36 car, batch 4, attack batch 2, L0 steps=2) on the card and on
+    24x36 car, batch 4, attack batch 2, L0 steps=2; `frame_ids`: with
+    temporal ones, the pose networks' gradients too) on the card and on
     the CPU's plain versions, from the same weights and draws: the L0
     loop's iteration count and its first iteration's gradients (rtol
     1e-3, atol 1e-3 of their largest magnitude: Adam turns rounding at
@@ -2268,7 +2325,8 @@ def phase_harden_parity(dev) -> None:
     than lr on either side, so this rule catches only NaN and infinity).
     Beside it, the CPU's step against itself with every weight one ulp
     away: the scale of the rounding the step amplifies."""
-    ss = dataclasses.replace(HARDEN_CFG.selfsup, height=64, width=192)
+    ss = dataclasses.replace(HARDEN_CFG.selfsup, height=64, width=192,
+                             frame_ids=frame_ids)
     adv = dataclasses.replace(HARDEN_CFG.adv, steps=2, attack_batch_size=2,
                               ori_h=96, ori_w=320)
     cfg = dataclasses.replace(HARDEN_CFG, selfsup=ss, adv=adv, batch_size=4,
@@ -2283,7 +2341,7 @@ def phase_harden_parity(dev) -> None:
     draws = trainers[0].draw(cfg.batch_size,
                              torch.Generator().manual_seed(SEED + 74))
     draws.identity_noise = torch.randn(
-        (cfg.batch_size, ss.height, ss.width, 1),
+        (cfg.batch_size, ss.height, ss.width, len(ss.source_frame_ids)),
         generator=torch.Generator().manual_seed(SEED + 75))
     states = [t.make_state() for t in trainers]
     texs, grads, iters = [], [], []
@@ -2310,7 +2368,7 @@ def phase_harden_parity(dev) -> None:
     s_err = max([s_err] + [float((batches[1][g][f].cpu()
                                   - batches[0][g][f]).abs().max())
                            for g in ("color", "color_aug")
-                           for f in ("0", "s")])
+                           for f in frame_ids])
     cpu_batch = batches[0]
     nudged = trainers[0].make_state()
     nudged.model.load_state_dict(_ulp_nudged(nudged.model.state_dict(),
@@ -2334,8 +2392,8 @@ def phase_harden_parity(dev) -> None:
                 for (_, p), (_, q) in zip(_named_params(s_gpu),
                                           _named_params(s_cpu)))
     lr = cfg.learning_rate
-    log(f"harden parity: one step at 64x192 batch 4, L0 steps 2 on attack "
-        f"batch 2: iterations card {iters[1]} CPU {iters[0]}, first "
+    log(f"harden parity: one step at 64x192 batch 4, frames {frame_ids}, "
+        f"L0 steps 2 on attack batch 2: iterations card {iters[1]} CPU {iters[0]}, first "
         f"iteration's gradients {g_err:.3e} of their max, textures split "
         f"{split:.4%} (logged: the trajectories part); synthesis from the "
         f"CPU's texture {s_err:.3e}; on the CPU's batch: losses "
@@ -2373,8 +2431,8 @@ def _ulp_nudged(sd, seed):
 
 
 def _named_params(state):
-    return [(f"model.{n}", p) for n, p in state.model.named_parameters()] + [
-        (f"simsiam.{n}", p) for n, p in state.simsiam.named_parameters()]
+    return [(f"{key}.{n}", p) for key, m in state.modules().items()
+            for n, p in m.named_parameters()]
 
 
 def phase_harden_eval(dev, sd, obj, mask) -> None:
@@ -2422,6 +2480,262 @@ def phase_harden_distill(dev, sd, obj, mask) -> None:
         raise AssertionError("the L0 distillation step failed")
 
 
+# -- phase 12 ----------------------------------------------------------------
+# the CLI's `train-hardening --fine-tune` defaults as they are (cli/main.py:
+# 594-656): compute dtype bfloat16 (the student; the teacher is the CLI's
+# float32 predictor), frames ("0", "s"), L0 with 10 steps on attack batch
+# 12, batch 32, lr 1e-5, supervised + contrastive + photometric; 12b adds
+# --frame-ids 0,-1,1,s (mono+stereo: the float32 pose networks)
+CLI_CFG = dataclasses.replace(HARDEN_CFG, compute_dtype="bfloat16")
+MONO_FRAMES = ("0", "-1", "1", "s")
+CLI_RUNS = (("12a", ("0", "s")), ("12b", MONO_FRAMES))
+CLI_WARMUP, CLI_TIMED = 2, 3
+# the small bf16 step on the card against the CPU's is held to phase 10's
+# rule (BENCH_LOSS_RTOL, BENCH_GRAD_L2_ALL) on phase 10's kind of step:
+# the teacher's MSE through the bf16 student, seeded as phase 10's (a
+# student equal to the teacher leaves the MSE a difference of near-equal
+# predictions that bf16 rounding decides). The photometric and
+# contrastive branches are logged, not held: in bf16 at this size the
+# CPU's step against itself one ulp away moves their gradients by about
+# as much as the rule allows (0.1147 with the photometric branch, 0.8626
+# with SimSiam's BatchNorm1d over 4 samples too, on an H100 80GB HBM3 at
+# 700 W), so no rule there tells a fault from bf16's rounding
+CLI_PARITY_SEED = SEED + 93
+
+
+def _cli_cfg(frame_ids):
+    return dataclasses.replace(CLI_CFG, selfsup=dataclasses.replace(
+        CLI_CFG.selfsup, frame_ids=frame_ids))
+
+
+def phase_cli(dev):
+    """Phase 12: the CLI's bf16 hardening step, 12a with frames ("0", "s")
+    and 12b mono+stereo; returns the launch counts of their timed steps,
+    summed."""
+    _, sd = _golden_weights()
+    cal = calibrated_teacher(dev, sd)
+    phase_cli_bf16_parity(dev, cal)
+    phase_harden_parity(dev, MONO_FRAMES)
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    total = {}
+    for label, frame_ids in CLI_RUNS:
+        cfg = _cli_cfg(frame_ids)
+        trainer = _harden_trainer(dev, cfg, cal, obj, mask, SEED + 90)
+        inputs = _harden_inputs(dev, cfg, SEED + 91)
+        state, launches = phase_cli_run(label, trainer, inputs)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if label == "12a":
+            phase_cli_checkpoint(dev, cfg, cal, obj, mask, trainer, state,
+                                 inputs)
+        else:
+            phase_cli_pose_eval(dev, state)
+        del state, trainer
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_cli_run(label, trainer, inputs):
+    """CLI_WARMUP + CLI_TIMED steps (`run_hardening_steps`), then one
+    profiled step: idle share and device ms by kernel instance. Returns
+    (state, launches)."""
+    cfg = trainer.cfg
+    log(f"cli {label}: HardeningTrainer.train_step at the CLI's "
+        f"train-hardening --fine-tune defaults: Monodepth2-"
+        f"{cfg.num_layers} student in {cfg.compute_dtype} and float32 "
+        f"teacher from the golden weights (statistics calibrated), "
+        f"{cfg.selfsup.width}x{cfg.selfsup.height}, frames "
+        f"{cfg.selfsup.frame_ids}, L0 steps {cfg.adv.steps} on attack batch "
+        f"{cfg.adv.attack_batch_size}, supervised + contrastive + "
+        f"photometric, batch {cfg.batch_size} of {cfg.adv.ori_w}x"
+        f"{cfg.adv.ori_h} frames, car 300x200, Adam lr {cfg.learning_rate}")
+    state, launches = run_hardening_steps(label, trainer, inputs,
+                                          CLI_WARMUP, CLI_TIMED)
+    busy_ms, wall_ms, n, by_name, counts = device_busy(
+        lambda: trainer.train_step(state, *inputs))
+    log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
+        f"ms of {wall_ms:.3f} ms host wall, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities, "
+        f"{trainer.attack.last_iterations} L0 iterations")
+    log_kernel_ms(by_name, counts)
+    return state, launches
+
+
+def phase_cli_bf16_parity(dev, teacher_sd) -> None:
+    """One small bf16 hardening step (frames ("0", "s"), the model at
+    64x192, 96x320 frames, a 24x36 car, batch 4, L0 steps 2 on attack
+    batch 2; the student from a seeded init, the teacher float32 from
+    `teacher_sd`) on the card and on the CPU's plain versions, from the
+    same weights and draws: the L0 iterations and the textures' split
+    logged; the training half on the CPU's batch with the supervised
+    branch (phase 10's kind of step: the teacher's MSE through the bf16
+    student) within phase 10's rule (loss BENCH_LOSS_RTOL relative,
+    gradients BENCH_GRAD_L2_ALL overall). Logged beside it, for the
+    supervised branch, with the photometric one added and with the
+    contrastive one too: the card against the CPU and the CPU's step
+    against itself with every weight one ulp away (the scale of the
+    rounding each step amplifies)."""
+    ss = dataclasses.replace(CLI_CFG.selfsup, height=64, width=192)
+    adv = dataclasses.replace(CLI_CFG.adv, steps=2, attack_batch_size=2,
+                              ori_h=96, ori_w=320)
+    cfg = dataclasses.replace(CLI_CFG, selfsup=ss, adv=adv, batch_size=4,
+                              learning_rate=CONVERGE_LR)
+    obj, mask = make_car_object(36, 24, seed=SEED)
+    cpu = torch.device("cpu")
+    frames, side, flip, scene = _harden_inputs(cpu, cfg, SEED + 92)
+
+    def trainer_on(d, c):
+        teacher = make_monodepth2()
+        teacher.load_state_dict(teacher_sd)
+        return HardeningTrainer(c, torch.Generator().manual_seed(
+            CLI_PARITY_SEED), obj, mask, predictor_from(teacher.to(d)),
+            device=d)
+
+    trainers = [trainer_on(d, cfg) for d in (cpu, dev)]
+    draws = trainers[0].draw(cfg.batch_size,
+                             torch.Generator().manual_seed(SEED + 94))
+    draws.identity_noise = torch.randn(
+        (cfg.batch_size, ss.height, ss.width, 1),
+        generator=torch.Generator().manual_seed(SEED + 95))
+    texs, iters = [], []
+    for t in trainers:
+        texs.append(t.refresh_texture(t.make_state(), scene.to(t.device),
+                                      draws).cpu())
+        iters.append(t.attack.last_iterations)
+    split = float(((texs[1] - texs[0]).abs() > 1e-4).float().mean())
+    batch = trainers[0].synth_batch(frames, side, flip, texs[0], draws)
+
+    def grads(t, nudge=False):
+        st = t.make_state()
+        if nudge:
+            st.model.load_state_dict(_ulp_nudged(st.model.state_dict(),
+                                                 SEED + 96))
+        b = {k: ({f: v.to(t.device) for f, v in x.items()}
+                 if isinstance(x, dict) else x.to(t.device))
+             for k, x in batch.items()}
+        st, m = t._update(st, b, draws.identity_noise.to(t.device))
+        return float(m["loss"]), {n: p.grad for n, p in _named_params(st)
+                                  if p.grad is not None}
+
+    readings = {}
+    for name, kw in (("supervised", dict(no_original_train=True,
+                                         contrastive_learning=False)),
+                     ("+ photometric", dict(contrastive_learning=False)),
+                     ("+ contrastive", {})):
+        c = dataclasses.replace(cfg, **kw)
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = (
+            grads(trainer_on(d, c)) for d in (cpu, dev))
+        if set(g_cpu) != set(g_gpu):
+            raise AssertionError("the card and the CPU differ in which "
+                                 "parameters got a gradient")
+        _, g_ulp = grads(trainer_on(cpu, c), nudge=True)
+        readings[name] = (abs(l_gpu - l_cpu) / abs(l_cpu), l_gpu,
+                          _l2_with_floor(g_gpu, g_cpu, 0.0)[2],
+                          _l2_with_floor(g_ulp, g_cpu, 0.0)[2])
+    log(f"cli bf16 parity: one bf16 step at 64x192 batch 4, frames "
+        f"{ss.frame_ids}, L0 steps 2 on attack batch 2, seeded student, "
+        f"float32 teacher: iterations card {iters[1]} CPU {iters[0]}, "
+        f"textures split {split:.4%} (logged); on the CPU's batch, card "
+        f"against CPU: loss rel, gradient rel L2 overall; the CPU against "
+        f"itself with every weight one ulp away:")
+    for name, (rel, loss, g_all, ulp) in readings.items():
+        log(f"  {name}: loss {loss:.8e} rel {rel:.3e}, gradients {g_all:.3e};"
+            f" one ulp away {ulp:.3e}")
+    rel, loss, g_all, _ = readings["supervised"]
+    log(f"  held: supervised, loss rel max {BENCH_LOSS_RTOL}, gradients max "
+        f"{BENCH_GRAD_L2_ALL}")
+    if rel > BENCH_LOSS_RTOL or not g_all <= BENCH_GRAD_L2_ALL or \
+            not math.isfinite(loss):
+        raise AssertionError("the card's bf16 hardening step disagrees with "
+                             "the plain versions on the CPU")
+
+
+def phase_cli_checkpoint(dev, cfg, teacher_sd, obj, mask, trainer, state,
+                         inputs) -> None:
+    """`save_state` after 12a, `restore_state` into a fresh trainer (of
+    another seed): parameters, statistics, Adam's moments and counts, the
+    step and the generators' states `torch.equal` to the saved ones; the
+    next step on the same injected draws gives the restored trainer the
+    continuing trainer's loss within 1e-6 relative."""
+    ckpt_dir = os.path.join(REPO, "build", "ckpt_smoke")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    path = checkpoints.save_state(ckpt_dir, state.step, state,
+                                  trainer=trainer)
+    fresh = _harden_trainer(dev, cfg, teacher_sd, obj, mask, SEED + 97)
+    restored = checkpoints.restore_state(ckpt_dir, fresh.make_state(),
+                                         trainer=fresh)
+    secs = time.perf_counter() - t0
+
+    def tensors(t, s):
+        out = dict(_state_tensors(s))
+        for i, st in enumerate(s.optimizer.state.values()):
+            out.update({f"adam.{i}.{k}": v for k, v in st.items()})
+        out["generator"] = t.generator.get_state()
+        out["noise_generator"] = t.noise_generator.get_state()
+        return out
+
+    want, got = tensors(trainer, state), tensors(fresh, restored)
+    differ = [k for k in want if k not in got
+              or not torch.equal(got[k], want[k])]
+    draws = trainer.draw(cfg.batch_size,
+                         torch.Generator().manual_seed(SEED + 98))
+    draws.identity_noise = trainer.draw_identity_noise(cfg.batch_size)
+    losses = []
+    for t, s in ((trainer, state), (fresh, restored)):
+        _, m = t.train_step(s, *inputs, draws=draws)
+        losses.append(float(m["loss"]))
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    log(f"cli checkpoint: save_state + restore_state of step {state.step} "
+        f"({size} B, {secs:.3f} s on the host): {len(want)} tensors and "
+        f"generator states, {len(differ)} differ; next step's loss "
+        f"continuing {losses[0]:.8e} restored {losses[1]:.8e} (rel "
+        f"{rel:.3e}, max 1e-6)")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if differ or set(got) != set(want) or rel > 1e-6 or \
+            restored.step != state.step:
+        raise AssertionError(f"the checkpoint round trip is not exact: "
+                             f"{differ[:5]}, loss rel {rel}")
+
+
+def phase_cli_pose_eval(dev, state) -> None:
+    """`predict_pair_poses` of 12b's pose networks on 16 synthetic
+    1024x320 pairs on the card and on the CPU (within 1e-4 absolute),
+    and `trajectory_ates` of the card's against a synthetic ground truth
+    (a car driving about 1 m a frame with a slow yaw)."""
+    frames = make_scene(17, 320, 1024, seed=SEED + 99)
+    pairs = [np.concatenate([frames[i:i + 1], frames[i + 1:i + 2]], -1)
+             for i in range(16)]
+    t0 = time.perf_counter()
+    got = pose_eval.predict_pair_poses(state.pose_encoder,
+                                       state.pose_decoder, pairs, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = pose_eval.predict_pair_poses(state.pose_encoder,
+                                        state.pose_decoder, pairs,
+                                        device="cpu")
+    err = float(np.abs(got - want).max())
+    gt = [np.eye(4)]
+    for i in range(16):
+        T = np.eye(4)
+        a = 0.01 * math.sin(i / 3.0)
+        T[:3, :3] = [[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                     [-math.sin(a), 0, math.cos(a)]]
+        T[:3, 3] = [0.02 * math.cos(i), 0.0, 1.0]
+        gt.append(gt[-1] @ T)
+    mean, std, ates = pose_eval.trajectory_ates(
+        got, np.stack([g[:3] for g in gt]))
+    log(f"cli pose eval: predict_pair_poses on 16 pairs at 1024x320: card "
+        f"{secs:.4f} s (host clock, untimed first call), card vs CPU max "
+        f"|difference| {err:.3e} (max 1e-4); trajectory_ates on the "
+        f"synthetic ground truth: mean {mean:.6e} std {std:.6e} over "
+        f"{len(ates)} windows")
+    if not err <= 1e-4 or not (math.isfinite(mean) and math.isfinite(std)):
+        raise AssertionError("pose eval failed")
+
+
 def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -2447,10 +2761,12 @@ def main() -> int:
     bench_launches = timed("phase 10", phase_bench, dev)
     torch.cuda.empty_cache()
     harden = timed("phase 11", phase_harden, dev)
+    torch.cuda.empty_cache()
+    cli = timed("phase 12", phase_cli, dev)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
                          + distill_launches[name] + bench_launches[name]
-                         + harden[name])
+                         + harden[name] + cli[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "host_ms",

@@ -1,4 +1,4 @@
-"""Weights into the port's MonodepthModel state dict.
+"""Weights into the port's state dicts.
 
 (a) `from_jax_variables`: the JAX package's flax variables of a
     MonodepthModel, as a tree of numpy arrays (HWIO kernels, BatchNorm
@@ -8,17 +8,19 @@
     `from_jax_train_state` takes the JAX trainer's collections
     ({"params": {"depth": ...}, "batch_stats": {"depth": ...}});
     `from_jax_distill_state` a JAX `DistillState` with its Adam moments.
-    A JAX `HardeningTrainer`'s contrastive head, the `simsiam`
-    collection, converts with `from_jax_simsiam` (Dense kernels
-    transposed; BatchNorm scale/bias/mean/var); `from_jax_hardening_state`
-    takes the whole JAX trainer state: student, head, Adam moments, step.
-(b) `load_reference_state_dict`: the reference checkpoints'
-    `encoder.pth` / `depth.pth` key layout ("encoder."-prefixed
-    torchvision trunk with fc head and metadata keys; "decoder.<idx>"
-    ModuleList), which is the port's own naming
-    (cf. `depthmodelhardening_tpu/models/torch_import.py:67-130`).
+    A JAX `HardeningTrainer`'s other collections convert with
+    `from_jax_simsiam` (the contrastive head: Dense kernels transposed,
+    BatchNorm scale/bias/mean/var), `from_jax_encoder` (the pose
+    encoder, a bare ResNet trunk) and `from_jax_convs` (the pose
+    decoder; PoseCNN); `from_jax_hardening_state` takes the whole JAX
+    trainer state: student, heads, pose nets, Adam moments, step.
+(b) `load_reference_state_dict`: the reference checkpoints' layouts
+    (`encoder.pth` + `depth.pth`, which is the port's own naming;
+    `pose_encoder.pth`, `pose.pth`, PoseCNN's and SimSiam's, renamed to
+    the port's module names; cf. `depthmodelhardening_tpu/models/
+    torch_import.py:67-190`).
 
-Both return a state dict for `model.load_state_dict(..., strict=True)`.
+All return a state dict for `module.load_state_dict(..., strict=True)`.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from .depth_decoder import decoder_module_names
 
-_METADATA_KEYS = {"height", "width", "use_stereo", "min_depth_bin",
+METADATA_KEYS = {"height", "width", "use_stereo", "min_depth_bin",
                   "max_depth_bin"}
 
 
@@ -65,16 +67,13 @@ def _encoder_module_path(scope: Sequence[str]) -> str:
     return ".".join(parts)
 
 
-def from_jax_variables(variables: Mapping,
-                       scales: Sequence[int] = (0, 1, 2, 3)
-                       ) -> Dict[str, torch.Tensor]:
-    """flax MonodepthModel variables {"params": {"encoder", "decoder"},
-    "batch_stats": {"encoder"}} -> the port's state dict."""
+def _encoder_sd(params: Mapping, stats: Mapping, prefix: str
+                ) -> Dict[str, torch.Tensor]:
+    """flax ResnetEncoder params and batch_stats -> torchvision-named
+    entries under `prefix`."""
     sd: Dict[str, torch.Tensor] = {}
-    enc_params = _flatten(variables["params"]["encoder"])
-    enc_stats = _flatten(variables.get("batch_stats", {}).get("encoder", {}))
-    for path, v in enc_params.items():
-        mod = "encoder." + _encoder_module_path(path[:-1])
+    for path, v in _flatten(params).items():
+        mod = prefix + _encoder_module_path(path[:-1])
         leaf = path[-1]
         if leaf == "kernel":
             sd[f"{mod}.weight"] = _kernel(v)
@@ -82,11 +81,21 @@ def from_jax_variables(variables: Mapping,
             sd[f"{mod}.weight"] = _t(v)
         else:
             sd[f"{mod}.{leaf}"] = _t(v)
-    for path, v in enc_stats.items():
-        mod = "encoder." + _encoder_module_path(path[:-1])
+    for path, v in _flatten(stats).items():
+        mod = prefix + _encoder_module_path(path[:-1])
         sd[f"{mod}.running_{path[-1]}"] = _t(v)
         sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
+    return sd
 
+
+def from_jax_variables(variables: Mapping,
+                       scales: Sequence[int] = (0, 1, 2, 3)
+                       ) -> Dict[str, torch.Tensor]:
+    """flax MonodepthModel variables {"params": {"encoder", "decoder"},
+    "batch_stats": {"encoder"}} -> the port's state dict."""
+    sd = _encoder_sd(variables["params"]["encoder"],
+                     variables.get("batch_stats", {}).get("encoder", {}),
+                     "encoder.")
     index = {n: i for i, n in enumerate(decoder_module_names(scales))}
     for path, v in _flatten(variables["params"]["decoder"]).items():
         # upconv_i_j/conv/conv/{kernel,bias}: ConvBlock -> Conv3x3 -> Conv2d
@@ -95,6 +104,27 @@ def from_jax_variables(variables: Mapping,
         leaf = "weight" if path[-1] == "kernel" else "bias"
         key = f"decoder.decoder.{index[path[0]]}.{inner}.{leaf}"
         sd[key] = _kernel(v) if leaf == "weight" else _t(v)
+    return sd
+
+
+def from_jax_encoder(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax ResnetEncoder variables {"params", "batch_stats"} (or
+    {"params": grads}) -> the state dict of the port's bare
+    `models/resnet.py:ResnetEncoder` (the pose encoder's: its 6-channel
+    stem converts as any other conv)."""
+    return _encoder_sd(variables["params"],
+                       variables.get("batch_stats", {}), "")
+
+
+def from_jax_convs(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax variables of modules made of named Convs, {"params": {name:
+    {"kernel", "bias"}}} (or gradients) -> the state dict of the port's
+    module of the same names: `models/pose.py`'s PoseDecoder and
+    PoseCNN."""
+    sd: Dict[str, torch.Tensor] = {}
+    for (mod, leaf), v in _flatten(variables["params"]).items():
+        sd[f"{mod}.{'weight' if leaf == 'kernel' else leaf}"] = (
+            _kernel(v) if leaf == "kernel" else _t(v))
     return sd
 
 
@@ -136,29 +166,42 @@ def _adam_state(adam, mu: Mapping, nu: Mapping):
                    "exp_avg_sq": nu[name]} for name in mu}
 
 
+# the JAX trainer's collections -> (the port's key, converter of a
+# collection's variables or of a tree of its gradients or moments)
+_COLLECTIONS = {
+    "simsiam": ("simsiam", lambda v: from_jax_simsiam(v)),
+    "pose_encoder": ("pose_encoder", lambda v: from_jax_encoder(v)),
+    "pose_decoder": ("pose_decoder", lambda v: from_jax_convs(v)),
+}
+
+
 def from_jax_hardening_state(state, scales: Sequence[int] = (0, 1, 2, 3)
                              ) -> Dict[str, object]:
     """A JAX `HardeningTrainer` state (params and batch_stats keyed by
-    collection, "depth" and, with the contrastive branch, "simsiam";
-    `optax.adam`'s opt_state; step; arrays or numpy) -> {"model": the
-    student's state dict, "simsiam": the head's (or None), "adam":
-    {"model": {parameter name: torch.optim.Adam state}, "simsiam":
-    {...}}, "step": int}, for `HardeningTrainer.make_state(resume=...)`."""
+    collection: "depth", with the contrastive branch "simsiam", with
+    temporal frame ids "pose_encoder" and "pose_decoder"; `optax.adam`'s
+    opt_state; step; arrays or numpy) -> {"model": the student's state
+    dict, "simsiam", "pose_encoder", "pose_decoder": the heads' (None
+    where absent), "adam": {the same keys: {parameter name:
+    torch.optim.Adam state}}, "step": int}, for
+    `HardeningTrainer.make_state(resume=...)`."""
     adam = state.opt_state[0]  # optax.adam = chain(scale_by_adam, lr)
     out = {"model": from_jax_variables(
         {"params": state.params["depth"],
          "batch_stats": state.batch_stats["depth"]}, scales),
-        "simsiam": None, "adam": {}, "step": int(np.asarray(state.step))}
+        "adam": {}, "step": int(np.asarray(state.step))}
     out["adam"]["model"] = _adam_state(
         adam, from_jax_variables({"params": adam.mu["depth"]}, scales),
         from_jax_variables({"params": adam.nu["depth"]}, scales))
-    if "simsiam" in state.params:
-        out["simsiam"] = from_jax_simsiam(
-            {"params": state.params["simsiam"],
-             "batch_stats": state.batch_stats["simsiam"]})
-        out["adam"]["simsiam"] = _adam_state(
-            adam, from_jax_simsiam({"params": adam.mu["simsiam"]}),
-            from_jax_simsiam({"params": adam.nu["simsiam"]}))
+    for coll, (key, convert) in _COLLECTIONS.items():
+        out[key] = None
+        if coll not in state.params:
+            continue
+        out[key] = convert({"params": state.params[coll],
+                            "batch_stats": state.batch_stats.get(coll, {})})
+        out["adam"][key] = _adam_state(
+            adam, convert({"params": adam.mu[coll]}),
+            convert({"params": adam.nu[coll]}))
     return out
 
 
@@ -180,20 +223,76 @@ def from_jax_distill_state(state, scales: Sequence[int] = (0, 1, 2, 3)
     }
 
 
-def load_reference_state_dict(encoder_sd: Mapping, decoder_sd: Mapping
-                              ) -> Dict[str, torch.Tensor]:
-    """Reference `encoder.pth` + `depth.pth` dicts -> the port's state
-    dict. Drops the classifier head and the metadata keys."""
-    sd: Dict[str, torch.Tensor] = {}
-    for key, v in encoder_sd.items():
-        if key in _METADATA_KEYS:
+def _reference_encoder(sd: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A reference `encoder.pth` / `pose_encoder.pth` dict -> entries
+    under `prefix`, less the classifier head and the metadata keys."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in sd.items():
+        if key in METADATA_KEYS:
             continue
         name = key[len("encoder."):] if key.startswith("encoder.") else key
-        if name.startswith("fc."):
-            continue
-        sd["encoder." + name] = _t(v)
-    for key, v in decoder_sd.items():
-        if not key.startswith("decoder."):
-            raise KeyError(f"unexpected depth decoder key {key!r}")
-        sd["decoder." + key] = _t(v)
-    return sd
+        if not name.startswith("fc."):
+            out[prefix + name] = _t(v)
+    return out
+
+
+def _renamed(sd: Mapping, rename) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in sd.items():
+        new = rename(key)
+        if new is None:
+            raise KeyError(f"unexpected reference key {key!r}")
+        out[new] = _t(v)
+    return out
+
+
+def _sub(pattern: str, repl):
+    return lambda key: (re.sub(pattern, repl, key, count=1)
+                        if re.match(pattern, key) else None)
+
+
+# the reference PoseDecoder's `net` ModuleList order (pose_decoder.py:25-33)
+_POSE_NET = ("squeeze", "pose_0", "pose_1", "pose_2")
+REFERENCE_KINDS = ("depth", "pose_encoder", "pose", "pose_cnn", "simsiam")
+
+
+def load_reference_state_dict(sd: Mapping, decoder_sd: Mapping = None,
+                              kind: str = "depth"
+                              ) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint's state dict -> the state dict of the
+    port's module of `kind` (cf. `depthmodelhardening_tpu/models/
+    torch_import.py:67-190`):
+
+    * "depth": `encoder.pth` (sd) + `depth.pth` (decoder_sd) ->
+      MonodepthModel: the "encoder."-prefixed torchvision trunk (the
+      classifier head and the metadata keys dropped) and the
+      "decoder.<idx>" ModuleList, the port's own naming;
+    * "pose_encoder": `pose_encoder.pth` -> ResnetEncoder(
+      num_input_images=2) (its conv1 takes 6 channels);
+    * "pose": `pose.pth` -> PoseDecoder (`net.<i>`: squeeze, pose_0,
+      pose_1, pose_2);
+    * "pose_cnn": PoseCNN's (`net.<i>` -> convs_<i>, `pose_conv`);
+    * "simsiam": the contrastive head's (`projector.<i>` /
+      `predictor.<i>` Sequentials, BatchNorm1d at projector 1, 4, 7 and
+      predictor 1) -> SimSiam's `projector_<i>` / `predictor_<i>`.
+    """
+    if kind == "depth":
+        if decoder_sd is None:
+            raise ValueError("kind 'depth' needs depth.pth as decoder_sd")
+        out = _reference_encoder(sd, "encoder.")
+        out.update(_renamed(decoder_sd, _sub(r"decoder\.", "decoder.decoder.")))
+        return out
+    if decoder_sd is not None:
+        raise ValueError(f"kind {kind!r} reads one state dict")
+    if kind == "pose_encoder":
+        return _reference_encoder(sd, "")
+    if kind == "pose":
+        return _renamed(sd, _sub(r"net\.(\d+)\.",
+                                 lambda m: f"{_POSE_NET[int(m[1])]}."))
+    if kind == "pose_cnn":
+        return _renamed(sd, lambda k: (_sub(r"net\.(\d+)\.", r"convs_\1.")(k)
+                                       or _sub(r"pose_conv\.", "pose_conv.")(k)))
+    if kind == "simsiam":
+        return _renamed(sd, _sub(r"(projector|predictor)\.(\d+)\.", r"\1_\2."))
+    raise ValueError(f"unknown reference kind {kind!r}; one of "
+                     f"{REFERENCE_KINDS}")

@@ -94,18 +94,22 @@ class BasicBlock(nn.Module):
 class ResnetEncoder(nn.Module):
     """ResNet trunk returning the 5 multi-scale feature maps (NCHW).
 
-    Input: (B, 3, H, W) in [0, 1], H and W multiples of 32. The features
-    come out in the compute dtype.
+    Input: (B, 3 * num_input_images, H, W) in [0, 1], H and W multiples
+    of 32: `num_input_images` frames stacked on the channels (2: the pose
+    encoder's pair, JAX :341-350). The features come out in the compute
+    dtype.
     """
 
-    def __init__(self, num_layers: int = 18):
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
         super().__init__()
         if num_layers not in _STAGES:
             raise NotImplementedError(
                 f"ResNet-{num_layers}: only BasicBlock encoders (18, 34) "
                 "are ported; Bottleneck ResNets are a later slice")
         self.num_layers = num_layers
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.num_input_images = num_input_images
+        self.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, 2, 3,
+                               bias=False)
         self.bn1 = _bn(64)
         cin = 64
         for i, (blocks, width) in enumerate(

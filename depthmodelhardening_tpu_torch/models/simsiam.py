@@ -15,12 +15,10 @@ running variance takes torch's unbiased batch variance (flax: biased).
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn as nn
 
-from .wrappers import LECUN_TRUNC_STD
+from .wrappers import flax_init_
 
 
 def _cosine(a, b, eps: float = 1e-8):
@@ -75,20 +73,8 @@ class SimSiam(nn.Module):
                  + torch.mean(_cosine(p2, z1.detach()))) * 0.5
 
 
-@torch.no_grad()
 def init_simsiam(generator: torch.Generator, **kw) -> SimSiam:
     """A SimSiam head with flax's default initialisation drawn from
-    `generator`: lecun-normal Dense kernels (a normal truncated at +-2
-    std, its std raised so the variance stays 1 / fan_in), zero biases,
-    identity BatchNorm."""
-    head = SimSiam(**kw)
-    for m in head.modules():
-        if isinstance(m, nn.Linear):
-            std = 1.0 / math.sqrt(m.in_features) / LECUN_TRUNC_STD
-            nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std,
-                                  b=2.0 * std, generator=generator)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm1d):
-            m.reset_parameters()
-    return head
+    `generator` (`models/wrappers.py:flax_init_`: lecun-normal Dense
+    kernels, zero biases, identity BatchNorm)."""
+    return flax_init_(SimSiam(**kw), generator)

@@ -146,18 +146,15 @@ def make_monodepth2(num_layers: int = 18,
 
 
 @torch.no_grad()
-def init_monodepth2(generator: torch.Generator, num_layers: int = 18,
-                    scales: Sequence[int] = (0, 1, 2, 3),
-                    dtype=torch.float32, fold_bn: bool = False
-                    ) -> MonodepthModel:
-    """A MonodepthModel with flax's default initialisation drawn from
-    `generator`: lecun-normal conv kernels (`nn.initializers.
-    lecun_normal()`: a normal truncated at +-2 std, its std raised so the
-    variance stays 1 / fan_in), zero biases, identity BatchNorm (scale 1,
-    bias 0, running mean 0, running var 1)."""
-    model = make_monodepth2(num_layers, scales, dtype, fold_bn)
-    for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise `module` in place as flax's defaults do, drawing from
+    `generator` in `module.modules()` order: lecun-normal conv and dense
+    kernels (`nn.initializers.lecun_normal()`: a normal truncated at +-2
+    std, its std raised so the variance stays 1 / fan_in), zero biases,
+    identity BatchNorm (scale 1, bias 0, running mean 0, running var 1).
+    Returns the module."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             # the std of a unit normal truncated at +-2 is 0.87962566...
             std = 1.0 / math.sqrt(fan_in) / LECUN_TRUNC_STD
@@ -165,9 +162,19 @@ def init_monodepth2(generator: torch.Generator, num_layers: int = 18,
                                   b=2.0 * std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_parameters()
-    return model
+    return module
+
+
+def init_monodepth2(generator: torch.Generator, num_layers: int = 18,
+                    scales: Sequence[int] = (0, 1, 2, 3),
+                    dtype=torch.float32, fold_bn: bool = False
+                    ) -> MonodepthModel:
+    """A MonodepthModel with flax's default initialisation drawn from
+    `generator` (`flax_init_`)."""
+    return flax_init_(make_monodepth2(num_layers, scales, dtype, fold_bn),
+                      generator)
 
 
 def predictor_from(model: MonodepthModel, **kw) -> DepthPredictor:

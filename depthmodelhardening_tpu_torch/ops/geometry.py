@@ -54,3 +54,47 @@ def reproject_coords(depth, inv_K, K, T, eps: float = 1e-7):
     (B, H, W, 2) for sampling the other view (trainer.py:508-519)."""
     _, H, W, _ = depth.shape
     return project_3d(backproject_depth(depth, inv_K), K, T, H, W, eps)
+
+
+def rot_from_axisangle(vec):
+    """Axis-angle (B, 1, 3) or (B, 3) -> rotations as 4x4 matrices (B, 4,
+    4): Rodrigues' formula with the reference's 1e-7 guard on the angle
+    (layers.py:64-103)."""
+    vec = vec.reshape(vec.shape[0], 3)
+    angle = torch.linalg.vector_norm(vec, dim=-1, keepdim=True)
+    axis = vec / (angle + 1e-7)
+    ca, sa = torch.cos(angle)[:, 0], torch.sin(angle)[:, 0]
+    C = 1.0 - ca
+    x, y, z = axis[:, 0], axis[:, 1], axis[:, 2]
+    xs, ys, zs = x * sa, y * sa, z * sa
+    xC, yC, zC = x * C, y * C, z * C
+    xyC, yzC, zxC = x * yC, y * zC, z * xC
+    zeros, ones = torch.zeros_like(x), torch.ones_like(x)
+    return torch.stack([
+        x * xC + ca, xyC - zs, zxC + ys, zeros,
+        xyC + zs, y * yC + ca, yzC - xs, zeros,
+        zxC - ys, yzC + xs, z * zC + ca, zeros,
+        zeros, zeros, zeros, ones], dim=-1).reshape(-1, 4, 4)
+
+
+def get_translation_matrix(translation):
+    """Translations (B, 3) or (B, 1, 3) -> 4x4 matrices (B, 4, 4)
+    (layers.py:48-61)."""
+    t = translation.reshape(translation.shape[0], 3)
+    T = torch.eye(4, dtype=t.dtype, device=t.device).repeat(t.shape[0], 1, 1)
+    T[:, :3, 3] = t
+    return T
+
+
+def transformation_from_parameters(axisangle, translation,
+                                   invert: bool = False):
+    """The pose network's (axisangle, translation) -> a 4x4 camera
+    transform (B, 4, 4) (layers.py:28-45): M = T @ R, or with `invert`
+    R^T @ T(-t)."""
+    R = rot_from_axisangle(axisangle)
+    t = translation
+    if invert:
+        R = R.transpose(1, 2)
+        t = -t
+    T = get_translation_matrix(t)
+    return torch.matmul(R, T) if invert else torch.matmul(T, R)

@@ -28,19 +28,40 @@ def _gather_2d(flat, ix, iy, W: int):
     return torch.gather(flat, 1, idx).reshape(Bn, Ho, Wo, -1)
 
 
+class _ClipJax(torch.autograd.Function):
+    """clamp(x, lo, hi) with jnp.clip's derivative: 1 inside, 1/2 on a
+    bound (its max and min split a tie), 0 outside. torch.clamp passes 1
+    on a bound, F.grid_sample's border clamp 0; the port keeps the JAX
+    package's, its parity reference, as kernel C's clip does."""
+
+    @staticmethod
+    def forward(ctx, x, lo: float, hi: float):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return x.clamp(lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = ((x > lo) & (x < hi)).to(g.dtype)
+        tie = ((x == lo) | (x == hi)).to(g.dtype)
+        return g * (inside + 0.5 * tie), None, None
+
+
 def bilinear_sample_pixels(img, x, y, padding_mode: str = "border"):
     """Sample img (B, H, W, C) at pixel coords x, y (B, Ho, Wo).
 
-    "border" clamps the coordinates (grid_sample border semantics);
-    "zeros" gives out-of-range neighbours zero weight. Returns
-    (B, Ho, Wo, C).
+    "border" clamps the coordinates (grid_sample border semantics, with
+    jnp.clip's derivative: `_ClipJax`); "zeros" gives out-of-range
+    neighbours zero weight. Returns (B, Ho, Wo, C).
     """
     if padding_mode not in ("border", "zeros"):
         raise ValueError(f"unknown padding_mode {padding_mode!r}")
     Bn, H, W, C = img.shape
     if padding_mode == "border":
-        x = x.clamp(0.0, W - 1)
-        y = y.clamp(0.0, H - 1)
+        x = _ClipJax.apply(x, 0.0, float(W - 1))
+        y = _ClipJax.apply(y, 0.0, float(H - 1))
     x0f = torch.floor(x)
     y0f = torch.floor(y)
     wx = (x - x0f).to(img.dtype)[..., None]

@@ -15,8 +15,9 @@ BatchNorm fold `fold_bn` (default on, as in JAX), and the attack's
 `mask_wt` and `l0_thresh` (`adv_type="object_l0"`). It leaves out the
 options that only unported code reads (`epochs`, `obj_name`: the CLI).
 `HardeningConfig` carries `fold_bn` (the attack's eval view of the
-student) and trains in float32 only: its bfloat16 compute dtype is
-ROADMAP Queue 1, slice 5e.
+student) and `compute_dtype` "float32" or "bfloat16" (the student's,
+and so its attack view's; the CLI's `train-hardening` default is
+bfloat16).
 """
 
 from __future__ import annotations
@@ -114,6 +115,9 @@ class HardeningConfig:
     scheduler_gamma: float = 0.1
     num_layers: int = 18
     batch_size: int = 32
+    # the student's compute dtype: "float32" or "bfloat16" (parameters
+    # and BatchNorm statistics stay float32; the pose nets and the
+    # SimSiam head compute in float32)
     compute_dtype: str = "float32"
     # DepthHints family (depth-hints/trainer.py:541-591)
     use_depth_hints: bool = False
@@ -126,11 +130,7 @@ class HardeningConfig:
     fold_bn: bool = True
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the hardening "
-                "trainer runs in float32 only; its bfloat16 path is not "
-                "ported yet (ROADMAP Queue 1, slice 5e)")
+        _check_dtype(self.compute_dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +167,10 @@ class DistillConfig:
     ori_w: int = 1242
 
     def __post_init__(self):
-        if self.compute_dtype not in ("float32", "bfloat16"):
-            raise ValueError("compute_dtype must be 'float32' or "
-                             f"'bfloat16', got {self.compute_dtype!r}")
+        _check_dtype(self.compute_dtype)
+
+
+def _check_dtype(compute_dtype: str) -> None:
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError("compute_dtype must be 'float32' or "
+                         f"'bfloat16', got {compute_dtype!r}")

@@ -23,18 +23,31 @@ Counterpart of `depthmodelhardening_tpu/training/hardening.py:55-517`
                 updated after the forward's, in JAX's order);
        photo  = min-reprojection + automask + smoothness over 4 scales
                 (`training/selfsup.py`, the fused SSIM + L1 kernel);
-  4. backward, then Adam over the student and the SimSiam head with the
-     StepLR-equivalent staircase (trainer.py:140-142).
+     with temporal frame ids (mono or mono+stereo, e.g. ("0", "-1", "1",
+     "s")), the pose networks in train mode give each temporal source's
+     transform (`predict_poses`; trainer.py:377-433, "separate_resnet"),
+     and its warp's gradient reaches them through the sampling
+     coordinates;
+  4. backward, then Adam over the student, the SimSiam head and the pose
+     networks with the StepLR-equivalent staircase (trainer.py:140-142).
 
 The non-adversarial step (`selfsup_step`, `selfsup_frames_step`, the
 CLI's --no-adv-train) is steps 2-4 on a plain batch.
 
-The state is a model, the SimSiam head and their optimizer, updated in
-place; the step methods also return it, as the JAX package's do. Random
+The state is a model, the SimSiam head, the pose networks and their
+optimizer, updated in place; the step methods also return it, as the JAX
+package's do (`training/checkpoints.py` saves and restores it). Random
 draws come from the trainer's CPU generator (the automask noise from a
-device generator seeded from it), or are injected (`StepDraws`). The
-temporal frame ids (pose networks), DepthHints, ManyDepth and the
-bfloat16 trainer raise NotImplementedError and name their ROADMAP item.
+device generator seeded from it), or are injected (`StepDraws`).
+DepthHints and ManyDepth raise NotImplementedError and name their
+ROADMAP item.
+
+Compute dtype (`cfg.compute_dtype`, JAX hardening.py:88-115): the
+student computes in it, and so does its attack view; parameters and
+statistics stay float32, the disparities come out of the heads in
+float32 (so kernels C and A see float32), SimSiam casts the features to
+float32, and the pose networks are float32, as the JAX trainer builds
+them. The teacher is whatever the caller built.
 
 BatchNorm: torch's BatchNorm2d / 1d (the reference's) update the running
 variance with the unbiased batch variance, flax with the biased one, so
@@ -55,11 +68,13 @@ from ..attacks.base import PhysObjAttackConfig
 from ..attacks.l0_object import L0Draws, L0ObjectAttack
 from ..attacks.pgd_object import PGDDraws, PGDObjectAttack
 from ..device import resolve_device
+from ..models.pose import PoseDecoder, init_pose_nets, make_pose_nets
+from ..models.resnet import ResnetEncoder
 from ..models.simsiam import SimSiam, init_simsiam
 from ..models.wrappers import (
     EvalView, MonodepthModel, init_monodepth2, make_monodepth2,
 )
-from ..ops.geometry import disp_to_depth
+from ..ops.geometry import disp_to_depth, transformation_from_parameters
 from ..physics.eot import TRAIN_DIST_RANGE, monodepth2_K
 from .adv_synth import (
     SynthDraws, build_plain_batch, draw_jitter, draw_synth,
@@ -69,7 +84,6 @@ from .config import HardeningConfig
 from .selfsup import compute_selfsup_losses, identity_noise_shape
 
 _LATER = {
-    "pose": "ROADMAP Queue 1, slice 5b (pose networks)",
     "model_family": "ROADMAP Queue 1, slice 6 (ManyDepth)",
     "depth_hints": "ROADMAP Queue 1, slice 6 (DepthHints)",
 }
@@ -78,12 +92,24 @@ _LATER = {
 @dataclasses.dataclass
 class TrainState:
     """The student (train mode), the SimSiam head (with the contrastive
-    branch), their Adam optimizer, and the number of steps taken."""
+    branch), the pose encoder and decoder (with temporal frame ids), their
+    one Adam optimizer, and the number of steps taken."""
 
     model: MonodepthModel
     optimizer: torch.optim.Adam
     step: int = 0
     simsiam: Optional[SimSiam] = None
+    pose_encoder: Optional[ResnetEncoder] = None
+    pose_decoder: Optional[PoseDecoder] = None
+
+    def modules(self) -> Dict[str, torch.nn.Module]:
+        """The trained modules present, by name, in the optimizer's
+        parameter order: "model", "simsiam", "pose_encoder",
+        "pose_decoder"."""
+        named = {"model": self.model, "simsiam": self.simsiam,
+                 "pose_encoder": self.pose_encoder,
+                 "pose_decoder": self.pose_decoder}
+        return {k: m for k, m in named.items() if m is not None}
 
 
 @dataclasses.dataclass
@@ -106,9 +132,6 @@ def _scaled_K(height: int, width: int):
 
 def _refuse_unported(cfg: HardeningConfig) -> None:
     checks = (
-        (cfg.selfsup.use_pose_net,
-         f"temporal frame ids {cfg.selfsup.temporal_source_ids} (pose "
-         "networks)", "pose"),
         (cfg.use_depth_hints, "use_depth_hints=True", "depth_hints"),
         (cfg.model_family != "monodepth2" or cfg.manydepth_real_lookup,
          f"model_family={cfg.model_family!r}", "model_family"),
@@ -124,8 +147,9 @@ class HardeningTrainer:
 
     generator: CPU `torch.Generator` of the from-scratch initialisation
       (flax's: truncated lecun-normal kernels, identity BatchNorm), of the
-      SimSiam head's, of the host draws (attack, synthesis, jitter) and
-      of the seed of the device generator that draws the automask noise.
+      SimSiam head's and the pose networks', of the host draws (attack,
+      synthesis, jitter) and of the seed of the device generator that
+      draws the automask noise.
     obj_img (1, h, w, 3), obj_mask (1, h, w, 1): the attacked texture.
     teacher: the frozen `DepthPredictor` of the supervised branch
       (trainer.py:93-95 gt_model); required when cfg.supervised_adv.
@@ -133,7 +157,9 @@ class HardeningTrainer:
       CUDA card (`device.require_cuda`, which raises without one). Tests
       pass "cpu" to run the plain versions of the kernels.
     init_state_dict: the student's weights instead (e.g. converted with
-      `models/convert.py`), as --fine-tune does.
+      `models/convert.py`), as --fine-tune does; the head and the pose
+      networks start from the generator's draws all the same, as the
+      JAX trainer's do under --fine-tune.
     """
 
     def __init__(self, cfg: HardeningConfig, generator: torch.Generator,
@@ -158,6 +184,10 @@ class HardeningTrainer:
         if cfg.contrastive_learning:
             self._init_simsiam = _cpu_copy(
                 init_simsiam(generator).state_dict())
+        self._init_pose = None
+        if ss.use_pose_net:
+            self._init_pose = tuple(_cpu_copy(m.state_dict())
+                                    for m in init_pose_nets(generator))
         K, inv_K = _scaled_K(ss.height, ss.width)
         self._K = torch.from_numpy(K).to(self.device)
         self._inv_K = torch.from_numpy(inv_K).to(self.device)
@@ -212,32 +242,33 @@ class HardeningTrainer:
 
     # -- state ----------------------------------------------------------------
     def make_state(self, resume: Optional[Mapping] = None) -> TrainState:
-        """A fresh student (and SimSiam head) from the initial weights, in
-        train mode, with a new Adam over both (b1 0.9, b2 0.999, eps 1e-8
-        outside the square root: optax.adam's); or, with `resume`
-        (`models/convert.py:from_jax_hardening_state`), that student,
-        head, Adam state and step."""
-        model = make_monodepth2(self.cfg.num_layers, self.cfg.selfsup.scales,
-                                fold_bn=self.cfg.fold_bn)
-        model.load_state_dict(self._init_state_dict if resume is None
-                              else resume["model"])
-        model = model.to(self.device).train()
-        params = list(model.parameters())
-        simsiam = None
+        """A fresh student (and SimSiam head, and pose networks) from the
+        initial weights, in train mode, with a new Adam over all of them
+        (b1 0.9, b2 0.999, eps 1e-8 outside the square root: optax.adam's);
+        or, with `resume` (`models/convert.py:from_jax_hardening_state`),
+        those modules, the Adam state and the step."""
+        cfg = self.cfg
+        modules = {"model": make_monodepth2(
+            cfg.num_layers, cfg.selfsup.scales, dtype=cfg.compute_dtype,
+            fold_bn=cfg.fold_bn)}
+        init = {"model": self._init_state_dict}
         if self._init_simsiam is not None:
-            simsiam = SimSiam()
-            simsiam.load_state_dict(self._init_simsiam if resume is None
-                                    else resume["simsiam"])
-            simsiam = simsiam.to(self.device).train()
-            params += list(simsiam.parameters())
+            modules["simsiam"] = SimSiam()
+            init["simsiam"] = self._init_simsiam
+        if self._init_pose is not None:
+            modules["pose_encoder"], modules["pose_decoder"] = \
+                make_pose_nets()
+            init["pose_encoder"], init["pose_decoder"] = self._init_pose
+        for key, module in modules.items():
+            module.load_state_dict(init[key] if resume is None
+                                   else resume[key])
+            modules[key] = module.to(self.device).train()
+        params = [p for m in modules.values() for p in m.parameters()]
         opt = torch.optim.Adam(params, lr=self.learning_rate(0),
                                betas=(0.9, 0.999), eps=1e-8)
-        state = TrainState(model=model, optimizer=opt, step=0,
-                           simsiam=simsiam)
+        state = TrainState(optimizer=opt, step=0, **modules)
         if resume is not None:
-            for key, module in (("model", model), ("simsiam", simsiam)):
-                if module is None:
-                    continue
+            for key, module in modules.items():
                 named = dict(module.named_parameters())
                 for name, st in resume["adam"][key].items():
                     opt.state[named[name]] = {
@@ -333,13 +364,35 @@ class HardeningTrainer:
         with torch.no_grad():
             return self.teacher(images)
 
-    def _losses(self, model, batch, identity_noise,
-                simsiam: Optional[SimSiam] = None
+    def predict_poses(self, state: TrainState, color_aug
+                      ) -> Dict[str, torch.Tensor]:
+        """{fid: (B, 4, 4)} for each temporal source frame: the pose
+        networks in the modules' mode (train mode in a step, their
+        encoder's statistics updated once a source, in
+        `temporal_source_ids` order; JAX `_predict_poses_mutable`,
+        hardening.py:367-389). The pair is [f, "0"] for f < 0 with the
+        transform inverted, ["0", f] otherwise, so each maps target-frame
+        points into the source camera."""
+        poses = {}
+        for fid in self.cfg.selfsup.temporal_source_ids:
+            f = int(fid)
+            pair = ((color_aug[fid], color_aug["0"]) if f < 0
+                    else (color_aug["0"], color_aug[fid]))
+            feats = state.pose_encoder(torch.cat(pair, dim=-1)
+                                       .permute(0, 3, 1, 2))
+            axisangle, translation = state.pose_decoder([feats])
+            poses[fid] = transformation_from_parameters(
+                axisangle[:, 0], translation[:, 0], invert=f < 0)
+        return poses
+
+    def _losses(self, state: TrainState, batch, identity_noise
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The weighted sum of the configured branches and each of them
         (JAX `_losses`, hardening.py:265-365); the train-mode passes
-        update the BatchNorm statistics in JAX's order."""
+        update the BatchNorm statistics in JAX's order (the student's,
+        the head's, then the pose encoder's)."""
         cfg, ss = self.cfg, self.cfg.selfsup
+        model = state.model
         feats_aug, disps = self._features_and_disps(model, batch)
         metrics = {}
         total = 0.0
@@ -361,11 +414,14 @@ class HardeningTrainer:
             total = total + loss_sup
         if cfg.contrastive_learning:
             feats_ben = model.encode(batch["color_ben"])
-            contras = cfg.contras_loss_wt * simsiam(feats_aug, feats_ben)
+            contras = cfg.contras_loss_wt * state.simsiam(feats_aug,
+                                                          feats_ben)
             metrics["contras_loss"] = contras
             total = total + contras
         if not cfg.no_original_train:
-            selfsup, _ = compute_selfsup_losses(disps, batch, {},
+            poses = (self.predict_poses(state, batch["color_aug"])
+                     if ss.use_pose_net else {})
+            selfsup, _ = compute_selfsup_losses(disps, batch, poses,
                                                 identity_noise, ss)
             metrics["selfsup_loss"] = selfsup
             total = total + selfsup
@@ -380,12 +436,10 @@ class HardeningTrainer:
         if identity_noise is None:
             identity_noise = self.draw_identity_noise(
                 batch["color"]["0"].shape[0])
-        state.model.train()
-        if state.simsiam is not None:
-            state.simsiam.train()
+        for module in state.modules().values():
+            module.train()
         state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = self._losses(state.model, batch, identity_noise,
-                                      state.simsiam)
+        total, metrics = self._losses(state, batch, identity_noise)
         total.backward()
         self._apply_grads(state)
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -7,6 +7,10 @@ Batch layout (NHWC tensors, frame ids are strings so "s" can join
   batch["color"][fid], batch["color_aug"][fid]: (B, H, W, 3)
   batch["K"], batch["inv_K"]: (B, 4, 4) intrinsics at scale 0
   batch["stereo_T"]: (B, 4, 4) when "s" is in frame_ids
+  poses[fid]: (B, 4, 4) for each temporal frame id, the pose networks'
+    transform (`training/hardening.py:HardeningTrainer.predict_poses`);
+    those frames warp through the general 2-D sampler, whose gradient
+    reaches the poses through the sampling coordinates
 
 The identity automask's tie-break noise is an input here (a standard
 normal draw of the identity loss's shape, scaled by 1e-5 inside), so a
@@ -39,12 +43,6 @@ def _stereo_is_pure_x(T) -> bool:
                 and torch.allclose(Tn[:, 1:3, 3],
                                    torch.zeros_like(Tn[:, 1:3, 3]),
                                    rtol=1e-5, atol=1e-6))
-
-
-def predict_poses(*args, **kwargs):
-    raise NotImplementedError(
-        "pose networks (monocular frame ids) are not ported yet: ROADMAP "
-        "Queue 1, slice 5b (models/pose.py)")
 
 
 def generate_images_pred(disps, batch, poses, cfg: SelfSupConfig):

@@ -810,3 +810,145 @@ def test_fold_follows_adam_steps(weights, student_weights, scene):
     assert not torch.equal(after, before)
     assert state.model.training
 
+
+
+# -- the CLI's bf16 hardening step ------------------------------------------
+HARDEN_H, HARDEN_W, HARDEN_B = 64, 192, 4  # tests/test_torch_hardening.py's
+
+
+@pytest.fixture(scope="module")
+def harden_bf16_step(weights, student_weights):
+    """One port `train_step` of the CLI's `train-hardening --fine-tune`
+    configuration in bf16 (bf16 student, float32 teacher, frames ("0",
+    "s"), L0 with one step, supervised + photometric; the contrastive
+    branch off, see the test) at the hardening tests' sizes, on its own
+    draws with JAX's automask noise; JAX's bf16 and float32 `_losses`
+    gradients on the batch it built."""
+    from depthmodelhardening_tpu.models.wrappers import (
+        predictor_from as j_predictor_from,
+    )
+    from depthmodelhardening_tpu.training import config as jc
+    from depthmodelhardening_tpu.training.hardening import (
+        HardeningTrainer as JHardeningTrainer,
+    )
+    from depthmodelhardening_tpu_torch.data.synthetic import make_car_object
+    from depthmodelhardening_tpu_torch.models.convert import (
+        from_jax_hardening_state,
+    )
+    from depthmodelhardening_tpu_torch.models.wrappers import predictor_from
+    from depthmodelhardening_tpu_torch.training import config as tc
+    from depthmodelhardening_tpu_torch.training.hardening import (
+        HardeningTrainer,
+    )
+
+    ori_h, ori_w = 96, 320
+    obj, mask = make_car_object(36, 24, seed=3)
+    kw = lambda m: dict(
+        selfsup=m.SelfSupConfig(height=HARDEN_H, width=HARDEN_W),
+        adv=m.AdvSynthConfig(norm_type="l_0", steps=1, attack_batch_size=2,
+                             ori_h=ori_h, ori_w=ori_w),
+        batch_size=HARDEN_B, contrastive_learning=False)
+    teacher = j_predictor_from(j_make_monodepth2(), weights["jv"])
+    trs = {dt: JHardeningTrainer(
+        jc.HardeningConfig(compute_dtype=dt, **kw(jc)), jax.random.PRNGKey(0),
+        obj, mask, teacher=teacher, steps_per_epoch=10,
+        init_variables={"depth": student_weights["jv"]})
+        for dt in ("bfloat16", "float32")}
+    state = trs["bfloat16"].make_state()
+
+    t_model = make_monodepth2()
+    t_model.load_state_dict(weights["sd"])
+    port = HardeningTrainer(
+        tc.HardeningConfig(compute_dtype="bfloat16", **kw(tc)),
+        torch.Generator().manual_seed(0), obj, mask,
+        predictor_from(t_model), device="cpu", steps_per_epoch=10)
+    p_state = port.make_state(resume=from_jax_hardening_state(
+        jax.tree_util.tree_map(np.array, state)))
+    f0 = make_scene(HARDEN_B, ori_h, ori_w, seed=1)
+    frames = {"0": torch.from_numpy(f0),
+              "s": torch.from_numpy(np.roll(f0, 6, axis=2))}
+    k_loss = jax.random.PRNGKey(7)
+    draws = port.draw(HARDEN_B, torch.Generator().manual_seed(8))
+    draws.identity_noise = torch.from_numpy(np.array(jax.random.normal(
+        k_loss, (HARDEN_B, HARDEN_H, HARDEN_W, 1))))
+    batches = []
+    update = port._update
+    port._update = lambda s, batch, n: (batches.append(batch),
+                                        update(s, batch, n))[1]
+    p_state, metrics = port.train_step(
+        p_state, frames, torch.tensor([True, False, False, True]),
+        torch.tensor([False, True, False, True]),
+        torch.from_numpy(make_scene(1, ori_h, ori_w, seed=2)), draws=draws)
+    batch = jax.tree_util.tree_map(lambda t: jnp.asarray(t.numpy()),
+                                   batches[0])
+    out = {}
+    for dt, tr in trs.items():
+        grads, (_, m) = jax.jit(jax.grad(tr._losses, has_aux=True))(
+            state.params, state.batch_stats, batch, k_loss)
+        out[dt] = (from_jax_variables({"params": jax.tree_util.tree_map(
+            np.array, grads["depth"])}), {k: float(v) for k, v in m.items()})
+    return dict(state=p_state, metrics=metrics, jax=out)
+
+
+def test_bf16_hardening_step_matches_jax(harden_bf16_step):
+    """The CLI's bf16 hardening step against JAX's bf16 `_losses` on the
+    port's batch, under the bench step's rule
+    (`test_bench_config_step_matches_jax`): each student tensor's gradient
+    within NOISE_X times its JAX bf16-vs-float32 relative L2 (its noise)
+    plus NOISE_ATOL of JAX's bf16 gradient, and within min(F32_X times
+    the noise + F32_ATOL, F32_CAP) of JAX's float32 one (a zeroed or
+    sign-flipped tensor lies 1 or more from it); all of them within
+    STEP_L2_ALL of JAX's bf16 overall. Two cases the bench step's
+    distillation loss did not meet, each with the bound a fault would
+    still fail:
+    - where the port lies nearer JAX's float32 gradient than JAX's bf16
+      one does (err32 <= noise), the first bound is not asked: JAX sums
+      the bias gradients in bf16 and stalls (dispconv_1's bias: the port
+      0.28 from float32, JAX's bf16 0.73 from it and 3.7 from the port,
+      relative to its smaller norm), as the bench step's docstring found;
+    - where JAX's own noise reaches F32_CAP, a tensor is held no farther
+      from float32 than JAX's bf16 (err32 <= noise) in place of the cap:
+      the scale-2 and scale-3 heads (dispconv_2, _3), whose gradients are
+      1-2% of the largest tensor's and cancel, lie 1.22 and 1.39 (weights)
+      from float32 in JAX's bf16, 0.92 and 0.87 in the port's; there no
+      rule tells a fault from bf16's rounding.
+    Measured: overall 0.118 from JAX's bf16 (whose own distance to
+    float32 is 0.120).
+
+    Each loss term within STEP_LOSS_RTOL["whole"] of JAX's bf16 one
+    (sup 1.6e-3, photometric 1.4e-4 measured; JAX's bf16 sup loss lies
+    3.6e-3 from its float32 one). The student is bf16, its parameters
+    float32.
+
+    The contrastive branch is off here: at batch 4 SimSiam's BatchNorm1d
+    over four samples turns bf16's rounding of the deep features into
+    its whole gradient (JAX's own bf16 gradient lies 1.06 overall from
+    its float32 one with the branch on, 0.36 at batch 8), so no rule can
+    tell a fault from the noise; the branch is in float32 either way
+    (the head casts the features, as JAX's does), and
+    `chip_smoke.py` phase 12 runs the full CLI configuration at batch
+    32."""
+    st = harden_bf16_step
+    state = st["state"]
+    assert state.model.dtype == torch.bfloat16
+    (g16, m16), (g32, _) = st["jax"]["bfloat16"], st["jax"]["float32"]
+    got_m = {k: float(v) for k, v in st["metrics"].items()}
+    assert set(got_m) == set(m16) == {"sup_loss", "selfsup_loss", "loss"}
+    for k in got_m:
+        assert got_m[k] == pytest.approx(m16[k], rel=STEP_LOSS_RTOL["whole"])
+    params = dict(state.model.named_parameters())
+    assert all(p.dtype == torch.float32 for p in params.values())
+    got = {n: p.grad for n, p in params.items() if p.grad is not None}
+    assert len(got) == len(params)
+    for n in got:
+        noise = _rl2(g16[n], g32[n])
+        err, err32 = _rl2(got[n], g16[n]), _rl2(got[n], g32[n])
+        assert err <= NOISE_X * noise + NOISE_ATOL or err32 <= noise, (
+            n, err, err32, noise)
+        if noise < F32_CAP:
+            assert err32 <= min(F32_X * noise + F32_ATOL, F32_CAP), (
+                n, err32, noise)
+        else:
+            assert err32 <= noise, (n, err32, noise)
+    allg = lambda d: np.concatenate([d[n].numpy().ravel() for n in got])
+    assert _rl2(allg(got), allg(g16)) <= STEP_L2_ALL

@@ -1,7 +1,9 @@
 """The port's hardening step (BASELINE config 4) against the JAX package's
 `training/hardening.py`: the stereo-consistent synthesis, SimSiam, the
 state conversion and `HardeningTrainer.train_step` with the L0 attack
-(the recipe's) and with L-inf PGD.
+(the recipe's), with L-inf PGD, and with the mono+stereo frame ids ("0",
+"-1", "1", "s"; the pose networks, L-inf PGD with one step, as JAX's
+`test_hardening_step_mono_pose`).
 
 Sizes of the JAX package's hardening tests (`tests/test_training.py:
 27-29`): the model at 64x192, 96x320 frames and scenes, a 24x36 car,
@@ -54,18 +56,21 @@ Tolerances, and why:
     -6.0e-5 against elements up to 0.43 elsewhere, a sum over the
     scale-3 pixels that cancels (the port's is -4.0e-5 on the l_0
     batch). Measured worst tensor 1.6e-2 with l_inf, overall 4.6e-3
-    and 1.3e-2;
+    and 1.3e-2; mono+stereo: the student 1.3e-2 worst and 9.0e-3
+    overall, the pose encoder 9.1e-3 and 1.1e-3, the pose decoder
+    2.1e-4 and 1.6e-4 (its gradient comes through the temporal warps'
+    sampling coordinates);
   - BatchNorm running means 1e-4 relative + 1e-6, variances JAX's
     updates times n / (n - 1), the same; the head's with 1e-5 absolute
     (its inputs carry the encoder's feature rounding; 1.6e-6 measured on
     a mean of 0.03); the encoder's and the head's statistics are
     updated twice a step (the adversarial forward and the benign
-    encode; the two views of the head).
+    encode; the two views of the head), and so are the pose encoder's
+    (once a temporal source).
 """
 
 import copy
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -77,6 +82,10 @@ from depthmodelhardening_tpu.attacks.pgd_object import (
     PGDObjectAttack as JPGDObjectAttack,
 )
 from depthmodelhardening_tpu.data.synthetic import make_car_object, make_scene
+from depthmodelhardening_tpu.models.pose import PoseDecoder as JPoseDecoder
+from depthmodelhardening_tpu.models.resnet import (
+    ResnetEncoder as JResnetEncoder,
+)
 from depthmodelhardening_tpu.models.simsiam import SimSiam as JSimSiam
 from depthmodelhardening_tpu.models.torch_import import (
     convert_depth_decoder, convert_resnet_encoder,
@@ -95,8 +104,8 @@ from depthmodelhardening_tpu.training.hardening import (
 )
 from depthmodelhardening_tpu_torch.attacks.pgd_object import PGDDraws
 from depthmodelhardening_tpu_torch.models.convert import (
-    from_jax_hardening_state, from_jax_simsiam, from_jax_variables,
-    load_reference_state_dict,
+    from_jax_convs, from_jax_encoder, from_jax_hardening_state,
+    from_jax_simsiam, from_jax_variables, load_reference_state_dict,
 )
 from depthmodelhardening_tpu_torch.models.simsiam import SimSiam, init_simsiam
 from depthmodelhardening_tpu_torch.models.wrappers import (
@@ -405,12 +414,12 @@ def setup():
                 update=jax.jit(tr.tx.update))
 
 
-def _port_trainer(setup, norm_type):
+def _port_trainer(setup, norm_type, steps=STEPS, frame_ids=("0", "s")):
     teacher = make_monodepth2()
     teacher.load_state_dict(setup["sd"])
     cfg = HardeningConfig(
-        selfsup=SelfSupConfig(height=H, width=W),
-        adv=AdvSynthConfig(norm_type=norm_type, steps=STEPS,
+        selfsup=SelfSupConfig(height=H, width=W, frame_ids=frame_ids),
+        adv=AdvSynthConfig(norm_type=norm_type, steps=steps,
                            attack_batch_size=B, ori_h=ORI_H, ori_w=ORI_W),
         batch_size=STEP_B)
     return HardeningTrainer(cfg, torch.Generator().manual_seed(0),
@@ -419,33 +428,85 @@ def _port_trainer(setup, norm_type):
                             steps_per_epoch=10, init_state_dict=setup["sd"])
 
 
-def _bn_counts(model, head):
-    """n seen by each BatchNorm in one pass at (H, W), batch STEP_B (train
-    mode, on copies: in eval mode the student folds its BatchNorms)."""
+def _bn_counts(state):
+    """{"<module>.<BatchNorm>": n seen in one pass at (H, W), batch STEP_B}
+    of the student, the head and the pose encoder (train mode, on copies:
+    in eval mode the student folds its BatchNorms)."""
     counts = {}
-    model, head = copy.deepcopy(model).train(), copy.deepcopy(head).train()
-    for prefix, mod in (("", model), ("simsiam.", head)):
+    mods = {k: copy.deepcopy(m).train() for k, m in state.modules().items()
+            if k != "pose_decoder"}
+    for prefix, mod in mods.items():
         for name, m in mod.named_modules():
             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
                 m.register_forward_hook(
-                    lambda mm, inp, out, name=prefix + name:
+                    lambda mm, inp, out, name=f"{prefix}.{name}":
                     counts.__setitem__(name, inp[0].numel()
                                        // inp[0].shape[1]))
     with torch.no_grad():
-        feats = model.encode(torch.zeros(STEP_B, H, W, 3))
-        head(feats, feats)
+        feats = mods["model"].encode(torch.zeros(STEP_B, H, W, 3))
+        mods["simsiam"](feats, feats)
+        if "pose_encoder" in mods:
+            mods["pose_encoder"](torch.zeros(STEP_B, 6, H, W))
     return counts
 
 
-@pytest.fixture(scope="module", params=["l_0", "l_inf"])
+# the port's modules -> the JAX trainer's collection and the converter of
+# its variables (or of {"params": a tree of gradients or moments})
+COLLECTIONS = {"model": ("depth", from_jax_variables),
+               "simsiam": ("simsiam", from_jax_simsiam),
+               "pose_encoder": ("pose_encoder", from_jax_encoder),
+               "pose_decoder": ("pose_decoder", from_jax_convs)}
+MONO = ("0", "-1", "1", "s")
+
+
+@pytest.fixture(scope="module")
+def mono_setup(setup):
+    """A JAX HardeningTrainer with frames ("0", "-1", "1", "s") (the pose
+    networks, flax's initialisation) and L-inf PGD with one step, as JAX's
+    `test_hardening_step_mono_pose`; otherwise `setup`'s."""
+    enc = JResnetEncoder(num_layers=18, num_input_images=2)
+    dec = JPoseDecoder(num_input_features=1, num_frames_to_predict_for=2)
+    pair = jnp.zeros((1, H, W, 6))
+    v_enc = jax.jit(lambda k: enc.init(k, pair, train=False))(
+        jax.random.PRNGKey(4))
+    feats = jax.jit(lambda v: enc.apply(v, pair, train=False))(v_enc)
+    v_dec = jax.jit(lambda k: dec.init(k, [feats]))(jax.random.PRNGKey(5))
+    j = setup["tr"]
+    cfg = JHardeningConfig(
+        selfsup=JSelfSupConfig(height=H, width=W, frame_ids=MONO),
+        adv=JAdvSynthConfig(norm_type="l_inf", steps=1, attack_batch_size=B,
+                            ori_h=ORI_H, ori_w=ORI_W),
+        batch_size=STEP_B)
+    tr = JHardeningTrainer(cfg, jax.random.PRNGKey(0), setup["obj"],
+                           setup["mask"], teacher=j.teacher,
+                           steps_per_epoch=10,
+                           init_variables={**j._variables,
+                                           "pose_encoder": v_enc,
+                                           "pose_decoder": v_dec})
+    return dict(tr=tr, state=tr.make_state(),
+                grad=jax.jit(jax.grad(tr._losses, has_aux=True)),
+                update=jax.jit(tr.tx.update))
+
+
+@pytest.fixture(scope="module", params=["l_0", "l_inf", "mono"])
 def step(request, setup):
     """One port `train_step` from the JAX trainer's initial state
     (converted), on JAX's draws; JAX's gradients, metrics, BatchNorm
-    statistics and Adam update on the batch that step built."""
+    statistics and Adam update on the batch that step built. "mono": the
+    mono+stereo frames ("0", "-1", "1", "s") with the pose networks, L-inf
+    PGD with one step; the temporal frames are "0" shifted by 4 columns
+    and by 3 rows, so their warps have signal."""
     norm = request.param
-    tr, state = setup["tr"], setup["state"]
-    scenes = make_scene(1, ORI_H, ORI_W, seed=2)
     frames = _frames()
+    steps = STEPS
+    js = setup
+    if norm == "mono":
+        js = request.getfixturevalue("mono_setup")
+        steps = 1
+        frames["-1"] = np.roll(frames["0"], -4, axis=2)
+        frames["1"] = np.roll(frames["0"], 3, axis=1)
+    tr, state = js["tr"], js["state"]
+    scenes = make_scene(1, ORI_H, ORI_W, seed=2)
     key = jax.random.PRNGKey(3)
     k_atk, k_synth, k_loss = jax.random.split(key, 3)
     student = tr.student_variables(state)
@@ -453,19 +514,21 @@ def step(request, setup):
     if norm == "l_0":
         j_atk = tr.attack
         _, n_j = jax_optimize_with_count(j_atk)(student, scenes_b, k_atk)
-        attack_draws = l0_draws(j_atk, k_atk, B, STEPS)
+        attack_draws = l0_draws(j_atk, k_atk, B, steps)
     else:
         j_atk = JPGDObjectAttack(tr._student_predict, setup["obj"],
                                  setup["mask"], tr.attack.cfg, eps=0.1,
-                                 alpha=0.005, steps=STEPS)
+                                 alpha=0.005, steps=steps)
         n_j = None
-        attack_draws = pgd_draws(j_atk, k_atk, B, STEPS)
-    noise = _t(jax.random.normal(k_loss, (STEP_B, H, W, 1)))
+        attack_draws = pgd_draws(j_atk, k_atk, B, steps)
+    n_src = len(tr.cfg.selfsup.source_frame_ids)
+    noise = _t(jax.random.normal(k_loss, (STEP_B, H, W, n_src)))
     draws = StepDraws(attack=attack_draws,
                       synth=synth_draws(k_synth, STEP_B, tr.cfg.adv),
                       identity_noise=noise)
 
-    port = _port_trainer(setup, norm)
+    port = (_port_trainer(setup, "l_inf", 1, MONO) if norm == "mono"
+            else _port_trainer(setup, norm))
     resume = from_jax_hardening_state(_np_tree(state))
     p_state = port.make_state(resume=resume)
     batches = []
@@ -478,10 +541,9 @@ def step(request, setup):
         torch.from_numpy(scenes), draws=draws)
     batch = jax.tree_util.tree_map(
         lambda t: jnp.asarray(t.detach().numpy()), batches[0])
-    grads, (new_bs, j_metrics) = setup["grad"](state.params,
-                                               state.batch_stats, batch,
-                                               k_loss)
-    updates, new_opt = setup["update"](grads, state.opt_state, state.params)
+    grads, (new_bs, j_metrics) = js["grad"](state.params, state.batch_stats,
+                                            batch, k_loss)
+    updates, new_opt = js["update"](grads, state.opt_state, state.params)
     adam = new_opt[0]
     return dict(norm=norm, n_j=n_j, port=port, state=p_state,
                 metrics=metrics, resume=resume, batch=batches[0],
@@ -493,15 +555,21 @@ def step(request, setup):
 def test_step_attack_and_batch(step):
     """The texture refresh ran as JAX's does (L0: the same iteration
     count, no early break at l0_thresh 0.1), and the batch the step built
-    carries every plane of the hardening batch at model resolution."""
+    carries every plane of the hardening batch at model resolution (with
+    the temporal frames, resized and flipped, as both "color" and
+    "color_aug")."""
     if step["norm"] == "l_0":
         atk = step["port"].attack
         assert atk.last_iterations == int(step["n_j"]) == 2 * STEPS
         assert atk.last_early_break is False
     batch = step["batch"]
+    fids = MONO if step["norm"] == "mono" else ("0", "s")
     for g in ("color", "color_aug"):
-        for f in ("0", "s"):
+        assert set(batch[g]) == set(fids)
+        for f in fids:
             assert batch[g][f].shape == (STEP_B, H, W, 3)
+    for f in fids[1:-1]:
+        assert batch["color_aug"][f] is batch["color"][f]
     assert torch.equal(batch["color"]["0"], batch["color_ben"])
     assert float((batch["color_aug"]["0"] - batch["color_ben"]).abs()
                  .max()) > 1e-3
@@ -525,50 +593,52 @@ def test_step_losses_match_jax(step):
 
 
 def test_step_gradients_and_adam_match_jax(step):
-    """The gradient of every student and SimSiam tensor, and Adam's
-    moments after the step, against JAX's gradients and optax's mu and
-    nu; the parameters moved."""
+    """The gradient of every student, SimSiam and (mono) pose-network
+    tensor, and Adam's moments after the step, against JAX's gradients and
+    optax's mu and nu; the parameters moved. The pose networks' gradients
+    reach them through the temporal warps' sampling coordinates."""
     state = step["state"]
     opt = state.optimizer.state
-    for key, module, convert in (
-            ("depth", state.model,
-             lambda t: from_jax_variables({"params": t})),
-            ("simsiam", state.simsiam,
-             lambda t: from_jax_simsiam({"params": t}))):
+    modules = state.modules()
+    assert (("pose_encoder" in modules) is (step["norm"] == "mono")
+            is ("pose_encoder" in step["grads"]))
+    for key, module in modules.items():
+        coll, from_jax = COLLECTIONS[key]
+        convert = lambda t: from_jax({"params": t})
         params = dict(module.named_parameters())
         _assert_l2(f"{key} gradient",
                    {n: p.grad for n, p in params.items()},
-                   convert(step["grads"][key]), GRAD_L2, GRAD_L2_ALL,
+                   convert(step["grads"][coll]), GRAD_L2, GRAD_L2_ALL,
                    GRAD_FLOOR)
         _assert_l2(f"{key} exp_avg",
                    {n: opt[p]["exp_avg"] for n, p in params.items()},
-                   convert(step["mu"][key]), GRAD_L2, GRAD_L2_ALL,
+                   convert(step["mu"][coll]), GRAD_L2, GRAD_L2_ALL,
                    GRAD_FLOOR)
         _assert_l2(f"{key} exp_avg_sq",
                    {n: opt[p]["exp_avg_sq"] for n, p in params.items()},
-                   convert(step["nu"][key]), NU_L2, floor=GRAD_FLOOR ** 2)
-        before = step["resume"]["model" if key == "depth" else key]
+                   convert(step["nu"][coll]), NU_L2, floor=GRAD_FLOOR ** 2)
+        before = step["resume"][key]
         for n, p in params.items():
             assert not torch.equal(p.detach(), before[n]), n
 
 
 def test_step_batchnorm_statistics_match_jax(step):
-    """Running means and variances of the student's 20 BatchNorms and the
-    head's 4, each updated twice in the step, against JAX's."""
+    """Running means and variances of the student's 20 BatchNorms, the
+    head's 4 and (mono) the pose encoder's 20, each updated twice in the
+    step (the student's: the adversarial forward and the benign encode;
+    the head's: its two views; the pose encoder's: once a temporal
+    source), against JAX's."""
     state = step["state"]
-    counts = _bn_counts(state.model, state.simsiam)
-    assert len(counts) == 24
-    got = {**state.model.state_dict(),
-           **{f"simsiam.{k}": v for k, v in
-              state.simsiam.state_dict().items()}}
-    new = {**from_jax_variables({"params": step["grads"]["depth"],
-                                 "batch_stats": step["new_bs"]["depth"]}),
-           **{f"simsiam.{k}": v for k, v in from_jax_simsiam(
-               {"params": step["grads"]["simsiam"],
-                "batch_stats": step["new_bs"]["simsiam"]}).items()}}
-    old = {**step["resume"]["model"],
-           **{f"simsiam.{k}": v for k, v in
-              step["resume"]["simsiam"].items()}}
+    counts = _bn_counts(state)
+    assert len(counts) == (44 if step["norm"] == "mono" else 24)
+    got, new, old = {}, {}, {}
+    for key, module in state.modules().items():
+        coll, convert = COLLECTIONS[key]
+        got.update({f"{key}.{k}": v for k, v in module.state_dict().items()})
+        new.update({f"{key}.{k}": v for k, v in convert(
+            {"params": step["grads"][coll],
+             "batch_stats": step["new_bs"].get(coll, {})}).items()})
+        old.update({f"{key}.{k}": v for k, v in step["resume"][key].items()})
     for mod, n in counts.items():
         mean, var = f"{mod}.running_mean", f"{mod}.running_var"
         atol = HEAD_BN_ATOL if mod.startswith("simsiam.") else BN_ATOL
@@ -672,8 +742,6 @@ def test_train_step_draws_its_own_draws(setup):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(selfsup=SelfSupConfig(frame_ids=("0", "-1", "1"))),
-     NotImplementedError, "ROADMAP.*slice 5b"),
     (dict(use_depth_hints=True), NotImplementedError, "ROADMAP.*slice 6"),
     (dict(model_family="manydepth"), NotImplementedError,
      "ROADMAP.*slice 6"),
@@ -686,9 +754,52 @@ def test_unported_and_invalid_settings_raise(kw, err, match):
                          *make_car_object(36, 24), device="cpu")
 
 
+def test_mono_stereo_config_builds_and_steps():
+    """The mono+stereo frame ids build (the pose networks join the state
+    and its one Adam) and the plain step trains them: each pose tensor
+    gets a gradient and moves, and the pose encoder's statistics update
+    once per temporal source."""
+    tr = HardeningTrainer(
+        HardeningConfig(selfsup=SelfSupConfig(height=32, width=64,
+                                              frame_ids=MONO),
+                        supervised_adv=False, contrastive_learning=False,
+                        batch_size=2),
+        torch.Generator().manual_seed(0), *make_car_object(36, 24),
+        device="cpu")
+    state = tr.make_state()
+    assert list(state.modules()) == ["model", "pose_encoder", "pose_decoder"]
+    assert state.pose_encoder.conv1.in_channels == 6
+    before = {n: p.detach().clone()
+              for n, p in state.pose_decoder.named_parameters()}
+    frames = {f: torch.from_numpy(make_scene(2, ORI_H, ORI_W, seed=i))
+              for i, f in enumerate(MONO)}
+    state, m = tr.selfsup_frames_step(state, frames,
+                                      torch.tensor([True, False]),
+                                      torch.tensor([False, True]))
+    assert torch.isfinite(m["loss"]) and state.step == 1
+    for n, p in state.pose_decoder.named_parameters():
+        assert p.grad is not None and p.grad.abs().sum() > 0, n
+        assert not torch.equal(p.detach(), before[n]), n
+    assert int(state.pose_encoder.bn1.num_batches_tracked) == 2
+
+
 def test_bf16_hardening_names_its_slice():
-    with pytest.raises(NotImplementedError, match=re.escape("slice 5e")):
-        HardeningConfig(compute_dtype="bfloat16")
+    """The bfloat16 trainer builds (the student, and so its attack view,
+    in bf16; the head float32); another compute dtype raises ValueError,
+    as DistillConfig's does."""
+    tr = HardeningTrainer(
+        HardeningConfig(selfsup=SelfSupConfig(height=32, width=64),
+                        adv=AdvSynthConfig(ori_h=ORI_H, ori_w=ORI_W),
+                        compute_dtype="bfloat16"),
+        torch.Generator().manual_seed(0), *make_car_object(36, 24),
+        predictor_from(make_monodepth2()), device="cpu")
+    state = tr.make_state()
+    assert state.model.dtype == torch.bfloat16
+    assert tr.attack_student(state).predictor.model is state.model
+    assert all(p.dtype == torch.float32 for m in state.modules().values()
+               for p in m.parameters())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        HardeningConfig(compute_dtype="float16")
     with pytest.raises(ValueError, match="unknown norm_type"):
         HardeningTrainer(
             HardeningConfig(adv=AdvSynthConfig(norm_type="l_2"),

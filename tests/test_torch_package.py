@@ -42,7 +42,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
 from depthmodelhardening_tpu_torch.ops import conv, pool, reproj, warp
 from depthmodelhardening_tpu_torch.physics import calibration, eot
 from depthmodelhardening_tpu_torch.training.config import (
-    DistillConfig, HardeningConfig,
+    DistillConfig, HardeningConfig, SelfSupConfig,
 )
 from depthmodelhardening_tpu_torch.training.distill import DistillTrainer
 from depthmodelhardening_tpu_torch.training.hardening import HardeningTrainer
@@ -63,7 +63,8 @@ def test_every_module_imports_without_jax():
     assert {"depthmodelhardening_tpu_torch." + m for m in (
         "ops.conv", "training.distill", "attacks.l0_object", "ops.color",
         "models.simsiam", "training.adv_synth",
-        "training.hardening")} <= set(mods)
+        "training.hardening", "models.pose", "training.checkpoints",
+        "evaluation.pose_eval")} <= set(mods)
     code = "\n".join(
         ["import sys"]
         + [f"sys.modules[{m!r}] = None" for m in BLOCKED]
@@ -126,13 +127,14 @@ def test_require_cuda_raises_without_a_card():
 
 @pytest.mark.parametrize("device", [None, "cuda"])
 @pytest.mark.parametrize("make", ["hardening", "distill", "hardening_l0",
-                                  "distill_l0"])
+                                  "distill_l0", "hardening_mono_bf16"])
 def test_trainers_run_on_the_card_or_raise(make, device):
     """A trainer runs on the CUDA card unless given "cpu": without
     `device=`, or asked for "cuda", it checks for the card before it
     builds anything (`device.resolve_device`) and raises here. The
     hardening step at config 4 (the L0 attack, the synthesis, SimSiam,
-    the teacher) and the L0 distillation likewise; the L0 attack, the
+    the teacher), its mono+stereo bf16 configuration (the pose
+    networks) and the L0 distillation likewise; the L0 attack, the
     colour jitter, SimSiam and the synthesis run where their inputs
     are."""
     if torch.cuda.is_available():
@@ -150,6 +152,11 @@ def test_trainers_run_on_the_card_or_raise(make, device):
             HardeningTrainer(HardeningConfig(),
                              torch.Generator().manual_seed(0), obj, mask,
                              teacher, **kw)
+        elif make == "hardening_mono_bf16":
+            HardeningTrainer(HardeningConfig(
+                selfsup=SelfSupConfig(frame_ids=("0", "-1", "1", "s")),
+                compute_dtype="bfloat16"),
+                torch.Generator().manual_seed(0), obj, mask, teacher, **kw)
         else:
             DistillTrainer(DistillConfig(adv_type="object_l0" if
                                          make == "distill_l0" else "object"),
@@ -292,8 +299,13 @@ def test_attack_option_values_raise_jax_errors(kw, match):
 
 
 def test_hardening_bf16_names_its_slice():
-    with pytest.raises(NotImplementedError, match="float32.*slice 5"):
-        HardeningConfig(compute_dtype="bfloat16")
+    """The hardening trainer takes the compute dtypes DistillConfig takes
+    and raises DistillConfig's ValueError for another."""
+    assert HardeningConfig(compute_dtype="bfloat16").compute_dtype == \
+        "bfloat16"
+    for cfg in (HardeningConfig, DistillConfig):
+        with pytest.raises(ValueError, match="compute_dtype must be"):
+            cfg(compute_dtype="float16")
 
 
 @pytest.mark.parametrize("name,call", [

@@ -305,7 +305,6 @@ def _trainer(**kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(selfsup=SelfSupConfig(frame_ids=("0", "-1", "1"))), "slice 5"),
     (dict(use_depth_hints=True), "slice 6"),
     (dict(model_family="manydepth"), "slice 6"),
 ])
@@ -315,15 +314,45 @@ def test_unported_options_raise_and_name_their_roadmap_item(kw, item):
         _trainer(**kw)
 
 
+def test_mono_plain_step_warps_the_temporal_frames():
+    """Monocular frame ids ("0", "-1", "1") build and step: each temporal
+    source warps through the pose networks' transform (for "-1" the pair
+    is ["-1", "0"], inverted), so the pose decoder's last conv gets a
+    gradient from each source, and the identity noise has one channel a
+    source."""
+    tr = _trainer(selfsup=SelfSupConfig(height=32, width=64,
+                                        frame_ids=("0", "-1", "1")))
+    state = tr.make_state()
+    frames = {f: torch.rand(B, 40, 80, 3, generator=torch.Generator()
+                            .manual_seed(i))
+              for i, f in enumerate(("0", "-1", "1"))}
+    batch = tr.plain_batch(frames, torch.tensor([True, False]),
+                           torch.tensor([False, True]))
+    poses = tr.predict_poses(state, batch["color_aug"])
+    assert set(poses) == {"-1", "1"}
+    assert all(T.shape == (B, 4, 4) for T in poses.values())
+    noise = torch.randn(B, 32, 64, 2, generator=torch.Generator()
+                        .manual_seed(5))
+    state, metrics = tr.selfsup_step(state, batch, noise)
+    assert torch.isfinite(metrics["loss"])
+    g = state.pose_decoder.pose_2.weight.grad
+    assert g is not None and float(g.abs().sum()) > 0
+    with pytest.raises(ValueError, match="identity_noise"):
+        tr.selfsup_step(state, batch, noise[..., :1])
+
+
 def test_unported_entry_points_and_settings_raise():
     """The trainer needs the attacked object, as the JAX package's does;
-    the bf16 trainer and the TPU layouts are refused; with color_aug the
-    plain step draws its jitter and runs."""
+    the compute dtype is float32 or bfloat16, another raises; the TPU
+    layouts are refused; with color_aug the plain step draws its jitter
+    and runs."""
     with pytest.raises(TypeError, match="obj_img"):
         HardeningTrainer(HardeningConfig(**KW),
                          torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32.*slice 5"):
-        HardeningConfig(compute_dtype="bfloat16")
+    assert HardeningConfig(compute_dtype="bfloat16").compute_dtype == \
+        "bfloat16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        HardeningConfig(compute_dtype="float16")
     with pytest.raises(TypeError):
         HardeningConfig(wpack_stem=True)
     color = _trainer(selfsup=SelfSupConfig(height=32, width=64),
