@@ -161,6 +161,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
    after 12b predict_pair_poses on 16 synthetic 1024x320 pairs, card
    against CPU within 1e-4, and trajectory_ates on a synthetic ground
    truth.
+13. zoo: the reference's evaluation attack zoo (evaluate_depth.py:
+   403-517). 13a: each attack slice 6a added (L2, APGD, whole-image PGD,
+   Square, light, Gaussian, arbi, vanila, physical) at 96x320, batch 2,
+   the golden weights, on the card and on the CPU's plain versions from
+   the same draws: the white-box attacks' start gradient, the searches'
+   winner, best cost and texture (another winner only as a logged
+   near-tie), L2's texture, and the finals and metrics of one texture on
+   both. 13b: the 16 presets of evaluation/presets.py at full width
+   (Monodepth2-18, 1024x320 float32, eval mode, the golden weights, one
+   batch of 375x1242 scenes at each preset's batch size, the 300x200
+   car) through build_attack + evaluate_attacks, Square cut to
+   ZOO_SQUARE_QUERIES queries and light to ZOO_LIGHT candidates, the
+   counters reset before each and read after: s/batch, ms a query of the
+   searches, the 8 mean metrics (finite), peak memory, launches against
+   `zoo_launches`; Square and light extrapolated to their presets'
+   lengths; the idle share of a shorter Square and light batch. 13c:
+   evaluate_clean card against CPU (stereo or median scaling, with and
+   without the flip post-process), crosscheck_matrix over the golden
+   weights and a seeded init, objects_sweep over two cars, physical_eval
+   with a perturbed car for the photographed patch, attack_steps_sweep
+   at steps (1, 11). 13d: the distillation step with adv_type "image"
+   (float32, batch 32, PGD-10, golden teacher and student): s/step, D
+   and B launches as phase 9's, D's weight gradients the student's only,
+   no kernel A.
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -190,15 +214,19 @@ from depthmodelhardening_tpu_torch.data.synthetic import (
     make_car_object, make_scene,
 )
 from depthmodelhardening_tpu_torch.device import require_cuda, use_f32_numerics
-from depthmodelhardening_tpu_torch.evaluation import pose_eval
+from depthmodelhardening_tpu_torch.attacks.random_object import _blur_hw
+from depthmodelhardening_tpu_torch.evaluation import (
+    clean_eval, pose_eval, sweeps,
+)
 from depthmodelhardening_tpu_torch.evaluation.attack_eval import (
     AttackEvalConfig, _batch_metrics, build_attack, evaluate_attacks,
 )
+from depthmodelhardening_tpu_torch.evaluation.presets import EVAL_PRESETS
 from depthmodelhardening_tpu_torch.models.convert import (
     load_reference_state_dict,
 )
 from depthmodelhardening_tpu_torch.models.wrappers import (
-    make_monodepth2, predictor_from,
+    init_monodepth2, make_monodepth2, predictor_from,
 )
 from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
 from depthmodelhardening_tpu_torch.ops.padding import reflect_pad1
@@ -355,6 +383,20 @@ def _attack_row_maps(gen, Bn):
     return A, B
 
 
+def _arbi_row_maps(Bn):
+    """A, B (Bn, 256) of the arbi attack's finals at 1024x320 (the tiled
+    pair warp a training-time final takes): the car at linspace(5, 30)
+    m, beyond the eval range, so the far samples' maps are small, and
+    the seeded yaws (`ArbiObjectAttack._final_za`)."""
+    cfg = PhysObjAttackConfig(obj_h=200, obj_w=300)
+    z = torch.linspace(5.0, 30.0, Bn)
+    a = torch.from_numpy(np.random.RandomState(17).choice(
+        np.arange(-30, 31, 2, dtype=np.float32), Bn, replace=True))
+    _, A, B, _, _ = cfg.make_eot()._separable_geometry(
+        z, a, cfg.scene_h, cfg.scene_w, cfg.tile_h, cfg.tile_w)
+    return A, B
+
+
 def _synth_row_maps(gen, Bn):
     """A, B (Bn, 296) of the hardening batch's synthesis: the 300x200 car
     warped at native resolution (375x1242, Monodepth2's K) into its
@@ -374,6 +416,8 @@ def _warp_inputs(gen, dev, Bn, C, OH, TH, TW, maps: str):
     inter = torch.rand((Bn, C, OH, TW), generator=gen).to(dev)
     if maps == "attack":
         A, B = _attack_row_maps(gen, Bn)
+    elif maps == "arbi":
+        A, B = _arbi_row_maps(Bn)
     elif maps == "synth":
         A, B = _synth_row_maps(gen, Bn)
     elif maps == "ragged":
@@ -505,6 +549,8 @@ def phase_kernels(dev) -> dict:
             ("ragged strips", (4, 4, 200, 250, 200), "random"),
             ("attack maps", (12, 4, 200, 256, 256), "attack"),
             ("attack maps, distillation", (32, 4, 200, 256, 256), "attack"),
+            ("arbi finals' maps, out to 30 m", (32, 7, 200, 256, 256),
+             "arbi"),
             ("synthesis maps, the pair", (32, 7, 200) + SYNTH_TILE, "synth"),
             ("synthesis maps, the other eye", (32, 4, 200) + SYNTH_TILE,
              "synth")):
@@ -2736,6 +2782,477 @@ def phase_cli_pose_eval(dev, state) -> None:
         raise AssertionError("pose eval failed")
 
 
+# -- phase 13 ----------------------------------------------------------------
+# the reference's evaluation zoo (evaluate_depth.py:403-517): every norm
+# type of build_attack, the 16 presets, the clean eval and the sweeps
+ZOO_SMALL = dict(scene_h=96, scene_w=320, batch_size=2, eval_count=1)
+# 13a's attacks, each (label, AttackEvalConfig fields, 200x300 car): the
+# painted region (rows 90:170, cols 100:200) needs the big car
+ZOO_PARITY = (
+    ("l_2", dict(norm_type="l_2", epsilon=1.0, step=2), False),
+    ("APGD", dict(norm_type="APGD", epsilon=0.05, step=3), False),
+    ("image", dict(norm_type="image", epsilon=0.01, alpha=0.002, step=2),
+     False),
+    ("Square", dict(norm_type="Square", epsilon=0.1, n_queries=24), False),
+    ("light", dict(norm_type="light", n_inits=3, n_neighbors=2), False),
+    ("guassian", dict(norm_type="guassian", step=4), True),
+    ("arbi", dict(norm_type="arbi"), True),
+    ("vanila", dict(norm_type="vanila"), False),
+    ("physical", dict(norm_type="physical"), False),
+)
+# the card against the CPU: a start gradient by the CPU tests' gradient
+# rule (rtol 1e-3, atol 1e-3 of the max); the searches' best cost within
+# ZOO_COST_RTOL relative (kernel D sums in another order than the CPU's
+# im2col + SGEMM: 1e-5 of a conv's output, CONV_RTOL), their winner and
+# texture equal (1e-6) unless the two winners' costs lie within that
+# rule on both devices (a near-tie: both costs are logged); L2's texture
+# 1e-4 (tests/test_torch_attacks_whitebox.py); the finals of one texture
+# 1e-5, their 8 metrics rtol 1e-3, atol 1e-3 (the CPU tests' rule)
+ZOO_GRAD_RTOL = 1e-3
+ZOO_COST_RTOL = 1e-4
+ZOO_FINALS_ATOL = 1e-5
+ZOO_METRIC_TOL = 1e-3
+# 13b: the presets at full width, one batch each; Square and light cut to
+# these lengths (the p schedule rescales to n_queries, so a cut run walks
+# it whole), the idle share from a shorter run of each
+ZOO_SQUARE_QUERIES = 400
+ZOO_LIGHT = (20, 10)  # n_inits x n_neighbors x 2 = 400 candidates
+ZOO_PROFILE = dict(Square=dict(n_queries=100),
+                   light=dict(n_inits=5, n_neighbors=10))
+ZOO_KERNELS = SLICE1_KERNELS
+
+
+def zoo_launches(cfg, iterations: int = 0) -> dict:
+    """Predicted launches of one evaluate_attacks batch of `cfg` (eval
+    mode: the finals take the exact warp, no kernel A): each model
+    forward launches B1 once and D 4 times (the scale-0 path's <= 64
+    channel convs), each input gradient B2 once and D's dgrad 4 times;
+    each tiled EoT view A1 once, and A2 where it is differentiated; the
+    metrics add 2 forwards. `iterations`: the L0 attack's."""
+    nt, n = cfg.norm_type, cfg.step
+    per = {  # (views, differentiated views, forwards, input gradients)
+        "l_0": (iterations, iterations, iterations, iterations),
+        "l_inf": (n, n, n, n), "l_2": (n, n, n, n),
+        "APGD": (n + 1, n + 1, n + 1, n + 1),
+        "image": (0, 0, n, n),
+        "Square": (cfg.n_queries + 1, 0, cfg.n_queries + 1, 0),
+        "light": (2 * cfg.n_inits * cfg.n_neighbors, 0,
+                  2 * cfg.n_inits * cfg.n_neighbors, 0),
+        "guassian": (n, 0, n, 0),
+    }.get(nt, (0, 0, 0, 0))
+    views, dviews, fwd, bwd = per
+    fwd += 2
+    return {"vertical_resample_fwd": views, "vertical_resample_bwd": dviews,
+            "maxpool3x3s2_fwd": fwd, "maxpool3x3s2_bwd": bwd,
+            "conv3x3_fwd": 4 * fwd, "conv3x3_dgrad": 4 * bwd}
+
+
+def _golden_predictor(dev, sd):
+    model = make_monodepth2()
+    model.load_state_dict(sd)
+    return predictor_from(model.to(dev))
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_zoo(dev):
+    """Phase 13; returns the launches of 13b's 16 presets, summed."""
+    _, sd = _golden_weights()
+    t0 = time.perf_counter()
+    phase_zoo_parity(dev, sd)
+    log(f"  [13a: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    launches = phase_zoo_presets(dev, sd)
+    log(f"  [13b: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    phase_zoo_surface(dev, sd)
+    log(f"  [13c: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    phase_zoo_distill(dev, sd)
+    log(f"  [13d: {time.perf_counter() - t0:.1f} s]")
+    return launches
+
+
+def phase_zoo_parity(dev, sd) -> None:
+    """13a: each attack of the zoo the port added in slice 6a, small
+    (96x320, batch 2, the golden weights, a 40x60 car or the 200x300 one,
+    375x1242 scenes), once on the card and once on the CPU's plain
+    versions from the same draws: the start gradient of the white-box
+    attacks, the searches' winner, best cost and texture, L2's texture,
+    the other textures logged; the finals and the metrics of the CPU's
+    texture on both."""
+    cpu = torch.device("cpu")
+    preds = {d: _golden_predictor(d, sd) for d in (cpu, dev)}
+    scenes = {d: torch.from_numpy(make_scene(2, 375, 1242, seed=SEED + 120)
+                                  ).to(d) for d in (cpu, dev)}
+    log("zoo 13a: card against CPU at 96x320, batch 2, golden weights, "
+        "injected draws (start gradient rtol/atol "
+        f"{ZOO_GRAD_RTOL} of the max; best cost {ZOO_COST_RTOL} rel; "
+        f"finals {ZOO_FINALS_ATOL}; metrics rtol/atol {ZOO_METRIC_TOL}):")
+    for label, kw, big in ZOO_PARITY:
+        obj, mask = make_car_object(300, 200) if big else \
+            make_car_object(60, 40)
+        given = np.clip(obj * 0.7 + 0.2, 0, 1) * (mask > 0)
+        cfg = AttackEvalConfig(**ZOO_SMALL, **kw)
+        atks = {d: build_attack(cfg, preds[d], obj, mask, adv_obj_img=given)
+                for d in (cpu, dev)}
+        draws = atks[cpu].draw(torch.Generator().manual_seed(SEED + 121), 2)
+        notes = _zoo_pair(label, atks, preds, scenes, draws, given, cpu, dev)
+        log(f"  {label}: {notes}")
+
+
+def _zoo_pair(label, atks, preds, scenes, draws, given, cpu, dev) -> str:
+    """One attack of 13a on both devices; returns its log line, raises on
+    a disagreement."""
+    notes = []
+    if label == "image":
+        x = {d: torch.clamp(bilinear_resize(scenes[d], 96, 320)
+                            + draws.noise.to(d), 0.0, 1.0)
+             .requires_grad_(True) for d in (cpu, dev)}
+        g = {d: torch.autograd.grad(torch.mean(preds[d](x[d]) ** 2), x[d])[0]
+             .cpu() for d in (cpu, dev)}
+    elif label in ("l_2", "APGD"):
+        start = _zoo_start(label, atks[cpu], draws)
+        g = {d: atks[d].objective_and_grad(
+            atks[d]._replicate(scenes[d], 2), start.to(d),
+            draws.z0s[0] if label == "l_2" else draws.z0s,
+            draws.alphas[0] if label == "l_2" else draws.alphas)[1].cpu()
+             for d in (cpu, dev)}
+    else:
+        g = None
+    if g is not None:
+        scale = float(g[cpu].abs().max())
+        err = float((g[dev] - g[cpu]).abs().max())
+        notes.append(f"start gradient err {err / scale:.3e} of the max")
+        if not torch.allclose(g[dev], g[cpu], rtol=ZOO_GRAD_RTOL,
+                              atol=ZOO_GRAD_RTOL * scale):
+            raise AssertionError(f"zoo {label}: start gradient disagrees")
+
+    out = {}
+    for d in (cpu, dev):
+        atk = atks[d]
+        if label == "image":
+            out[d] = atk(scenes[d], draws=draws)[0].cpu()
+        elif label == "vanila":
+            out[d] = torch.from_numpy(given)
+        else:
+            out[d] = atk._optimize(atk._replicate(scenes[d], 2), draws).cpu()
+    diff = float((out[dev] - out[cpu]).abs().max())
+    split = float(((out[dev] - out[cpu]).abs() > 1e-6).float().mean())
+    notes.append(f"result max |card - CPU| {diff:.3e}, {split:.4%} apart")
+    if label in ("Square", "light", "guassian"):
+        notes.append(_zoo_search_pair(label, atks, scenes, draws, out, cpu,
+                                      dev))
+    elif label == "l_2" and diff > 1e-4:
+        raise AssertionError("zoo l_2: textures disagree")
+    elif label in ("arbi", "vanila", "physical") and diff > 1e-6:
+        raise AssertionError(f"zoo {label}: textures disagree")
+    elif label == "APGD":
+        st = {d: atks[d].last_state for d in (cpu, dev)}
+        notes.append(f"step size card {float(st[dev]['step_size']):g} CPU "
+                     f"{float(st[cpu]['step_size']):g}")
+        if (st[dev]["k"], st[dev]["counter3"]) != (st[cpu]["k"],
+                                                   st[cpu]["counter3"]):
+            raise AssertionError("zoo APGD: schedule disagrees")
+
+    # the finals and metrics of the CPU's result on both devices
+    fin = {}
+    for d in (cpu, dev):
+        with torch.no_grad():
+            if label == "image":
+                ben = bilinear_resize(scenes[d], 96, 320)
+                f = (out[cpu].to(d), ben, torch.ones_like(ben[..., :1]))
+            else:
+                f = atks[d]._final_outputs(
+                    atks[d]._replicate(scenes[d], 2), out[cpu].to(d),
+                    draws.final_z0s, draws.final_alphas, True)
+            fin[d] = ([t.cpu() for t in f],
+                      torch.stack(_batch_metrics(atks[d].predictor, *f))
+                      .cpu().numpy())
+    f_err = max(float((a - b).abs().max())
+                for a, b in zip(fin[dev][0], fin[cpu][0]))
+    m_ok = np.allclose(fin[dev][1], fin[cpu][1], rtol=ZOO_METRIC_TOL,
+                       atol=ZOO_METRIC_TOL)
+    fmt = lambda m: "[" + ", ".join(f"{v:.5f}" for v in m) + "]"
+    notes.append(f"finals err {f_err:.3e}, metrics card {fmt(fin[dev][1])} "
+                 f"CPU {fmt(fin[cpu][1])}")
+    if f_err > ZOO_FINALS_ATOL or not m_ok or \
+            not np.isfinite(fin[dev][1]).all():
+        raise AssertionError(f"zoo {label}: finals or metrics disagree")
+    return "; ".join(notes)
+
+
+def _zoo_start(label, atk, draws):
+    """The white-box attack's start texture on the CPU (L2: the first
+    sample's random start; APGD: its L-inf start)."""
+    if label == "l_2":
+        delta = draws.delta * (draws.r / draws.delta.reshape(2, -1).norm(
+            dim=1)).reshape(2, 1, 1, 1) * atk.eps
+        return torch.clamp(atk.obj_img + delta, 0.0, 1.0)
+    return torch.clamp(atk.obj_img + atk.eps * draws.t / draws.t.abs().max(),
+                       0.0, 1.0)
+
+
+def _zoo_search_pair(label, atks, scenes, draws, out, cpu, dev) -> str:
+    """The search's winner, best cost and texture, card against CPU; a
+    different winner passes only as a near-tie, with both costs logged."""
+    win = {d: int(atks[d].last_best) for d in (cpu, dev)}
+    cost = {d: float(atks[d].last_cost) for d in (cpu, dev)}
+    note = (f"winner card {win[dev]} CPU {win[cpu]}, best cost card "
+            f"{cost[dev]:.8e} CPU {cost[cpu]:.8e}")
+    if _rel(cost[dev], cost[cpu]) > ZOO_COST_RTOL:
+        raise AssertionError(f"zoo {label}: best costs disagree: {note}")
+    if win[dev] == win[cpu]:
+        if float((out[dev] - out[cpu]).abs().max()) > 1e-6:
+            raise AssertionError(f"zoo {label}: the same winner's textures "
+                                 f"disagree")
+        return note
+    # another winner: each device's cost of the other's texture
+    atk = atks[cpu]
+    z, a = ((draws.z0s, draws.alphas) if label == "Square" else
+            (draws.z0s[win[dev]], draws.alphas[win[dev]]))
+    with torch.no_grad():
+        other = float(atk._objective(atk._replicate(scenes[cpu], 2),
+                                     out[dev], z, a))
+    note += f"; near-tie: the card's winner costs {other:.8e} on the CPU"
+    if _rel(other, cost[cpu]) > ZOO_COST_RTOL:
+        raise AssertionError(f"zoo {label}: another winner, not a near-tie: "
+                             f"{note}")
+    return note
+
+
+def _preset_cfg(name, cfg):
+    """A preset with 13b's cuts: one batch; Square's queries and light's
+    candidates cut to ZOO_SQUARE_QUERIES and ZOO_LIGHT."""
+    cfg = dataclasses.replace(cfg, eval_count=1)
+    if cfg.norm_type == "Square":
+        cfg = dataclasses.replace(cfg, n_queries=ZOO_SQUARE_QUERIES)
+    if cfg.norm_type == "light":
+        cfg = dataclasses.replace(cfg, n_inits=ZOO_LIGHT[0],
+                                  n_neighbors=ZOO_LIGHT[1])
+    return cfg
+
+
+def _timed_optimize(attack) -> dict:
+    """Times each `_optimize` call of `attack` (synchronised) into the
+    returned dict's "s"."""
+    out = {}
+    orig = attack._optimize
+
+    def run(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = orig(*a)
+        torch.cuda.synchronize()
+        out["s"] = time.perf_counter() - t0
+        return r
+
+    attack._optimize = run
+    return out
+
+
+def _queries(cfg) -> int:
+    return {"Square": cfg.n_queries + 1,
+            "light": 2 * cfg.n_inits * cfg.n_neighbors,
+            "guassian": cfg.step}.get(cfg.norm_type, 0)
+
+
+def phase_zoo_presets(dev, sd) -> dict:
+    """13b: the 16 presets at full width (Monodepth2-18, 1024x320,
+    float32, eval mode, the golden weights, 375x1242 synthetic scenes, the
+    300x200 car), one batch each at the preset's batch size through
+    build_attack + evaluate_attacks, the counters reset before each and
+    read after: s/batch, the search's ms a query, the 8 mean metrics
+    (finite), peak memory, launches against `zoo_launches`. Then the idle
+    share of one shorter batch of Square and of light."""
+    predictor = _golden_predictor(dev, sd)
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    total = {k.name: 0 for k in _build.KERNELS}
+    log(f"zoo 13b: the 16 presets (evaluation/presets.py) at 1024x320 f32, "
+        f"golden weights, one batch of 375x1242 synthetic scenes each, car "
+        f"300x200; Square cut to {ZOO_SQUARE_QUERIES} queries, light to "
+        f"{ZOO_LIGHT[0]} x {ZOO_LIGHT[1]} x 2 = {2 * ZOO_LIGHT[0] * ZOO_LIGHT[1]}"
+        f" candidates:")
+    per_query = {}
+    for i, (name, preset) in enumerate(EVAL_PRESETS.items()):
+        cfg = _preset_cfg(name, preset)
+        attack = build_attack(cfg, predictor, obj, mask)
+        opt = _timed_optimize(attack) if cfg.norm_type != "image" else {}
+        scenes = make_scene(cfg.batch_size, cfg.ori_h, cfg.ori_w,
+                            seed=SEED + 130 + i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = evaluate_attacks(predictor, attack, [scenes], cfg,
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 150 + i))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _build.KERNELS}
+        for k, v in launches.items():
+            total[k] += v
+        want = zoo_launches(cfg, getattr(attack, "last_iterations", 0))
+        got = {k: launches[k] for k in want}
+        q = _queries(cfg)
+        extra = ""
+        if q:
+            per_query[cfg.norm_type] = (opt["s"] / q * 1e3, secs - opt["s"])
+            extra = (f", {opt['s'] / q * 1e3:.3f} ms a query of {q} "
+                     f"({opt['s']:.4f} s searching)")
+        if cfg.norm_type == "l_0":
+            extra = f", {attack.last_iterations} L0 iterations"
+        log(f"  {name} ({cfg.norm_type}, batch {cfg.batch_size}): "
+            f"{secs:.4f} s/batch{extra}; peak "
+            f"{torch.cuda.max_memory_allocated(dev)} B; metrics mean "
+            f"{json.dumps({k: round(v, 6) for k, v in res['mean'].items()})};"
+            f" launches {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"zoo preset {name}: launches {got}, "
+                                 f"predicted {want}")
+        if other := {k: v for k, v in launches.items()
+                     if k not in want and v}:
+            raise AssertionError(f"zoo preset {name}: unexpected {other}")
+        vals = list(res["mean"].values()) + list(res["max"].values())
+        if not all(math.isfinite(v) for v in vals):
+            raise AssertionError(f"zoo preset {name}: non-finite {res}")
+    bad = [n for n in ZOO_KERNELS if total[n] <= 0]
+    if bad:
+        raise AssertionError(f"kernels never launched in the zoo: {bad}")
+    # the Gaussian search's blur alone: a depthwise F.conv2d a pass, by
+    # im2col with use_f32_numerics (cuDNN off), up to 599 taps
+    g_atk = build_attack(EVAL_PRESETS["gaussian"], predictor, obj, mask)
+    sig = g_atk.sigmas()
+    all_ms = cuda_ms(lambda: [_blur_hw(g_atk.obj_img, v) for v in sig],
+                     reps=3)
+    last_ms = cuda_ms(lambda: _blur_hw(g_atk.obj_img, sig[-1]), reps=5)
+    log(f"  blur: the Gaussian preset's {len(sig)} sigmas on the 300x200 "
+        f"car, {all_ms:.3f} ms in all (card alone), sigma {sig[-1]:g} "
+        f"(399 and 599 taps) {last_ms:.3f} ms")
+    for nt, full in (("Square", 5001), ("light", 8000)):
+        ms, rest = per_query[nt]
+        log(f"  extrapolated, not measured: {nt} at its preset's length "
+            f"({full} evaluations) {ms * full / 1e3 + rest:.1f} s/batch "
+            f"({ms:.3f} ms a query x {full} + {rest:.4f} s of finals and "
+            f"metrics)")
+    for nt, kw in ZOO_PROFILE.items():
+        name = "square_eps01" if nt == "Square" else "light"
+        cfg = dataclasses.replace(EVAL_PRESETS[name], eval_count=1, **kw)
+        attack = build_attack(cfg, predictor, obj, mask)
+        scenes = make_scene(cfg.batch_size, cfg.ori_h, cfg.ori_w,
+                            seed=SEED + 170)
+        busy_ms, wall_ms, n, _, _ = device_busy(lambda: evaluate_attacks(
+            predictor, attack, [scenes], cfg,
+            generator=torch.Generator().manual_seed(SEED + 171)))
+        log(f"  idle: one {nt} batch ({_queries(cfg)} evaluations, batch "
+            f"{cfg.batch_size}) under the profiler: device busy "
+            f"{busy_ms:.3f} ms of {wall_ms:.3f} ms host wall, idle share "
+            f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
+    return total
+
+
+def phase_zoo_surface(dev, sd) -> None:
+    """13c: evaluate_clean card against CPU; crosscheck_matrix over the
+    golden weights and a seeded init; objects_sweep over two cars;
+    physical_eval with a perturbed car for the photographed patch;
+    attack_steps_sweep at steps (1, 11). The sweeps at full width, L-inf
+    PGD at batch 12."""
+    cpu = torch.device("cpu")
+    frames = make_scene(2, 320, 1024, seed=SEED + 180)
+    rs = np.random.RandomState(SEED + 181)
+    gts = []
+    for _ in range(2):
+        gt = rs.uniform(2.0, 70.0, (375, 1242)).astype(np.float32)
+        gt[rs.rand(375, 1242) < 0.6] = 0.0
+        gts.append(gt)
+    preds = {d: _golden_predictor(d, sd) for d in (cpu, dev)}
+    for kw in (dict(), dict(post_process=True), dict(eval_stereo=False),
+               dict(eval_stereo=False, post_process=True)):
+        cfg = clean_eval.CleanEvalConfig(**kw)
+        t0 = time.perf_counter()
+        got, _ = clean_eval.evaluate_clean(preds[dev], zip(frames, gts), cfg)
+        secs = time.perf_counter() - t0
+        want, _ = clean_eval.evaluate_clean(preds[cpu], zip(frames, gts), cfg)
+        ok = np.allclose(list(got.values()), list(want.values()),
+                         rtol=ZOO_METRIC_TOL, atol=ZOO_METRIC_TOL)
+        log(f"zoo 13c: evaluate_clean {kw or 'stereo'} on 2 frames: card "
+            f"{json.dumps({k: round(v, 6) for k, v in got.items()})} "
+            f"({secs:.3f} s), CPU abs_rel {want['abs_rel']:.6f}")
+        if not ok:
+            raise AssertionError("evaluate_clean: card and CPU disagree")
+    cfg = AttackEvalConfig(norm_type="l_inf", epsilon=0.1, alpha=0.005,
+                           step=10, batch_size=12, eval_count=1)
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    scenes = make_scene(12, 375, 1242, seed=SEED + 182)
+    seeded = predictor_from(init_monodepth2(
+        torch.Generator().manual_seed(SEED + 183)).to(dev))
+    results = {
+        "crosscheck_matrix": sweeps.crosscheck_matrix(
+            {"golden": preds[dev], "seeded": seeded}, obj, mask,
+            lambda: [scenes], cfg),
+        "objects_sweep": sweeps.objects_sweep(
+            preds[dev], {"Sedan": make_car_object(300, 200, seed=SEED),
+                         "SUV": make_car_object(300, 200, seed=SEED + 1)},
+            lambda: [scenes], cfg),
+        "physical_eval": {"patch": sweeps.physical_eval(
+            preds[dev], obj, mask, np.clip(obj * 0.7 + 0.2, 0, 1) * mask,
+            lambda: [scenes], cfg)},
+        "attack_steps_sweep": sweeps.attack_steps_sweep(
+            preds[dev], obj, mask, lambda: [scenes], cfg,
+            candi_steps=(1, 11)),
+    }
+    for name, res in results.items():
+        flat = {}
+        for k, r in res.items():
+            if "mean" in r:
+                flat[str(k)] = r["mean"]["abs_rel"]
+            else:
+                flat.update({f"{k}->{t}": v["mean"]["abs_rel"]
+                             for t, v in r.items()})
+        log(f"zoo 13c: {name}: abs_rel {json.dumps(flat)}")
+        if not all(math.isfinite(v) for v in flat.values()):
+            raise AssertionError(f"{name}: non-finite metrics")
+
+
+def phase_zoo_distill(dev, sd) -> None:
+    """13d: one warm-up and two timed distillation steps with
+    adv_type="image" (float32, batch 32, 1024x320, whole-image PGD-10,
+    golden teacher and student): s/step; D and B launches as phase 9's a
+    step (48 + 44, 12 + 11), D's weight gradients only the student's (4),
+    no kernel A."""
+    cfg = DistillConfig(adv_type="image", batch_size=32)
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    trainer = _distill_trainer(dev, cfg, sd, obj, mask, SEED + 190)
+    scenes = torch.from_numpy(make_scene(32, cfg.ori_h, cfg.ori_w,
+                                         seed=SEED + 191)).to(dev)
+    state = trainer.make_state()
+    state, _ = trainer.train_step(state, scenes)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    losses = []
+    with counting_weight_grads() as wgrads:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state, m = trainer.train_step(state, scenes)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / 2
+    launches = {k.name: k.launches // 2 for k in _build.KERNELS if k.launches}
+    want = {"maxpool3x3s2_fwd": 12, "maxpool3x3s2_bwd": 11,
+            "conv3x3_fwd": D_FWD_PER_STEP, "conv3x3_dgrad": D_DGRAD_PER_STEP}
+    log(f"zoo 13d: DistillTrainer.train_step, adv_type image, float32, batch "
+        f"32 at 1024x320, PGD-{cfg.steps} eps {cfg.epsilon}, golden teacher "
+        f"and student: {secs:.4f} s/step (2 steps after 1 warm-up, host "
+        f"clock, synchronised), losses {losses}, launches a step "
+        f"{json.dumps(launches)} (predicted {json.dumps(want)}, no A), D "
+        f"weight gradients a step {len(wgrads) / 2:g}")
+    if launches != want or len(wgrads) != 2 * D_WGRAD_PER_STEP or \
+            not all(math.isfinite(v) for v in losses) or state.step != 3:
+        raise AssertionError("the image distillation step failed")
+
+
 def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -2763,10 +3280,12 @@ def main() -> int:
     harden = timed("phase 11", phase_harden, dev)
     torch.cuda.empty_cache()
     cli = timed("phase 12", phase_cli, dev)
+    torch.cuda.empty_cache()
+    zoo = timed("phase 13", phase_zoo, dev)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
                          + distill_launches[name] + bench_launches[name]
-                         + harden[name] + cli[name])
+                         + harden[name] + cli[name] + zoo[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "host_ms",

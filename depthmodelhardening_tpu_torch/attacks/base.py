@@ -42,6 +42,16 @@ from ..physics.eot import (
 SCENE_H, SCENE_W = 320, 1024  # model input (phy_obj_atk.py:50)
 
 
+@dataclasses.dataclass
+class FinalDraws:
+    """The draws of an attack that optimises nothing (the vanilla and
+    physical projections): the finals' (B,) EoT sample, before the eval
+    pin."""
+
+    final_z0s: torch.Tensor
+    final_alphas: torch.Tensor
+
+
 @dataclasses.dataclass(frozen=True)
 class PhysObjAttackConfig:
     """Static attack configuration shared by the family."""
@@ -131,7 +141,10 @@ class PhysObjAttack:
 
     predictor(images (B, 320, 1024, 3)) -> disp (B, 320, 1024, 1), frozen
     and in eval mode. obj_img (1, h, w, 3) and obj_mask (1, h, w, 1) are
-    moved to the predictor's device; all images are NHWC float32.
+    moved to the predictor's device; all images are NHWC float32. An
+    optimised texture is (1, h, w, 3), or (B, h, w, 3) with one texture
+    a sample (the L2 attack's): the views, the warps and the finals
+    take either.
     """
 
     def __init__(self, predictor, obj_img, obj_mask,
@@ -182,13 +195,15 @@ class PhysObjAttack:
                                self.cfg.scene_w)
 
     def _model_view(self, scenes_full, obj_adv, z0s, alphas,
-                    scenes_model=None):
+                    scenes_model=None, geometry=None):
         """One EoT step -> (adv_scenes, masks) at model resolution.
 
         Exact path: composite at native resolution, then resize
         (phy_obj_atk.py:83-90). Default: the tiled separable warp
         straight to model resolution; `scenes_model` is the resized
-        scene batch, which does not change across steps."""
+        scene batch, which does not change across steps; `geometry` the
+        draws' warp parameters when computed beforehand
+        (`view_geometry`; the exact path ignores it)."""
         cfg = self.cfg
         if cfg.exact_composite:
             adv_full, mask_full = self.eot.project_and_composite(
@@ -201,7 +216,20 @@ class PhysObjAttack:
             scenes_model, obj_adv, self.obj_mask, z0s, alphas,
             model_h=cfg.scene_h, model_w=cfg.scene_w,
             tile_h=min(cfg.tile_h, cfg.scene_h),
-            tile_w=min(cfg.tile_w, cfg.scene_w))
+            tile_w=min(cfg.tile_w, cfg.scene_w), geometry=geometry)
+
+    def view_geometry(self, z0s, alphas):
+        """The tiled view's warp parameters of these draws on the
+        texture's device (`EoTCompositor.separable_geometry`), or None
+        on the exact path. z0s, alphas: (n,) for one view, or n = N * B
+        for N views of batch B (`SeparableGeometry.select`)."""
+        cfg = self.cfg
+        if cfg.exact_composite:
+            return None
+        return self.eot.separable_geometry(
+            z0s, alphas, cfg.scene_h, cfg.scene_w,
+            min(cfg.tile_h, cfg.scene_h), min(cfg.tile_w, cfg.scene_w),
+            self.obj_img.device)
 
     def _crop_window(self):
         """(crop_w, crop_h) of the cropped objective, each None where it
@@ -213,7 +241,7 @@ class PhysObjAttack:
 
     def _objective(self, scenes_full, obj_adv, z0s, alphas,
                    scenes_model=None, fine: bool = False,
-                   transform: Optional[Callable] = None):
+                   transform: Optional[Callable] = None, geometry=None):
         """The inner-loop cost: EoT view + targeted masked-disparity MSE.
         With the cropped objective on the tiled warp (JAX `_objective`'s
         fused route) the view is `_model_view_cropped`, in the view
@@ -222,22 +250,24 @@ class PhysObjAttack:
         `transform` (the L0 attack's colour jitter) maps the full-frame
         composites before the model sees them; it forces the full-frame
         path (JAX `attacks/base.py:255-286`), because the jitter's
-        contrast term reads the whole image's mean."""
+        contrast term reads the whole image's mean. `geometry`: the
+        draws' `view_geometry`, when computed beforehand."""
         cw, ch = self._crop_window()
         if (cw is not None or ch is not None) and transform is None and \
                 not self.cfg.exact_composite:
             adv, masks, scale = self._model_view_cropped(
                 scenes_full, obj_adv, z0s, alphas, cw or self.cfg.scene_w,
-                ch or self.cfg.scene_h, scenes_model)
+                ch or self.cfg.scene_h, scenes_model, geometry)
             return self._cost_tail(adv, masks, scale, fine)
         adv_scenes, masks = self._model_view(scenes_full, obj_adv, z0s,
-                                             alphas, scenes_model)
+                                             alphas, scenes_model, geometry)
         if transform is not None:
             adv_scenes = transform(adv_scenes)
         return self._targeted_cost(adv_scenes, masks, fine)
 
     def _model_view_cropped(self, scenes_full, obj_adv, z0s, alphas,
-                            cw: int, ch: int, scenes_model=None):
+                            cw: int, ch: int, scenes_model=None,
+                            geometry=None):
         """(adv_crop, mask_crop, scale) of one EoT step: the tiled warp in
         the view dtype, pasted into the resized scenes (also in the view
         dtype), cut to the (ch, cw) window centred on each sample's
@@ -253,7 +283,7 @@ class PhysObjAttack:
         tiles, y0s, x0s = self.eot.tiles_separable(
             (obj_adv,), self.obj_mask, z0s, alphas, cfg.scene_h,
             cfg.scene_w, min(cfg.tile_h, cfg.scene_h),
-            min(cfg.tile_w, cfg.scene_w), dtype=dt)
+            min(cfg.tile_w, cfg.scene_w), dtype=dt, geometry=geometry)
         (adv,), masks = self.eot.paste_tiles(scenes_model.to(dt), tiles,
                                              y0s, x0s, (obj_adv.shape[-1],))
         th, tw = tiles.shape[1:3]
@@ -340,13 +370,14 @@ class PhysObjAttack:
         return crop(adv_scenes), crop(masks), (ch * cw) / (H * W)
 
     def objective_and_grad(self, scenes_full, obj, z0s, alphas,
-                           scenes_model=None, fine: bool = False):
-        """(cost, d cost / d obj) of one EoT draw; `fine` as
-        `_objective`'s."""
+                           scenes_model=None, fine: bool = False,
+                           geometry=None):
+        """(cost, d cost / d obj) of one EoT draw; `fine` and `geometry`
+        as `_objective`'s."""
         with torch.enable_grad():
             obj = obj.detach().requires_grad_(True)
             cost = self._objective(scenes_full, obj, z0s, alphas,
-                                   scenes_model, fine)
+                                   scenes_model, fine, geometry=geometry)
             (g,) = torch.autograd.grad(cost, obj)
         return cost.detach(), g
 
@@ -385,7 +416,8 @@ class PhysObjAttack:
         raise NotImplementedError
 
     def _optimize(self, scenes_full, draws):
-        """Returns the optimised adversarial texture (1, h, w, 3)."""
+        """Returns the optimised adversarial texture, (1, h, w, 3) or
+        (B, h, w, 3)."""
         raise NotImplementedError
 
     # -- entry --------------------------------------------------------------------
@@ -394,7 +426,7 @@ class PhysObjAttack:
                  eval_mode: bool = False, draws=None):
         """scenes (1 | batch_size, ori_h, ori_w, 3) on the predictor's
         device -> (adv (B, H, W, 3), ben (B, H, W, 3), masks
-        (B, H, W, 1), obj_adv (1, h, w, 3)) at model resolution.
+        (B, H, W, 1), obj_adv (1 | B, h, w, 3)) at model resolution.
         `draws` replaces the draws from `generator` when given."""
         if draws is None:
             if generator is None:

@@ -2,15 +2,17 @@
 
 Counterpart of `depthmodelhardening_tpu/evaluation/attack_eval.py:38-211`
 (reference DepthNetworks/monodepth2/evaluate_depth.py:113-214): build an
-attack, run it over eval_count scene batches with eval=True (sample 0
-pinned), and measure the error of the attacked prediction against the
-benign prediction of the same model inside the object mask, on
-stereo-scaled clamped depth (x5.4, [1e-3, 80]). Reports the mean and
-max over batches of [abs_err, abs_rel, sq_rel, rmse, rmse_log, a1, a2,
-a3].
+attack of any of the reference's norm types, run it over eval_count
+scene batches with eval=True (sample 0 pinned), and measure the error of
+the attacked prediction against the benign prediction inside the object
+mask (the whole frame for the whole-image attack), on stereo-scaled
+clamped depth (x5.4, [1e-3, 80]). Reports the mean and max over batches
+of [abs_err, abs_rel, sq_rel, rmse, rmse_log, a1, a2, a3].
 
     attack = build_attack(cfg, predictor, obj_img, obj_mask)
     result = evaluate_attacks(predictor, attack, scenes_iter, cfg)
+
+`evaluation/presets.py` holds the reference's 16 configurations.
 """
 
 from __future__ import annotations
@@ -21,37 +23,33 @@ from typing import Dict, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..attacks.apgd_object import APGDObjectAttack
 from ..attacks.base import PhysObjAttackConfig
 from ..attacks.l0_object import L0_EVAL_PIN_Z0, L0ObjectAttack
+from ..attacks.l2_object import L2ObjectAttack
+from ..attacks.light_object import LightObjectAttack
+from ..attacks.pgd_image import PGDImageAttack
 from ..attacks.pgd_object import PGDObjectAttack
+from ..attacks.physical import PhysicalObjectAttack
+from ..attacks.random_object import (
+    ArbiObjectAttack, GaussianObjectAttack, VanilaObjectAttack,
+)
+from ..attacks.square_object import SquareObjectAttack
 from ..ops.metrics import compute_errors_masked, scaled_clamped_depth
 from ..physics.eot import VEHICLE_SIZES
 
 METRIC_NAMES = ("abs_err", "abs_rel", "sq_rel", "rmse", "rmse_log",
                 "a1", "a2", "a3")
-
-# norm types of the JAX package that the port does not have yet, and the
-# ROADMAP item that brings each
-_SLICE6 = "Queue 1, slice 6 (the other attacks and evaluations)"
-_LATER = {
-    "image": _SLICE6,
-    "l_2": _SLICE6,
-    "arbi": _SLICE6,
-    "guassian": _SLICE6,
-    "light": _SLICE6,
-    "vanila": _SLICE6,
-    "physical": _SLICE6,
-    "APGD": _SLICE6,
-    "Square": _SLICE6,
-}
+NORM_TYPES = ("l_inf", "l_0", "image", "l_2", "arbi", "guassian", "light",
+              "vanila", "physical", "APGD", "Square")
 
 
 @dataclasses.dataclass(frozen=True)
 class AttackEvalConfig:
-    """The fields of the reference's eval attack-args dicts
-    (evaluate_depth.py:403-517) that the L-inf and L0 paths read."""
+    """The reference's eval attack-args dicts (evaluate_depth.py:403-517).
+    norm_type: one of NORM_TYPES (the reference's spellings)."""
 
-    norm_type: str = "l_inf"
+    norm_type: str = "l_0"
     epsilon: float = 0.1
     alpha: float = 0.005
     step: int = 10
@@ -61,35 +59,66 @@ class AttackEvalConfig:
     batch_size: int = 12
     eval_count: int = 10
     start_idx: int = 42  # evaluate_depth.py:160
+    n_inits: int = 200  # the light attack's
+    n_neighbors: int = 20
+    n_queries: int = 5000  # the Square attack's
     obj_name: str = "BMW"  # metric quad size key (physicalTrans.py:35-40)
     scene_h: int = 320
     scene_w: int = 1024
     ori_h: int = 375
     ori_w: int = 1242
+    # per-batch image dumps (evaluate_depth_physical.py:124-165): not
+    # ported yet (ROADMAP Queue 1, slice 7: utils/visualize.py)
+    dump_dir: Optional[str] = None
 
 
-def build_attack(cfg: AttackEvalConfig, predictor, obj_img, obj_mask):
+def build_attack(cfg: AttackEvalConfig, predictor, obj_img, obj_mask,
+                 adv_obj_img=None):
     """Attack factory (evaluate_depth.py:119-151). obj_img (1, h, w, 3),
-    obj_mask (1, h, w, 1)."""
+    obj_mask (1, h, w, 1); adv_obj_img: the photographed texture of the
+    "physical" norm type."""
     nt = cfg.norm_type
-    if nt in _LATER:
-        raise NotImplementedError(
-            f"norm_type {nt!r} is not ported yet: ROADMAP {_LATER[nt]}")
-    if nt not in ("l_inf", "l_0"):
+    if nt not in NORM_TYPES:
         raise ValueError(f"unknown norm_type {nt}")
-    oh, ow = obj_img.shape[1:3]
+    if nt == "image":
+        return PGDImageAttack(predictor, eps=cfg.epsilon, alpha=cfg.alpha,
+                              steps=cfg.step,
+                              scene_hw=(cfg.scene_h, cfg.scene_w))
+    oh, ow = np.shape(obj_img)[1:3]
     veh_h, veh_w = VEHICLE_SIZES[next(
         (k for k in VEHICLE_SIZES if cfg.obj_name.startswith(k)), "BMW")]
     base = PhysObjAttackConfig(
         obj_h=oh, obj_w=ow, scene_h=cfg.scene_h, scene_w=cfg.scene_w,
         ori_h=cfg.ori_h, ori_w=cfg.ori_w, veh_h=veh_h, veh_w=veh_w,
         eval_pin_z0=L0_EVAL_PIN_Z0 if nt == "l_0" else 7.0)
+    args = (predictor, obj_img, obj_mask)
+    if nt == "l_inf":
+        return PGDObjectAttack(*args, base, eps=cfg.epsilon,
+                               alpha=cfg.alpha, steps=cfg.step)
     if nt == "l_0":
-        return L0ObjectAttack(predictor, obj_img, obj_mask, base,
-                              adam_lr=cfg.adam_lr, steps=cfg.step,
-                              mask_wt=cfg.mask_wt, l0_thresh=cfg.l0_thresh)
-    return PGDObjectAttack(predictor, obj_img, obj_mask, base,
-                           eps=cfg.epsilon, alpha=cfg.alpha, steps=cfg.step)
+        return L0ObjectAttack(*args, base, adam_lr=cfg.adam_lr,
+                              steps=cfg.step, mask_wt=cfg.mask_wt,
+                              l0_thresh=cfg.l0_thresh)
+    if nt == "l_2":
+        return L2ObjectAttack(*args, base, eps=cfg.epsilon, steps=cfg.step)
+    if nt == "arbi":
+        return ArbiObjectAttack(*args, base)
+    if nt == "guassian":
+        return GaussianObjectAttack(*args, base, steps=cfg.step)
+    if nt == "light":
+        return LightObjectAttack(*args, base, n_inits=cfg.n_inits,
+                                 n_neighbors=cfg.n_neighbors)
+    if nt == "vanila":
+        return VanilaObjectAttack(*args, base)
+    if nt == "physical":
+        if adv_obj_img is None:
+            raise ValueError("physical attack needs adv_obj_img")
+        return PhysicalObjectAttack(*args, adv_obj_img, base)
+    if nt == "APGD":
+        return APGDObjectAttack(*args, base, eps=cfg.epsilon,
+                                steps=cfg.step)
+    return SquareObjectAttack(*args, base, eps=cfg.epsilon,
+                              n_queries=cfg.n_queries)
 
 
 def _batch_metrics(predictor, adv, ben, masks):
@@ -101,19 +130,29 @@ def _batch_metrics(predictor, adv, ben, masks):
 def evaluate_attacks(predictor, attack, scenes_iter: Iterable,
                      cfg: AttackEvalConfig,
                      generator: Optional[torch.Generator] = None,
-                     draws: Optional[Sequence] = None
-                     ) -> Dict[str, Dict[str, float]]:
+                     draws: Optional[Sequence] = None, vanila_obj=None,
+                     metric_predictor=None) -> Dict[str, Dict[str, float]]:
     """Run the attack over eval batches and aggregate the metrics.
 
     predictor: the frozen DepthPredictor the attack optimises against.
+    metric_predictor: the model whose predictions are measured, when it
+      is another one: the transferability cross-check
+      (evaluate_depth_crosscheck.py:205-215 attacks the source model and
+      measures the target). Defaults to `predictor`.
     scenes_iter: yields (B, ori_h, ori_w, 3) scene batches (numpy or
       tensors; see iter_eval_scenes).
     generator: the CPU torch.Generator of the attack's draws (default:
       seeded with 17); draws[i], when given, replaces batch i's draws.
+    vanila_obj: the texture the "vanila" norm type projects.
     Returns {"mean": {...}, "max": {...}} keyed by METRIC_NAMES.
     """
+    if cfg.dump_dir:
+        raise NotImplementedError(
+            "dump_dir's image dumps are not ported yet: ROADMAP Queue 1, "
+            "slice 7 (utils/visualize.py)")
     if generator is None:
         generator = torch.Generator().manual_seed(17)
+    metric_predictor = metric_predictor or predictor
     rows = []
     for i, scenes in enumerate(scenes_iter):
         if i >= cfg.eval_count:
@@ -121,11 +160,19 @@ def evaluate_attacks(predictor, attack, scenes_iter: Iterable,
         if not isinstance(scenes, torch.Tensor):
             scenes = torch.from_numpy(np.asarray(scenes))
         scenes = scenes.to(device=predictor.device, dtype=torch.float32)
-        adv, ben, masks, _ = attack(
-            scenes, cfg.batch_size, generator, eval_mode=True,
-            draws=None if draws is None else draws[i])
+        d = None if draws is None else draws[i]
+        if cfg.norm_type == "image":
+            adv, ben = attack(scenes, generator, draws=d)
+            masks = torch.ones(adv.shape[:3] + (1,), dtype=adv.dtype,
+                               device=adv.device)
+        elif cfg.norm_type == "vanila":
+            adv, ben, masks, _ = attack(scenes, vanila_obj, cfg.batch_size,
+                                        generator, eval_mode=True, draws=d)
+        else:
+            adv, ben, masks, _ = attack(scenes, cfg.batch_size, generator,
+                                        eval_mode=True, draws=d)
         with torch.no_grad():
-            errs = _batch_metrics(predictor, adv, ben, masks)
+            errs = _batch_metrics(metric_predictor, adv, ben, masks)
         rows.append(torch.stack(errs).cpu().numpy())
     if not rows:
         raise ValueError("no scene batches to evaluate")

@@ -105,7 +105,8 @@ class ResnetEncoder(nn.Module):
         if num_layers not in _STAGES:
             raise NotImplementedError(
                 f"ResNet-{num_layers}: only BasicBlock encoders (18, 34) "
-                "are ported; Bottleneck ResNets are a later slice")
+                "are ported; Bottleneck ResNets are not ported yet "
+                "(ROADMAP Queue 1, slice 6b)")
         self.num_layers = num_layers
         self.num_input_images = num_input_images
         self.conv1 = nn.Conv2d(3 * num_input_images, 64, 7, 2, 3,

@@ -288,6 +288,22 @@ class EoTCompositor:
         B = (d * X + e * (0.5 + y0[:, None]) + f) / den - 0.5 - self.t_pad
         return sx, A, B, y0, x0
 
+    def separable_geometry(self, z0s, alphas, model_h: int, model_w: int,
+                           tile_h: int, tile_w: int, device,
+                           T=None) -> "SeparableGeometry":
+        """`_separable_geometry` with its per-column results on `device`
+        and the tile offsets as ints: what `tiles_separable` needs of the
+        draws. A search that projects the same draws many times (the
+        pinned samples of Square and APGD), or a known list of draws
+        (light, Gaussian: one sample set each, N sets at once), computes
+        it once a call and passes it in, so no query copies to the card
+        (a pageable host-to-device copy waits for the stream)."""
+        sx, A, B, y0, x0 = self._separable_geometry(
+            z0s, alphas, model_h, model_w, tile_h, tile_w, T)
+        return SeparableGeometry(
+            sx.to(device), A.to(device), B.to(device),
+            [int(v) for v in y0.tolist()], [int(v) for v in x0.tolist()])
+
     # -- warps ----------------------------------------------------------------
     def warp_obj_mask(self, obj, mask, z0s, alphas):
         """Exact warp at scene resolution. obj (1|B, oh, ow, C), mask
@@ -318,11 +334,14 @@ class EoTCompositor:
 
     def tiles_separable(self, textures: Sequence[torch.Tensor], mask,
                         z0s, alphas, model_h: int, model_w: int,
-                        tile_h: int, tile_w: int, dtype=_F32, T=None):
+                        tile_h: int, tile_w: int, dtype=_F32, T=None,
+                        geometry: Optional["SeparableGeometry"] = None):
         """Warp textures + mask (channel-stacked, mask last) into
         (B, tile_h, tile_w, sum(C) + 1) tiles of `dtype`; returns (tiles,
         y0s, x0s) with integer tile offsets (lists of ints) in the model
-        frame. T: the extrinsic of `corners`.
+        frame. T: the extrinsic of `corners`. `geometry`: the draws'
+        `separable_geometry`, computed beforehand (z0s, alphas and T are
+        then not read). A texture's leading dim is 1 or the batch's.
 
         A view dtype other than float32 (JAX `tiles_separable`,
         eot.py:535-590) rounds pass 1's weights and inputs to it and
@@ -332,9 +351,10 @@ class EoTCompositor:
         `dtype` after it."""
         oh, ow = self.cfg.obj_h, self.cfg.obj_w
         dev = textures[0].device
-        sx, A, B, y0, x0 = self._separable_geometry(
-            z0s, alphas, model_h, model_w, tile_h, tile_w, T)
-        sx, A, B = sx.to(dev), A.to(dev), B.to(dev)
+        if geometry is None:
+            geometry = self.separable_geometry(
+                z0s, alphas, model_h, model_w, tile_h, tile_w, dev, T)
+        sx, A, B = geometry.sx, geometry.A, geometry.B
 
         # pass 1 (horizontal): wx[b, j, x] = tri(sx[b, x] - j); the zero
         # fill outside the object box falls out of the triangular support
@@ -354,20 +374,18 @@ class EoTCompositor:
             inter = torch.einsum("bkjc,bjx->bckx", stacked, Wx)
         # pass 2 (vertical): the hand-written kernel on the card
         tiles = vertical_resample(inter, A, B, tile_h).to(dtype)
-        y0s = [int(v) for v in y0.tolist()]
-        x0s = [int(v) for v in x0.tolist()]
-        return tiles.permute(0, 2, 3, 1), y0s, x0s
+        return tiles.permute(0, 2, 3, 1), geometry.y0s, geometry.x0s
 
     def _tiled_separable(self, scenes_model, textures, mask, z0s, alphas,
                          model_h: int, model_w: int, tile_h: int,
-                         tile_w: int, T=None) -> Tuple[List[torch.Tensor],
-                                                       torch.Tensor]:
+                         tile_w: int, T=None, geometry=None
+                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """tiles_separable in the scenes' dtype + per-sample paste into
         the model-resolution scenes. Returns ([composite per texture],
         mask_full)."""
         tiles, y0s, x0s = self.tiles_separable(
             textures, mask, z0s, alphas, model_h, model_w, tile_h, tile_w,
-            dtype=scenes_model.dtype, T=T)
+            dtype=scenes_model.dtype, T=T, geometry=geometry)
         return self.paste_tiles(scenes_model, tiles, y0s, x0s,
                                 [t.shape[-1] for t in textures])
 
@@ -406,16 +424,35 @@ class EoTCompositor:
 
     def composite_tiled_model(self, scenes_model, obj, mask, z0s, alphas,
                               model_h: int, model_w: int, tile_h: int = 256,
-                              tile_w: int = 256, T=None):
+                              tile_w: int = 256, T=None, geometry=None):
         """Warp + composite at model resolution inside a tile around the
         quad, through the exact separable warp; scenes_model
         (B, model_h, model_w, 3) is the resized scene batch; T: the
-        extrinsic of `corners`. Returns (adv_model, mask_model), both
-        full frame."""
+        extrinsic of `corners`; geometry: as `tiles_separable`'s.
+        Returns (adv_model, mask_model), both full frame."""
         comps, mask_full = self._tiled_separable(
             scenes_model, (obj,), mask, z0s, alphas, model_h, model_w,
-            tile_h, tile_w, T)
+            tile_h, tile_w, T, geometry)
         return comps[0], mask_full
+
+
+@dataclasses.dataclass
+class SeparableGeometry:
+    """The separable warp's per-sample parameters on the image's device
+    (`EoTCompositor.separable_geometry`): sx, A, B (n, tile_w) and the
+    tile offsets y0s, x0s (n ints)."""
+
+    sx: torch.Tensor
+    A: torch.Tensor
+    B: torch.Tensor
+    y0s: List[int]
+    x0s: List[int]
+
+    def select(self, lo: int, hi: int) -> "SeparableGeometry":
+        """Samples lo..hi - 1 (one draw set of a list of them)."""
+        return SeparableGeometry(self.sx[lo:hi], self.A[lo:hi],
+                                 self.B[lo:hi], self.y0s[lo:hi],
+                                 self.x0s[lo:hi])
 
 
 def stereo_T(baseline: float = 0.54, side: str = "l") -> np.ndarray:

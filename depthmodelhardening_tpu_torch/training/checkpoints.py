@@ -157,5 +157,5 @@ def load_reference_pth(weights_folder: str
 
 def load_manydepth_reference(*args, **kwargs):
     raise NotImplementedError(
-        "ManyDepth weights are not ported yet (ROADMAP Queue 1, slice 6: "
+        "ManyDepth weights are not ported yet (ROADMAP Queue 1, slice 6b: "
         "ManyDepth)")

@@ -6,8 +6,11 @@ simple_adv_training.py:126-141):
 
   1. attack the student's current weights, in eval mode (BatchNorm
      running statistics) and with no weight gradients, with the L-inf
-     PGD object attack (or the L0 attack); the finals are the training-time ones
-     (`eval_mode=False`: no pinned sample, the tiled pair warp);
+     PGD object attack (or the L0 attack, or whole-image PGD:
+     `adv_type="image"`, the scene batch as given, resized to the
+     model's resolution); the object attacks' finals are the
+     training-time ones (`eval_mode=False`: no pinned sample, the tiled
+     pair warp);
   2. the frozen teacher's disp0 on the benign composites, with no
      gradient, is the pseudo ground truth;
   3. the MSE of the train-mode student's disp0 on the adversarial
@@ -34,8 +37,8 @@ teacher is the caller's: in `bench.py`'s configuration a bf16, folded
 The state is a model and its optimizer, updated in place; `train_step`
 also returns it. Random draws come from a CPU `torch.Generator` or are
 injected as `PGDDraws` (`L0Draws` for `adv_type="object_l0"`, the L0
-attack: BASELINE config 3b). Unported: `adv_type="image"` (slice 6) and
-the eval's logger images (slice 7) raise NotImplementedError.
+attack: BASELINE config 3b; `ImageDraws` for "image"). Unported: the
+eval's logger images (slice 7) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 
 from ..attacks.base import PhysObjAttackConfig
 from ..attacks.l0_object import L0_EVAL_PIN_Z0, L0ObjectAttack
+from ..attacks.pgd_image import PGDImageAttack
 from ..attacks.pgd_object import PGDObjectAttack
 from ..device import resolve_device
 from ..models.wrappers import EvalView, init_monodepth2, make_monodepth2
@@ -58,19 +62,16 @@ from .hardening import TrainState
 # the student (train mode), its Adam and the number of steps taken
 DistillState = TrainState
 
-_LATER = {
-    "image": "ROADMAP Queue 1, slice 6 (the other attacks)",
-}
-
 
 def build_attack(cfg: DistillConfig, predictor, obj_img, obj_mask):
     """get_atk_model (simple_adv_training.py:38-56) for adv_type
     "object" (L-inf PGD on the object texture, eval sample pinned at
-    7 m) and "object_l0" (the L0 attack, pinned at 6.1 m: BASELINE
-    config 3b)."""
-    if cfg.adv_type in _LATER:
-        raise NotImplementedError(f"adv_type={cfg.adv_type!r} is not "
-                                  f"ported yet ({_LATER[cfg.adv_type]})")
+    7 m), "object_l0" (the L0 attack, pinned at 6.1 m: BASELINE config
+    3b) and "image" (whole-image L-inf PGD, JAX `distill.py:46-49`)."""
+    if cfg.adv_type == "image":
+        return PGDImageAttack(predictor, eps=cfg.epsilon, alpha=cfg.alpha,
+                              steps=cfg.steps,
+                              scene_hw=(cfg.scene_h, cfg.scene_w))
     if cfg.adv_type not in ("object", "object_l0"):
         raise ValueError(f"unknown adv_type {cfg.adv_type}")
     l0 = cfg.adv_type == "object_l0"
@@ -126,7 +127,7 @@ class DistillTrainer:
         self.student_view = EvalView(self.device)
         self.attack = build_attack(cfg, self.student_view, obj_img, obj_mask)
         self.scale_view = None
-        if cfg.attack_scale:
+        if cfg.attack_scale and cfg.adv_type != "image":
             self.scale_view = EvalView(self.device,
                                        scales=(cfg.attack_scale,))
             self.attack.predict_scale = self.scale_view
@@ -194,16 +195,23 @@ class DistillTrainer:
     def train_step(self, state: DistillState, scenes,
                    generator: Optional[torch.Generator] = None, draws=None):
         """One distillation step on a scene batch (batch_size, ori_h,
-        ori_w, 3) (or one scene, replicated). The attack's draws come
-        from `generator` (default: the trainer's) unless `draws`
-        (`PGDDraws`, or `L0Draws` for "object_l0") are given. Returns (state, {"loss"})."""
-        B = self.cfg.batch_size
+        ori_w, 3) (or, for the object attacks, one scene, replicated;
+        "image" attacks the batch as given, JAX `distill.py:164-166`).
+        The attack's draws come from `generator` (default: the
+        trainer's) unless `draws` (`PGDDraws`, `L0Draws` for
+        "object_l0", `ImageDraws` for "image") are given. Returns
+        (state, {"loss"})."""
         scenes = torch.as_tensor(scenes, dtype=torch.float32,
                                  device=self.device)
+        image = self.cfg.adv_type == "image"
+        B = scenes.shape[0] if image else self.cfg.batch_size
         if draws is None:
             draws = self.attack.draw(generator or self.generator, B)
-        adv, ben, _, _ = self.attack_student(state)(
-            scenes, B, eval_mode=False, draws=draws)
+        attack = self.attack_student(state)
+        if image:
+            adv, ben = attack(scenes, draws=draws)
+        else:
+            adv, ben, _, _ = attack(scenes, B, eval_mode=False, draws=draws)
         return self.distill_step(state, adv, ben)
 
 
@@ -231,9 +239,14 @@ def eval_atk_perf(trainer: DistillTrainer, state: DistillState, scenes_iter,
     for i, scenes in enumerate(scenes_iter):
         scenes = torch.as_tensor(scenes, dtype=torch.float32,
                                  device=trainer.device)
-        adv, ben, masks, _ = attack(
-            scenes, B, generator, eval_mode=True,
-            draws=None if draws is None else draws[i])
+        d = None if draws is None else draws[i]
+        if trainer.cfg.adv_type == "image":
+            # JAX `distill.py:219`: no object, the whole frame measured
+            adv, ben = attack(scenes, generator, draws=d)
+            masks = None
+        else:
+            adv, ben, masks, _ = attack(scenes, B, generator,
+                                        eval_mode=True, draws=d)
         with torch.no_grad():
             disp_gt = trainer.teacher(ben)
             disp_pre = view(ben)

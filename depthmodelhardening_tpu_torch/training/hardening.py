@@ -84,8 +84,8 @@ from .config import HardeningConfig
 from .selfsup import compute_selfsup_losses, identity_noise_shape
 
 _LATER = {
-    "model_family": "ROADMAP Queue 1, slice 6 (ManyDepth)",
-    "depth_hints": "ROADMAP Queue 1, slice 6 (DepthHints)",
+    "model_family": "ROADMAP Queue 1, slice 6b (ManyDepth)",
+    "depth_hints": "ROADMAP Queue 1, slice 6b (DepthHints)",
 }
 
 

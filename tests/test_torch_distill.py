@@ -422,7 +422,7 @@ def test_eval_atk_perf_matches_jax(ref, port):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(adv_type="image"), NotImplementedError, "ROADMAP.*slice 6"),
+    (dict(adv_type="l_0"), ValueError, "unknown adv_type"),
     (dict(adv_type="l_2"), ValueError, "unknown adv_type"),
 ])
 def test_unported_attack_types_raise(ref, kw, err, match):

@@ -34,7 +34,7 @@ from depthmodelhardening_tpu_torch.attacks.pgd_object import PGDObjectAttack
 from depthmodelhardening_tpu_torch.data import synthetic
 from depthmodelhardening_tpu_torch.device import require_cuda
 from depthmodelhardening_tpu_torch.evaluation.attack_eval import (
-    AttackEvalConfig, build_attack,
+    AttackEvalConfig, build_attack, evaluate_attacks,
 )
 from depthmodelhardening_tpu_torch.models.wrappers import (
     init_monodepth2, predictor_from,
@@ -64,7 +64,11 @@ def test_every_module_imports_without_jax():
         "ops.conv", "training.distill", "attacks.l0_object", "ops.color",
         "models.simsiam", "training.adv_synth",
         "training.hardening", "models.pose", "training.checkpoints",
-        "evaluation.pose_eval")} <= set(mods)
+        "evaluation.pose_eval", "attacks.l2_object", "attacks.apgd_object",
+        "attacks.square_object", "attacks.random_object",
+        "attacks.light_object", "attacks.physical", "attacks.pgd_image",
+        "physics.light", "evaluation.presets", "evaluation.clean_eval",
+        "evaluation.sweeps")} <= set(mods)
     code = "\n".join(
         ["import sys"]
         + [f"sys.modules[{m!r}] = None" for m in BLOCKED]
@@ -253,14 +257,18 @@ def tiny_predictor():
     return predictor_from(init_monodepth2(torch.Generator().manual_seed(0)))
 
 
-@pytest.mark.parametrize("norm,item", [("l_2", "slice 6"),
-                                       ("Square", "slice 6")])
+@pytest.mark.parametrize("norm,item", [("l_2", "slice 7"),
+                                       ("Square", "slice 7")])
 def test_unported_norms_raise_and_name_their_roadmap_item(
         tiny_predictor, norm, item):
+    """Every norm type of the JAX package builds (slice 6a); what the
+    evaluation still lacks, the image dumps of `dump_dir`, raises and
+    names its ROADMAP item before any batch runs."""
     obj, mask = synthetic.make_car_object(60, 40)
+    cfg = AttackEvalConfig(norm_type=norm, dump_dir="dumps")
+    attack = build_attack(cfg, tiny_predictor, obj, mask)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        build_attack(AttackEvalConfig(norm_type=norm), tiny_predictor, obj,
-                     mask)
+        evaluate_attacks(tiny_predictor, attack, [], cfg)
 
 
 @pytest.mark.parametrize("kw", [dict(attack_scale=1),
