@@ -3124,10 +3124,10 @@ def phase_zoo_presets(dev, sd) -> dict:
     # the Gaussian search's blur alone: a depthwise F.conv2d a pass, by
     # im2col with use_f32_numerics (cuDNN off), up to 599 taps
     g_atk = build_attack(EVAL_PRESETS["gaussian"], predictor, obj, mask)
-    sig = g_atk.sigmas()
-    all_ms = cuda_ms(lambda: [_blur_hw(g_atk.obj_img, v) for v in sig],
+    sig, kernels = g_atk.sigmas(), g_atk._kernels
+    all_ms = cuda_ms(lambda: [_blur_hw(g_atk.obj_img, k) for k in kernels],
                      reps=3)
-    last_ms = cuda_ms(lambda: _blur_hw(g_atk.obj_img, sig[-1]), reps=5)
+    last_ms = cuda_ms(lambda: _blur_hw(g_atk.obj_img, kernels[-1]), reps=5)
     log(f"  blur: the Gaussian preset's {len(sig)} sigmas on the 300x200 "
         f"car, {all_ms:.3f} ms in all (card alone), sigma {sig[-1]:g} "
         f"(399 and 599 taps) {last_ms:.3f} ms")

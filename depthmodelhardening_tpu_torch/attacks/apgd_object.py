@@ -20,6 +20,10 @@ Hein's APGD on the EoT depth objective):
     `reduced_last_check` starts True, the loss history at -inf;
   * the result is the final iterate, not the best one (:122).
 
+L-inf only: the JAX package's L2 norm option has no caller in the port
+and is not ported, nor is its `n_restarts`, which runs once there too
+(the reference keeps the first run's result).
+
 The loop runs on the card: the best-so-far, the loss history and the
 halving are tensors updated with `torch.where`, and no value is read
 back to the host inside it. The checkpoints themselves do not depend on
@@ -34,6 +38,9 @@ import dataclasses
 import torch
 
 from .base import PhysObjAttack, PhysObjAttackConfig
+
+# the oscillation test's share of rising steps (the reference's rho)
+_RHO = 0.75
 
 
 @dataclasses.dataclass
@@ -54,18 +61,12 @@ class APGDDraws:
 
 class APGDObjectAttack(PhysObjAttack):
     def __init__(self, predictor, obj_img, obj_mask,
-                 cfg: PhysObjAttackConfig, norm: str = "Linf",
-                 eps: float = 8 / 255, steps: int = 100,
-                 n_restarts: int = 1, seed: int = 17, rho: float = 0.75):
+                 cfg: PhysObjAttackConfig, eps: float = 8 / 255,
+                 steps: int = 100, seed: int = 17):
         super().__init__(predictor, obj_img, obj_mask, cfg)
-        if norm not in ("Linf", "L2"):
-            raise ValueError(norm)
-        self.norm = norm
         self.eps = eps
         self.steps = steps
-        self.n_restarts = n_restarts
         self.seed = seed
-        self.rho = rho
         self.steps_2 = max(int(0.22 * steps), 1)
         self.steps_min = max(int(0.06 * steps), 1)
         self.size_decr = max(int(0.03 * steps), 1)
@@ -85,23 +86,13 @@ class APGDObjectAttack(PhysObjAttack):
                          final_alphas=fa)
 
     def _project(self, x0, z):
-        if self.norm == "Linf":
-            z = torch.minimum(torch.maximum(z, x0 - self.eps), x0 + self.eps)
-            return torch.clamp(z, 0.0, 1.0)
-        delta = z - x0
-        n = torch.sqrt(torch.sum(delta ** 2)) + 1e-12
-        delta = delta / n * torch.clamp(n, max=self.eps)
-        return torch.clamp(x0 + delta, 0.0, 1.0)
-
-    def _step_dir(self, g):
-        if self.norm == "Linf":
-            return torch.sign(g)
-        return g / (torch.sqrt(torch.sum(g ** 2)) + 1e-12)
+        z = torch.minimum(torch.maximum(z, x0 - self.eps), x0 + self.eps)
+        return torch.clamp(z, 0.0, 1.0)
 
     @torch.no_grad()
     def _optimize(self, scenes_full, draws: APGDDraws):
-        # n_restarts: the reference keeps the first restart's result (its
-        # always-"fooled" accuracy logic, perturb :315-327): one run
+        # one run: the reference keeps the first restart's result (its
+        # always-"fooled" accuracy logic, perturb :315-327)
         x0 = self.obj_img
         dev = x0.device
         scenes_model = self._resize_scenes(scenes_full)
@@ -115,12 +106,8 @@ class APGDObjectAttack(PhysObjAttack):
             return -cost, -g
 
         t = draws.t.to(device=dev, dtype=torch.float32)
-        if self.norm == "Linf":
-            x_adv = x0 + self.eps * t / torch.max(torch.abs(t))
-        else:
-            x_adv = x0 + self.eps * t / (torch.sqrt(torch.sum(t ** 2))
-                                         + 1e-12)
-        x_adv = torch.clamp(x_adv, 0.0, 1.0)
+        x_adv = torch.clamp(x0 + self.eps * t / torch.max(torch.abs(t)), 0.0,
+                            1.0)
         loss, grad = loss_grad(x_adv)
 
         x_old, x_best, grad_best = x_adv, x_adv, grad
@@ -134,7 +121,7 @@ class APGDObjectAttack(PhysObjAttack):
         counter3, k = 0, self.steps_2
         for i in range(self.steps):
             a = 0.75 if i > 0 else 1.0
-            cand = self._project(x0, x_adv + step_size * self._step_dir(grad))
+            cand = self._project(x0, x_adv + step_size * torch.sign(grad))
             z = x_adv + a * (cand - x_adv) + (1.0 - a) * (x_adv - x_old)
             x_new = self._project(x0, z)
             loss, grad = loss_grad(x_new)
@@ -152,7 +139,7 @@ class APGDObjectAttack(PhysObjAttack):
                                   loss_steps[:-1]])
                 window = (idx <= i) & (idx > i - k)
                 n_rose = torch.sum(((loss_steps > prev) & window).float())
-                fl = (n_rose <= k * self.rho) | (
+                fl = (n_rose <= k * _RHO) | (
                     ~reduced_last_check & (loss_best_last_check >= loss_best))
                 step_size = torch.where(fl, step_size / 2.0, step_size)
                 x_new = torch.where(fl, x_best, x_new)

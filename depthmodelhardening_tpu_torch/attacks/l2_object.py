@@ -12,17 +12,19 @@ sample of the batch has its own texture, (B, h, w, 3), with its own
 gradient normalisation: the reference's per-batch chunked norm expands
 its (1, h, w, 3) texture to one copy a sample from the second step on.
 The views, the warps and the finals take the (B, h, w, 3) texture as
-they take a (1, h, w, 3) one.
+they take a (1, h, w, 3) one. Every step's warp parameters are computed
+in one call before the loop (`view_geometry`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import torch
 
 from .base import PhysObjAttack, PhysObjAttackConfig
+
+_EPS_DIV = 1e-10  # the reference's eps_for_division
 
 
 @dataclasses.dataclass
@@ -30,13 +32,13 @@ class L2Draws:
     """Every random draw of one L2 call (CPU float32 tensors).
 
     delta: (B, h, w, 3) standard normal direction of the random start,
-      r: (B,) its uniform radius fraction (both None: no random start)
+      r: (B,) its uniform radius fraction
     z0s, alphas: (steps, B) per-step EoT samples
     final_z0s, final_alphas: (B,) finals draw, before the eval pin
     """
 
-    delta: Optional[torch.Tensor]
-    r: Optional[torch.Tensor]
+    delta: torch.Tensor
+    r: torch.Tensor
     z0s: torch.Tensor
     alphas: torch.Tensor
     final_z0s: torch.Tensor
@@ -51,21 +53,16 @@ def _per_sample_norm(t):
 class L2ObjectAttack(PhysObjAttack):
     def __init__(self, predictor, obj_img, obj_mask,
                  cfg: PhysObjAttackConfig, eps: float = 1.0,
-                 steps: int = 40, random_start: bool = True,
-                 eps_for_division: float = 1e-10):
+                 steps: int = 40):
         super().__init__(predictor, obj_img, obj_mask, cfg)
         self.eps = eps
         self.alpha = 2.5 * eps / steps  # phy_obj_atk_l2.py:44
         self.steps = steps
-        self.random_start = random_start
-        self.eps_div = eps_for_division
 
     def draw(self, generator: torch.Generator, batch: int) -> L2Draws:
-        delta = r = None
-        if self.random_start:
-            delta = torch.randn((batch,) + tuple(self.obj_img.shape[1:]),
-                                generator=generator)
-            r = torch.rand((batch,), generator=generator)
+        delta = torch.randn((batch,) + tuple(self.obj_img.shape[1:]),
+                            generator=generator)
+        r = torch.rand((batch,), generator=generator)
         za = [self._sample_za(generator, batch) for _ in range(self.steps)]
         fz, fa = self._final_za(generator, batch)
         return L2Draws(
@@ -80,24 +77,25 @@ class L2ObjectAttack(PhysObjAttack):
         dev = self.obj_img.device
         obj0 = self.obj_img.expand((B,) + tuple(self.obj_img.shape[1:]))
         view = (B, 1, 1, 1)
-        adv = obj0
-        if self.random_start:
-            # a uniform point inside the L2 ball (phy_obj_atk_l2.py:83-90)
-            delta = draws.delta.to(device=dev, dtype=torch.float32)
-            r = draws.r.to(device=dev, dtype=torch.float32)
-            delta = delta * (r / _per_sample_norm(delta)).reshape(view) \
-                * self.eps
-            adv = torch.clamp(adv + delta, 0.0, 1.0)
+        # a uniform point inside the L2 ball (phy_obj_atk_l2.py:83-90)
+        delta = draws.delta.to(device=dev, dtype=torch.float32)
+        r = draws.r.to(device=dev, dtype=torch.float32)
+        delta = delta * (r / _per_sample_norm(delta)).reshape(view) * self.eps
+        adv = torch.clamp(obj0 + delta, 0.0, 1.0)
         scenes_model = self._resize_scenes(scenes_full)
+        geometry = self.view_geometry(draws.z0s.reshape(-1),
+                                      draws.alphas.reshape(-1))
         for step in range(self.steps):
             _, g = self.objective_and_grad(
                 scenes_full, adv, draws.z0s[step], draws.alphas[step],
-                scenes_model)
+                scenes_model,
+                geometry=None if geometry is None
+                else geometry.select(step * B, (step + 1) * B))
             g = -g  # ascend -MSE (phy_obj_atk_l2.py:100-112)
-            g = g / (_per_sample_norm(g) + self.eps_div).reshape(view)
+            g = g / (_per_sample_norm(g) + _EPS_DIV).reshape(view)
             adv = adv + self.alpha * g
             delta = adv - obj0
-            dn = torch.clamp(_per_sample_norm(delta), min=self.eps_div)
+            dn = torch.clamp(_per_sample_norm(delta), min=_EPS_DIV)
             # a true division (a scalar over a tensor is x^-1 * scalar)
             factor = torch.clamp(torch.full_like(dn, self.eps) / dn, max=1.0)
             adv = torch.clamp(obj0 + delta * factor.reshape(view), 0.0, 1.0)

@@ -2,10 +2,12 @@
 
 Counterpart of `depthmodelhardening_tpu/attacks/pgd_image.py:1-75`
 (reference torchattacks/attacks/pgd_depth.py:7-80). The scenes are
-resized to the model's resolution first; the targeted mode pushes the
-predicted disparity towards zero (descends mean(disp^2)), the
-untargeted one away from the clean prediction. Returns (adv_images,
-ben_images) at model resolution. No object, so no EoT view and no warp.
+resized to the model's resolution first, a uniform random start added,
+and each step pushes the predicted disparity towards zero (the targeted
+mode: descends mean(disp^2)). Returns (adv_images, ben_images) at model
+resolution. No object, so no EoT view and no warp. The JAX package's
+untargeted mode and its option of no random start have no caller in the
+port and are not ported.
 
 The predictor may be an `EvalView` of a trainable student (the
 distillation step's `adv_type="image"`): its passes run on detached
@@ -26,9 +28,9 @@ from .base import SCENE_H, SCENE_W
 @dataclasses.dataclass
 class ImageDraws:
     """The random start of one call: noise (B, H, W, 3) uniform in
-    [-eps, eps) at model resolution (CPU float32), or None."""
+    [-eps, eps) at model resolution (CPU float32)."""
 
-    noise: Optional[torch.Tensor]
+    noise: torch.Tensor
 
 
 class PGDImageAttack:
@@ -36,19 +38,14 @@ class PGDImageAttack:
     ben), both (B, H, W, 3) at `scene_hw`; predictor(images) -> disp."""
 
     def __init__(self, predictor, eps: float = 0.3, alpha: float = 2 / 255,
-                 steps: int = 40, random_start: bool = True,
-                 targeted: bool = True, scene_hw=(SCENE_H, SCENE_W)):
+                 steps: int = 40, scene_hw=(SCENE_H, SCENE_W)):
         self.predictor = predictor
         self.eps = eps
         self.alpha = alpha
         self.steps = steps
-        self.random_start = random_start
-        self.targeted = targeted
         self.scene_hw = tuple(scene_hw)
 
     def draw(self, generator: torch.Generator, batch: int) -> ImageDraws:
-        if not self.random_start:
-            return ImageDraws(None)
         u = torch.rand((batch,) + self.scene_hw + (3,), generator=generator)
         return ImageDraws(u * (2.0 * self.eps) - self.eps)
 
@@ -59,25 +56,16 @@ class PGDImageAttack:
                 raise ValueError("pass a torch.Generator or the draws")
             draws = self.draw(generator, scenes.shape[0])
         images = bilinear_resize(scenes, *self.scene_hw)
-        depth_gt = None
-        if not self.targeted:
-            with torch.no_grad():
-                depth_gt = self.predictor(images)
-        adv = images
-        if self.random_start:
-            noise = draws.noise.to(device=images.device, dtype=images.dtype)
-            adv = torch.clamp(images + noise, 0.0, 1.0)
-        # targeted: ascend -MSE(disp, 0), i.e. descend mean(disp^2)
-        sign = -1.0 if self.targeted else 1.0
+        noise = draws.noise.to(device=images.device, dtype=images.dtype)
+        adv = torch.clamp(images + noise, 0.0, 1.0)
         for _ in range(self.steps):
+            # ascend -MSE(disp, 0), i.e. descend mean(disp^2)
             with torch.enable_grad():
                 x = adv.detach().requires_grad_(True)
-                out = self.predictor(x)
-                cost = torch.mean(out ** 2) if self.targeted else \
-                    torch.mean((out - depth_gt) ** 2)
+                cost = torch.mean(self.predictor(x) ** 2)
                 (g,) = torch.autograd.grad(cost, x)
             with torch.no_grad():
-                adv = adv + sign * self.alpha * torch.sign(g)
+                adv = adv - self.alpha * torch.sign(g)
                 delta = torch.clamp(adv - images, -self.eps, self.eps)
                 adv = torch.clamp(images + delta, 0.0, 1.0)
         return adv.detach(), images

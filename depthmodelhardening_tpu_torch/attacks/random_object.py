@@ -19,8 +19,9 @@ separable 1-D passes, each a depthwise convolution (F.conv2d, groups =
 C; JAX `lax.conv_general_dilated`, outside any Pallas kernel), the pad
 clamped to H - 1 / W - 1 with the cut kernel renormalised. The search
 stays on the card: the best cost and texture are updated with
-`torch.where`; the warp parameters of every step's EoT sample are
-computed in one call before it (`view_geometry`).
+`torch.where`; the blur kernels of every step reach the card once, when
+the attack is built (`blur_kernels`), and the warp parameters of every
+step's EoT sample in one call before the search (`view_geometry`).
 """
 
 from __future__ import annotations
@@ -138,21 +139,33 @@ def _symmetric_index(n: int, rad: int, device) -> torch.Tensor:
     return torch.cat([i[:rad].flip(0), i, i[n - rad:].flip(0)])
 
 
-def _blur_hw(img: torch.Tensor, sigma: float) -> torch.Tensor:
-    """Separable Gaussian blur over H and W, scipy 'reflect' boundary, as
-    JAX `random_object._blur_hw`: img (1, H, W, C), sigma a number."""
-    if sigma <= 0:
-        return img
-    k = torch.from_numpy(_gaussian_kernel1d(sigma))
-    r = (k.shape[0] - 1) // 2
-    H, W, C = img.shape[1:]
+def blur_kernels(sigmas, h: int, w: int, device):
+    """[(kernel over H, kernel over W)] of `_blur_hw` for each sigma > 0 on
+    an (h, w) image: scipy's kernel, cut to the pad's clamp at n - 1 and
+    renormalised where cut. All of them reach `device` in one copy."""
+    cut = []
+    for sigma in sigmas:
+        k = _gaussian_kernel1d(sigma)
+        r = (k.shape[0] - 1) // 2
+        for n in (h, w):
+            rad = min(r, n - 1)
+            kk = k[r - rad:r + rad + 1]
+            cut.append(kk if rad == r else kk / kk.sum(dtype=np.float32))
+    flat = torch.from_numpy(np.concatenate(cut)).to(device)
+    parts = flat.split([k.shape[0] for k in cut])
+    return list(zip(parts[0::2], parts[1::2]))
 
-    def conv_axis(x, axis: int, rad: int):
-        kernel = k if rad == r else \
-            k[r - rad:r + rad + 1] / k[r - rad:r + rad + 1].sum()
-        kernel = kernel.to(x.device)
-        n = x.shape[axis]
-        xp = x.index_select(axis, _symmetric_index(n, rad, x.device))
+
+def _blur_hw(img: torch.Tensor, kernels) -> torch.Tensor:
+    """Separable Gaussian blur over H and W, scipy 'reflect' boundary, as
+    JAX `random_object._blur_hw`: img (1, H, W, C), kernels one entry of
+    `blur_kernels` on img's device (a depthwise F.conv2d a pass)."""
+    C = img.shape[-1]
+
+    def conv_axis(x, axis: int, kernel):
+        rad = (kernel.shape[0] - 1) // 2
+        xp = x.index_select(axis, _symmetric_index(x.shape[axis], rad,
+                                                   x.device))
         shape = (C, 1, kernel.shape[0], 1) if axis == 1 else \
             (C, 1, 1, kernel.shape[0])
         out = F.conv2d(xp.permute(0, 3, 1, 2),
@@ -160,8 +173,7 @@ def _blur_hw(img: torch.Tensor, sigma: float) -> torch.Tensor:
                        groups=C)
         return out.permute(0, 2, 3, 1)
 
-    img = conv_axis(img, 1, min(r, H - 1))
-    return conv_axis(img, 2, min(r, W - 1))
+    return conv_axis(conv_axis(img, 1, kernels[0]), 2, kernels[1])
 
 
 @dataclasses.dataclass
@@ -187,6 +199,9 @@ class GaussianObjectAttack(PhysObjAttack):
         self.steps = steps
         self._region = torch.from_numpy(
             _region_mask(cfg.obj_h, cfg.obj_w)).to(self.obj_img.device)
+        # every step's blur kernels, on the texture's device once
+        self._kernels = blur_kernels(self.sigmas(), cfg.obj_h, cfg.obj_w,
+                                     self.obj_img.device)
         # the last `_optimize`'s winning step (-1: the clean texture) and
         # its cost, tensors on the texture's device
         self.last_best = None
@@ -214,8 +229,8 @@ class GaussianObjectAttack(PhysObjAttack):
         best_cost = torch.full((), 1e10, dtype=torch.float32, device=dev)
         best_step = torch.full((), -1, dtype=torch.int64, device=dev)
         best = cur = self.obj_img
-        for step, sigma in enumerate(self.sigmas()):
-            pattern = torch.clamp(_blur_hw(self.obj_img, sigma), 0.0, 1.0)
+        for step, kernels in enumerate(self._kernels):
+            pattern = torch.clamp(_blur_hw(self.obj_img, kernels), 0.0, 1.0)
             cur = self._region * pattern + cur * (1 - self._region)
             cost = self._objective(
                 scenes_full, cur, draws.z0s[step], draws.alphas[step],

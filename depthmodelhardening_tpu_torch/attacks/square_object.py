@@ -38,7 +38,8 @@ import torch
 
 from .base import PhysObjAttack, PhysObjAttackConfig
 
-# iteration milestones of the canonical p schedule
+# the p schedule's start and its iteration milestones
+_P_INIT = 0.8
 _P_MILESTONES = np.asarray([10, 50, 200, 500, 1000, 2000, 4000, 6000,
                             8000, 10001], np.float32)
 
@@ -71,14 +72,11 @@ def _rademacher(shape, generator):
 class SquareObjectAttack(PhysObjAttack):
     def __init__(self, predictor, obj_img, obj_mask,
                  cfg: PhysObjAttackConfig, eps: float = 0.1,
-                 n_queries: int = 5000, p_init: float = 0.8,
-                 seed: int = 17, resc_schedule: bool = True):
+                 n_queries: int = 5000, seed: int = 17):
         super().__init__(predictor, obj_img, obj_mask, cfg)
         self.eps = eps
         self.n_queries = n_queries
-        self.p_init = p_init
         self.seed = seed
-        self.resc_schedule = resc_schedule
         # the last `_optimize`'s winning query (-1: the stripe start), its
         # best cost and accepted queries, tensors on the texture's device
         self.last_best = None
@@ -101,12 +99,11 @@ class SquareObjectAttack(PhysObjAttack):
                            final_alphas=fa)
 
     def p_selection(self, it: int) -> np.float32:
-        """p of query `it` (phy_obj_atk_square.py:222-250), in float32."""
-        t = np.float32(it)
-        if self.resc_schedule:
-            t = t / np.float32(self.n_queries) * np.float32(10000.0)
+        """p of query `it` (phy_obj_atk_square.py:222-250), in float32, the
+        milestones rescaled to n_queries."""
+        t = np.float32(it) / np.float32(self.n_queries) * np.float32(10000.0)
         k = int(np.sum(t >= _P_MILESTONES[:-1]))
-        return np.float32(self.p_init) / np.float32(2.0 ** k)
+        return np.float32(_P_INIT) / np.float32(2.0 ** k)
 
     def square(self, it: int, u_h: float, u_w: float) -> Tuple[int, int, int]:
         """(s, row, col) of query `it`'s square from its uniforms, in

@@ -80,19 +80,17 @@ def disp_to_scaled_depth(disp):
 
 def evaluate_clean(predictor, frames_and_gts: Iterable[Tuple[np.ndarray,
                                                              np.ndarray]],
-                   cfg: CleanEvalConfig = CleanEvalConfig(),
-                   batched_predict=None):
+                   cfg: CleanEvalConfig = CleanEvalConfig()):
     """frames_and_gts yields (image (H, W, 3) at working resolution,
     gt_depth (gt_h, gt_w) at native resolution), numpy. predictor:
-    images (B, H, W, 3) -> disp (B, H, W, 1) on its device, or
-    `batched_predict` does that for it.
+    images (B, H, W, 3) -> disp (B, H, W, 1) on `predictor.device`.
 
     Returns ({metric: mean}, ratios): ratios are the per-frame median
     scale factors (empty under stereo scaling).
     """
-    predict = batched_predict or (lambda imgs: predictor(
-        torch.as_tensor(np.ascontiguousarray(imgs), dtype=torch.float32,
-                        device=predictor.device)))
+    dev = predictor.device
+    predict = lambda imgs: predictor(torch.as_tensor(
+        np.ascontiguousarray(imgs), dtype=torch.float32, device=dev))
     errors, ratios = [], []
     for img, gt in frames_and_gts:
         with torch.no_grad():
@@ -126,7 +124,6 @@ def evaluate_clean(predictor, frames_and_gts: Iterable[Tuple[np.ndarray,
             ratios.append(ratio)
             pred *= ratio
         pred = np.clip(pred, cfg.min_depth, cfg.max_depth)
-        dev = getattr(predictor, "device", torch.device("cpu"))
         errors.append([float(x) for x in compute_depth_errors(
             torch.as_tensor(gt_m, dtype=torch.float32, device=dev),
             torch.as_tensor(pred, dtype=torch.float32, device=dev))])

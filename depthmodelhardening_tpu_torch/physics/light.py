@@ -31,10 +31,14 @@ _F32 = torch.float32
 
 def _f32(*vals):
     """The values as float32 tensors on the device of the first tensor
-    among them (the CPU if none is)."""
+    among them (the CPU if none is). A number becomes a tensor filled on
+    that device (`torch.full`), not a host-to-device copy, which would
+    wait for the stream: the light search builds a light a candidate."""
     dev = next((v.device for v in vals if isinstance(v, torch.Tensor)),
                torch.device("cpu"))
-    return [torch.as_tensor(v, dtype=_F32, device=dev) for v in vals]
+    return [v.to(dtype=_F32) if isinstance(v, torch.Tensor)
+            else torch.full((), float(v), dtype=_F32, device=dev)
+            for v in vals]
 
 
 def _safe_pow(base, exp: float):
@@ -152,7 +156,7 @@ def _rotate_image(img, angle_deg):
     sampled bilinearly with zero fill, and zero wherever the source
     coordinate leaves the input. img (H, W, C)."""
     H, W = img.shape[:2]
-    (th,) = _f32(angle_deg)
+    _, th = _f32(img, angle_deg)
     th = torch.deg2rad(th.to(img.device))
     cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
     ys = torch.arange(H, dtype=_F32, device=img.device)[:, None] - cy

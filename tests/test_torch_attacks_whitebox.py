@@ -45,14 +45,29 @@ Tolerances, measured on this CPU:
   (the texture within 1e-6), the best loss 1e-6 relative;
 * evaluate_attacks' 8 metrics: rtol 1e-3, atol 1e-3
   (tests/test_torch_attack_eval.py's; 3.2e-5 relative measured for L2);
-* the image distillation step: the port's step equals its own attack
-  plus `distill_step` (loss 1e-6 relative, every weight within 1e-6),
-  and its attack never gives a parameter a gradient.
+* the image distillation step against JAX `_step` (its attack the image
+  PGD above, its `value_and_grad` and Adam update jitted, the student's
+  eval forward the zoo's jitted disp0 program of the same weights): the
+  whole step's loss 1e-3 relative (4.4e-4 measured: the two steps'
+  sign splits, above, change some pixels of the images it trains on)
+  and every parameter within 2.5 lr (Adam's first step moves each by
+  about lr in the sign of its gradient; 3.2% of the weights' updates
+  take the other sign, 2 lr apart), the unused heads bit-unchanged; the
+  training half on JAX's own images by tests/test_torch_distill.py's
+  rule (loss 1e-5 relative, 1.1e-7 measured; parameters within 2.5 lr;
+  BatchNorm statistics 1e-4 relative + 1e-5, the variance times
+  n / (n - 1)); `eval_atk_perf` of JAX's stepped student 1e-3 relative
+  (5.1e-6 and 8.5e-5 measured). Besides, the port's step equals its own
+  attack plus `distill_step` (loss 1e-6 relative, every weight within
+  1e-6), and its attack never gives a parameter a gradient.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -65,13 +80,21 @@ from depthmodelhardening_tpu.attacks.base import (
 from depthmodelhardening_tpu.evaluation.attack_eval import (
     AttackEvalConfig as JAttackEvalConfig, build_attack as j_build_attack,
 )
-from depthmodelhardening_tpu.physics.eot import TRAIN_DIST_RANGE
+from depthmodelhardening_tpu.training.config import (
+    DistillConfig as JDistillConfig,
+)
+from depthmodelhardening_tpu.training.distill import (
+    DistillTrainer as JDistillTrainer, eval_atk_perf as j_eval_atk_perf,
+)
 from depthmodelhardening_tpu_torch.attacks.apgd_object import (
     APGDDraws, APGDObjectAttack,
 )
 from depthmodelhardening_tpu_torch.attacks.base import PhysObjAttackConfig
 from depthmodelhardening_tpu_torch.attacks.l2_object import L2Draws
 from depthmodelhardening_tpu_torch.attacks.pgd_image import ImageDraws
+from depthmodelhardening_tpu_torch.models.convert import (
+    from_jax_distill_state,
+)
 from depthmodelhardening_tpu_torch.evaluation.attack_eval import (
     METRIC_NAMES, AttackEvalConfig, build_attack, evaluate_attacks,
 )
@@ -82,7 +105,10 @@ from depthmodelhardening_tpu_torch.training.distill import (
 )
 
 import zoo_common as zc
-from zoo_common import few_torch_threads  # noqa: F401 (autouse)
+from test_torch_distill import HEADS, PARAM_ATOL, assert_state_matches
+from zoo_common import (  # noqa: F401 (autouse)
+    few_torch_threads, remembered_band_sweeps,
+)
 
 SIGN_FLOOR = 1e-6
 STEPS = 2
@@ -94,10 +120,7 @@ IMAGE_METRIC_RTOL = 5e-3
 
 @pytest.fixture(scope="module")
 def zoo():
-    z = zc.JaxZoo(zc.scenes())
-    z.obj, z.mask = zc.objects()
-    z.t_pred = z.port_predictor()
-    return z
+    return zc.shared_zoo()
 
 
 def _attacks(zoo, **kw):
@@ -251,8 +274,8 @@ def test_apgd_schedule_matches_jax(zoo, steps):
     the loss history is not at the mercy of sign splits: the schedule
     (steps_2, steps_min, size_decr), every halving and the final iterate
     against JAX's `_single_run`."""
-    kw = dict(obj_h=zc.OBJ_H, obj_w=zc.OBJ_W, scene_h=zc.H, scene_w=zc.W,
-              dist_range=tuple(float(x) for x in TRAIN_DIST_RANGE))
+    # the eval distances build_attack gives APGD
+    kw = dict(obj_h=zc.OBJ_H, obj_w=zc.OBJ_W, scene_h=zc.H, scene_w=zc.W)
     j_atk = JAPGDObjectAttack(j_pixel_predict, zoo.obj, zoo.mask,
                               JPhysObjAttackConfig(**kw), eps=0.05,
                               steps=steps)
@@ -395,12 +418,111 @@ def test_image_pgd_matches_jax(zoo, image):
 
 
 # -- distillation with adv_type="image" ---------------------------------------
+DISTILL_KW = dict(adv_type="image", batch_size=zc.B, steps=STEPS,
+                  epsilon=0.01, alpha=0.002, scene_h=zc.H, scene_w=zc.W,
+                  fold_bn=False)
+STEP_LOSS_RTOL, PERF_RTOL = 1e-3, 1e-3
+
+
+@pytest.fixture(scope="module")
+def j_distill(zoo, image):
+    """JAX `DistillTrainer._step` with adv_type="image" from the golden
+    weights on the image PGD's key, then JAX `eval_atk_perf` of the
+    stepped student on the key PRNGKey(31). The step's code is JAX's;
+    its student's eval forward is the zoo's jitted disp0 program of the
+    weights it is given; its state's making, `value_and_grad`, Adam
+    update and `apply_updates` are each jitted (JAX's `train_step` jits
+    the whole step), so the file compiles no second attack and no
+    per-parameter eager op."""
+    tr = JDistillTrainer(JDistillConfig(**DISTILL_KW), jax.random.PRNGKey(0),
+                         zoo.obj, zoo.mask, zoo.fast_pred,
+                         init_variables=zoo.vars)
+    tr.attack.predict_fn = zoo.fwd
+    tr.tx = optax.GradientTransformation(tr.tx.init, jax.jit(tr.tx.update))
+    run, seen = tr.attack._run, []
+    tr.attack._run = lambda *a: seen.append(run(*a)) or seen[-1]
+    key, _, _ = zc.eval_key()
+    before = jax.jit(tr.make_state)()
+    orig = jax.value_and_grad, optax.apply_updates
+    jax.value_and_grad = lambda fn, **kw: jax.jit(orig[0](fn, **kw))
+    optax.apply_updates = jax.jit(orig[1])
+    try:
+        with zc.eager_loops():
+            after, m = tr._step(before, zoo.sf, key)
+    finally:
+        jax.value_and_grad, optax.apply_updates = orig
+    # the eval: the attack's loop eager, the student's forwards the same
+    # jitted program
+    tr.attack._jitted = run
+    tr.model_d0 = types.SimpleNamespace(
+        apply=lambda v, x, train: zoo.fwd(v, x))
+    rng = jax.random.PRNGKey(31)
+    with zc.eager_loops():
+        perf = j_eval_atk_perf(tr, after, [zoo.scenes], rng)
+    noise = jax.random.uniform(jax.random.fold_in(rng, 0),
+                               (zc.B, zc.H, zc.W, 3), minval=-0.01,
+                               maxval=0.01)
+    return dict(adv=np.asarray(seen[0][0]), ben=np.asarray(seen[0][1]),
+                loss=float(m["loss"]),
+                before=jax.tree_util.tree_map(np.array, before),
+                after=jax.tree_util.tree_map(np.array, after),
+                perf=perf, eval_draws=ImageDraws(zc.t(noise)))
+
+
+def _distill_trainer(zoo):
+    return DistillTrainer(DistillConfig(**DISTILL_KW),
+                          torch.Generator().manual_seed(0), zoo.obj,
+                          zoo.mask, zoo.t_pred, device="cpu",
+                          init_state_dict=zoo.sd)
+
+
+def test_image_distill_step_and_eval_match_jax(zoo, image, j_distill):
+    """adv_type="image" against JAX: JAX `_step`'s attack is the image PGD
+    above (the same images); the port's whole `train_step` from the
+    golden weights on JAX's draws against JAX `_step` (the loss, every
+    parameter, the unused heads bit-unchanged); the port's training half
+    on JAX's own images against the same step (loss, parameters and
+    BatchNorm statistics by tests/test_torch_distill.py's rule); then
+    `eval_atk_perf` of JAX's stepped student against JAX's."""
+    np.testing.assert_array_equal(j_distill["adv"], image["adv"])
+    tr = _distill_trainer(zoo)
+    before, after = j_distill["before"], j_distill["after"]
+    want = from_jax_distill_state(after)["model"]
+    old = from_jax_distill_state(before)["model"]
+    state, m = tr.train_step(tr.make_state(), torch.from_numpy(zoo.scenes),
+                             draws=image["draws"])
+    assert state.step == 1
+    np.testing.assert_allclose(float(m["loss"]), j_distill["loss"],
+                               rtol=STEP_LOSS_RTOL)
+    got = state.model.state_dict()
+    for name, _ in state.model.named_parameters():
+        if name in HEADS:
+            assert torch.equal(got[name], old[name]), name
+            continue
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   atol=PARAM_ATOL, rtol=0, err_msg=name)
+        assert not torch.equal(got[name], old[name]), name
+
+    half, m = tr.distill_step(tr.make_state(),
+                              torch.from_numpy(j_distill["adv"]),
+                              torch.from_numpy(j_distill["ben"]))
+    np.testing.assert_allclose(float(m["loss"]), j_distill["loss"],
+                               rtol=1e-5)
+    assert_state_matches(half.model.state_dict(), before, after, half.model)
+
+    stepped = tr.make_state(resume=from_jax_distill_state(after))
+    perf = eval_atk_perf(tr, stepped, [zoo.scenes],
+                         draws=[j_distill["eval_draws"]])
+    assert perf[0] > 0 and perf[1] > 0
+    np.testing.assert_allclose(perf, j_distill["perf"], rtol=PERF_RTOL)
+
+
 def test_image_distill_step_attacks_the_student_and_trains(zoo, image):
     """`DistillConfig(adv_type="image")` trains: the step's attack is the
     whole-image PGD on the student's detached weights (no parameter gets
     a gradient from it, and its images are the eval attack's on the same
-    weights), then `distill_step` on them; `eval_atk_perf` measures the
-    whole frame."""
+    weights), then `distill_step` on them (against JAX:
+    `test_image_distill_step_and_eval_match_jax`)."""
     cfg = DistillConfig(adv_type="image", batch_size=zc.B, steps=1,
                         epsilon=0.01, alpha=0.002, scene_h=zc.H,
                         scene_w=zc.W, fold_bn=False)
@@ -432,10 +554,6 @@ def test_image_distill_step_attacks_the_student_and_trains(zoo, image):
                             ref.model.parameters()):
         np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(),
                                    atol=1e-6, err_msg=name)
-    model_perf, atk_perf = eval_atk_perf(tr, state, [zoo.scenes],
-                                         draws=[image["draws"]])
-    assert np.isfinite(model_perf) and np.isfinite(atk_perf)
-    assert atk_perf > 0
 
 
 def test_image_distill_takes_the_configs_scene_size(zoo):

@@ -201,7 +201,7 @@ def _bn_counts(model):
     return counts
 
 
-def _assert_state_matches(got, jax_before, jax_after, model):
+def assert_state_matches(got, jax_before, jax_after, model):
     """Parameters within 2.5 lr of JAX's, every one moved except the
     unused heads (bit-unchanged), BatchNorm statistics at JAX's (the
     variance's update times n / (n - 1))."""
@@ -317,7 +317,7 @@ def test_training_half_matches_jax(ref, port):
     state, metrics = port.distill_step(state, adv, ben)
     assert state.step == 1
     assert float(metrics["loss"]) == pytest.approx(step["loss"], rel=1e-5)
-    _assert_state_matches(state.model.state_dict(), step["before"],
+    assert_state_matches(state.model.state_dict(), step["before"],
                           step["after"], state.model)
     _assert_gradients_match(state, step)
     opt = state.optimizer.state
@@ -342,7 +342,7 @@ def test_whole_train_step_from_a_converted_state(ref, port):
                                      draws=want["draws"])
     assert state.step == 2
     assert float(metrics["loss"]) == pytest.approx(want["loss"], rel=1e-4)
-    _assert_state_matches(state.model.state_dict(), want["before"],
+    assert_state_matches(state.model.state_dict(), want["before"],
                           want["after"], state.model)
     _assert_gradients_match(state, want)
 

@@ -6,8 +6,9 @@ becomes a Python loop (`eager_loops`) and the attack's `_objective` is
 swapped for one jitted program of the same objective (`JaxZoo.
 objective`), which every attack of one object size shares, and which
 `jax.grad` differentiates into one more program. So a file pays a few
-compiles however many attacks it runs, and every loop body, schedule
-and best-so-far update is the JAX package's own. The draws the JAX
+compiles however many attacks it runs (and the second of the two files
+none of these, when both run in one process: `shared_zoo`), and every
+loop body, schedule and best-so-far update is the JAX package's own. The draws the JAX
 attack makes from its keys are rebuilt with the same calls and handed
 to the port.
 
@@ -19,6 +20,7 @@ does not have).
 """
 
 import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +36,7 @@ from depthmodelhardening_tpu.models.torch_import import (
 from depthmodelhardening_tpu.models.wrappers import (
     make_monodepth2 as j_make_monodepth2, predictor_from as j_predictor_from,
 )
+from depthmodelhardening_tpu.physics.eot import EoTCompositor
 from depthmodelhardening_tpu_torch.evaluation import attack_eval
 from depthmodelhardening_tpu_torch.models.convert import (
     load_reference_state_dict,
@@ -61,6 +64,27 @@ def few_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def remembered_band_sweeps():
+    """The JAX attacks' constructors sweep their warp geometry eagerly
+    (`EoTCompositor.check_bands_fit`, a static bool of the compositor's
+    configuration and the sweep's ranges) at about 0.25 s a build; a zoo
+    module builds some 50. While it runs, the sweep's answer for one
+    configuration and set of ranges is remembered."""
+    orig = EoTCompositor.check_bands_fit
+    seen = {}
+
+    def check_bands_fit(self, *args, **kw):
+        key = repr((self.cfg, args, sorted(kw.items())))
+        if key not in seen:
+            seen[key] = orig(self, *args, **kw)
+        return seen[key]
+
+    EoTCompositor.check_bands_fit = check_bands_fit
+    yield
+    EoTCompositor.check_bands_fit = orig
 
 
 def evaluate_with_texture(predictor, atk, scenes, cfg, draws, **kw):
@@ -196,6 +220,19 @@ class JaxZoo:
 
             self._finals[key] = jax.jit(finals)
         return self.metrics(*self._finals[key](tex, z, a))
+
+
+@functools.lru_cache(maxsize=None)
+def shared_zoo() -> JaxZoo:
+    """One JaxZoo a process, with the 40x60 and 200x300 cars and the
+    port's predictor, so the zoo files run in one process share its
+    compiled programs (the forward, the objective of each object size,
+    the finals)."""
+    z = JaxZoo(scenes())
+    z.obj, z.mask = objects()
+    z.big, z.big_mask = objects(big=True)
+    z.t_pred = z.port_predictor()
+    return z
 
 
 def objects(big: bool = False):
