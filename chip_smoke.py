@@ -185,6 +185,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (float32, batch 32, PGD-10, golden teacher and student): s/step, D
    and B launches as phase 9's, D's weight gradients the student's only,
    no kernel A.
+14. families: BASELINE config 5's model families as the CLI's bf16
+   `train-hardening --fine-tune` runs them at 1024x320, batch 32, L0
+   10 steps on attack batch 12, student and float32 teacher of the
+   family from one seeded init with BatchNorm statistics calibrated on
+   synthetic scenes (the bf16 eval disp0's distance from float32
+   logged): 14a DepthHints on ResNet-50 (contras_loss_wt 0.1; the hints
+   from `fuse_depths` on the card over 12 candidate shifts, checked
+   first on a model-size scene: the true shift on every textured pixel,
+   the argmin ties counted), 14b ManyDepth (zero lookups), 14c ManyDepth
+   with the real lookup (frames 0,-1,1,s, the 96-bin sweep). Each: a
+   small float32 step under phase 11's rule and a small bf16 supervised
+   step under phase 12's, the decoder's gradients also held on their own
+   to those overall bounds (on ResNet-50 the whole model's overall
+   bounds are FAMILY_GRAD_L2_ALL's: fixed, 1.5 times the rounding its
+   step amplifies from one ulp); then 2 warm-up and 5 timed steps with
+   launches against `harden_launches`, finite loss terms, everything but
+   the never-applied prematching conv moved, one profiled step. 14d:
+   `load_manydepth_reference` from a weights folder written from 14b's
+   weights, then `ManyDepthModel` at 640x192, batch 12, single-frame and
+   `multi_frame`: card against CPU on 2 items (disp0 within 1e-4,
+   lowest_cost and confidence), 2 + 5 forwards with launches (B 1, D 4
+   a forward), one profiled forward.
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -210,6 +232,7 @@ import torch
 import torch.nn.functional as F
 
 from depthmodelhardening_tpu_torch.attacks.base import PhysObjAttackConfig
+from depthmodelhardening_tpu_torch.data import depth_hints as hint_data
 from depthmodelhardening_tpu_torch.data.synthetic import (
     make_car_object, make_scene,
 )
@@ -226,7 +249,8 @@ from depthmodelhardening_tpu_torch.models.convert import (
     load_reference_state_dict,
 )
 from depthmodelhardening_tpu_torch.models.wrappers import (
-    init_monodepth2, make_monodepth2, predictor_from,
+    MONODEPTH2_K, flax_init_, init_monodepth2,
+    make_monodepth2, predictor_from, quarter_intrinsics,
 )
 from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
 from depthmodelhardening_tpu_torch.ops.padding import reflect_pad1
@@ -236,14 +260,14 @@ from depthmodelhardening_tpu_torch.physics.eot import (
 )
 from depthmodelhardening_tpu_torch.training import checkpoints
 from depthmodelhardening_tpu_torch.training.adv_synth import (
-    make_synth_compositor, synth_tile,
+    make_synth_compositor, stereo_T_batch, synth_tile,
 )
 from depthmodelhardening_tpu_torch.training.config import (
     AdvSynthConfig, DistillConfig, HardeningConfig, SelfSupConfig,
 )
 from depthmodelhardening_tpu_torch.training.distill import DistillTrainer
 from depthmodelhardening_tpu_torch.training.hardening import (
-    HardeningTrainer, StepDraws,
+    HardeningTrainer, make_family_model,
 )
 from depthmodelhardening_tpu_torch.training.selfsup import (
     compute_selfsup_losses,
@@ -1909,7 +1933,7 @@ BENCH_SCALE_PER_STEP = {"conv3x3_fwd_bf16": D_FWD_PER_STEP - 2 * _COARSE,
 # the two round differently (kernel D and cuBLAS against oneDNN), so
 # sign-PGD texels split and gradients differ by bf16 noise (0.1 relative
 # L2 overall between the JAX package's and the port's bf16 steps on the
-# CPU, tests/test_torch_bf16.py); a wrong kernel is off by about 1. On an
+# CPU, tests/test_torch_bf16_steps.py); a wrong kernel is off by about 1. On an
 # H100 80GB HBM3 at 700 W: 2.4% split, loss 1.3e-4, gradients 3.2e-2
 BENCH_SPLIT_MAX, BENCH_LOSS_RTOL, BENCH_GRAD_L2_ALL = 0.1, 1e-3, 0.1
 
@@ -2127,7 +2151,7 @@ HARDEN_GRAD_L2, HARDEN_GRAD_L2_ALL, HARDEN_GRAD_FLOOR = 0.1, 1e-2, 1e-3
 
 
 def harden_launches(iterations: int, temporal: int = 0,
-                    bf16: bool = False) -> dict:
+                    bf16: bool = False, hints: bool = False) -> dict:
     """Kernel launches of one hardening step whose L0 attack ran
     `iterations` Adam iterations, with `temporal` temporal source frames,
     the student in bf16 or float32 (the teacher and the pose networks are
@@ -2141,13 +2165,17 @@ def harden_launches(iterations: int, temporal: int = 0,
     each source frame; the student's D in its 4 scale-0 convs forward and
     input gradient in each attack pass and in its 6 (the scale-0 path and
     dispconv_1, _2) forward and input gradient; float32 D in the
-    teacher's 4 convs forward."""
+    teacher's 4 convs forward. With DepthHints (`hints`) C runs once more
+    forward: the hint's reprojection loss, whose inputs need no gradient.
+    The Bottleneck ResNets' decoder routes the same convs to D, and the
+    ManyDepth student's stem pools once a pass (the real lookup's stem
+    takes the lookups in the same launch)."""
     i, t = iterations, temporal
     sfx = "_bf16" if bf16 else ""
     out = {k.name: 0 for k in _build.KERNELS}
     out.update({"vertical_resample_fwd": i + 2, "vertical_resample_bwd": i,
                 "maxpool3x3s2_fwd": 1 + t, "maxpool3x3s2_bwd": t,
-                "reproj_loss_fwd": 5 * (1 + t),
+                "reproj_loss_fwd": 5 * (1 + t) + int(hints),
                 "reproj_loss_bwd_q": 4 * (1 + t),
                 "reproj_loss_bwd_grad": 4 * (1 + t), "conv3x3_fwd": 4})
     for name, n in (("maxpool3x3s2_fwd", i + 2), ("maxpool3x3s2_bwd", i + 2),
@@ -2189,7 +2217,8 @@ def run_hardening_steps(label, trainer, inputs, warmup, timed):
     for n_it, _ in iters[warmup:]:
         for k, v in harden_launches(
                 n_it, len(cfg.selfsup.temporal_source_ids),
-                cfg.compute_dtype == "bfloat16").items():
+                cfg.compute_dtype == "bfloat16",
+                cfg.use_depth_hints).items():
             predicted[k] += v
     losses = [{k: float(v) for k, v in m.items()} for m in metrics]
     log(f"  seconds per step {secs:.4f} (host clock around {timed} steps "
@@ -2208,7 +2237,8 @@ def run_hardening_steps(label, trainer, inputs, warmup, timed):
             any(set(m) != expect for m in losses):
         raise AssertionError(f"non-finite or missing loss terms: {losses}")
     moved = set(_moved(start, _state_tensors(state)))
-    params = [n for n, _ in _named_params(state)]
+    params = [n for n, _ in _named_params(state)
+              if not n.startswith(NEVER_APPLIED)]
     stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
     still = (set(params) | set(stats)) - moved
     if still or state.step != warmup + timed:
@@ -2233,9 +2263,9 @@ def log_kernel_ms(by_name, counts) -> None:
 
 
 def _harden_trainer(dev, cfg, sd, obj, mask, seed):
-    """Student and frozen teacher from the golden weights (--fine-tune);
-    the SimSiam head from `seed`."""
-    teacher = make_monodepth2()
+    """Student and frozen float32 teacher of cfg's family from the
+    weights `sd` (--fine-tune); the SimSiam head from `seed`."""
+    teacher = make_family_model(cfg)
     teacher.load_state_dict(sd)
     return HardeningTrainer(cfg, torch.Generator().manual_seed(seed), obj,
                             mask, predictor_from(teacher.to(dev)),
@@ -2259,6 +2289,15 @@ def _harden_inputs(dev, cfg, seed):
     flip = torch.arange(B, device=dev) % 4 < 2
     scene = torch.from_numpy(make_scene(1, cfg.adv.ori_h, cfg.adv.ori_w,
                                         seed=seed + 1)).to(dev)
+    if cfg.use_depth_hints:
+        # the depth of the 12-column shift at model resolution, invalid on
+        # a seeded fifth of the pixels (the full-size run fuses its own)
+        ss = cfg.selfsup
+        depth = 0.58 * ss.width * 0.1 / (12 * ss.width / cfg.adv.ori_w)
+        valid = (torch.rand(B, ss.height, ss.width, 1, generator=torch
+                            .Generator().manual_seed(seed + 2)) > 0.2).float()
+        frames["depth_hint"] = (depth * valid).to(dev)
+        frames["depth_hint_mask"] = valid.to(dev)
     return frames, side, flip, scene
 
 
@@ -2354,7 +2393,8 @@ def _l2_with_floor(got, want, floor):
     return worst, name_, (num / den) ** 0.5
 
 
-def phase_harden_parity(dev, frame_ids=("0", "s")) -> None:
+def phase_harden_parity(dev, frame_ids=("0", "s"), family=None,
+                        sd=None, grad_l2_all=HARDEN_GRAD_L2_ALL) -> None:
     """One small hardening step (the model at 64x192, 96x320 frames, a
     24x36 car, batch 4, attack batch 2, L0 steps=2; `frame_ids`: with
     temporal ones, the pose networks' gradients too) on the card and on
@@ -2370,14 +2410,19 @@ def phase_harden_parity(dev, frame_ids=("0", "s")) -> None:
     within 2.5 lr (on a first Adam step each parameter moves by less
     than lr on either side, so this rule catches only NaN and infinity).
     Beside it, the CPU's step against itself with every weight one ulp
-    away: the scale of the rounding the step amplifies."""
+    away: the scale of the rounding the step amplifies. `family`:
+    HardeningConfig fields of a model family (phase 14), whose student
+    and teacher start from `sd` (default the golden weights), its
+    gradients held overall within `grad_l2_all` (FAMILY_GRAD_L2_ALL) and
+    its decoder's within HARDEN_GRAD_L2_ALL."""
     ss = dataclasses.replace(HARDEN_CFG.selfsup, height=64, width=192,
                              frame_ids=frame_ids)
     adv = dataclasses.replace(HARDEN_CFG.adv, steps=2, attack_batch_size=2,
                               ori_h=96, ori_w=320)
     cfg = dataclasses.replace(HARDEN_CFG, selfsup=ss, adv=adv, batch_size=4,
-                              learning_rate=CONVERGE_LR)
-    _, sd = _golden_weights()
+                              learning_rate=CONVERGE_LR, **(family or {}))
+    if sd is None:
+        _, sd = _golden_weights()
     obj, mask = make_car_object(36, 24, seed=SEED)
     frames, side, flip, scene = _harden_inputs(torch.device("cpu"), cfg,
                                                SEED + 72)
@@ -2387,7 +2432,7 @@ def phase_harden_parity(dev, frame_ids=("0", "s")) -> None:
     draws = trainers[0].draw(cfg.batch_size,
                              torch.Generator().manual_seed(SEED + 74))
     draws.identity_noise = torch.randn(
-        (cfg.batch_size, ss.height, ss.width, len(ss.source_frame_ids)),
+        trainers[0].identity_noise_shape(cfg.batch_size),
         generator=torch.Generator().manual_seed(SEED + 75))
     states = [t.make_state() for t in trainers]
     texs, grads, iters = [], [], []
@@ -2428,17 +2473,20 @@ def phase_harden_parity(dev, frame_ids=("0", "s")) -> None:
         out.append(({k: float(v) for k, v in m.items()}, st))
     (m_cpu, s_cpu), (m_gpu, s_gpu), (_, s_ulp) = out
     rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
-    g_cpu = {n: p.grad for n, p in _named_params(s_cpu)}
-    g_gpu = {n: p.grad for n, p in _named_params(s_gpu)}
+    grads = lambda st: {n: p.grad for n, p in _named_params(st)
+                        if p.grad is not None}
+    g_cpu, g_gpu = grads(s_cpu), grads(s_gpu)
+    if set(g_cpu) != set(g_gpu):
+        raise AssertionError("the card and the CPU differ in which "
+                             "parameters got a gradient")
     gw, gw_name, ga = _l2_with_floor(g_gpu, g_cpu, HARDEN_GRAD_FLOOR)
-    uw, uw_name, ua = _l2_with_floor(
-        {n: p.grad for n, p in _named_params(s_ulp)}, g_cpu,
-        HARDEN_GRAD_FLOOR)
+    uw, uw_name, ua = _l2_with_floor(grads(s_ulp), g_cpu, HARDEN_GRAD_FLOOR)
     worst = max(float((p.detach().cpu() - q.detach()).abs().max())
                 for (_, p), (_, q) in zip(_named_params(s_gpu),
                                           _named_params(s_cpu)))
     lr = cfg.learning_rate
     log(f"harden parity: one step at 64x192 batch 4, frames {frame_ids}, "
+        f"{_family_name(cfg)}, "
         f"L0 steps 2 on attack batch 2: iterations card {iters[1]} CPU {iters[0]}, first "
         f"iteration's gradients {g_err:.3e} of their max, textures split "
         f"{split:.4%} (logged: the trajectories part); synthesis from the "
@@ -2454,8 +2502,17 @@ def phase_harden_parity(dev, frame_ids=("0", "s")) -> None:
               "contrastive loss": (abs(m_gpu["contras_loss"]
                                        - m_cpu["contras_loss"]), 1e-5),
               "gradient, worst tensor": (gw, HARDEN_GRAD_L2),
-              "gradient, overall": (ga, HARDEN_GRAD_L2_ALL),
+              "gradient, overall": (ga, grad_l2_all),
               "parameters": (worst, 2.5 * lr)}
+    if family:
+        dec = lambda g: {n: v for n, v in g.items() if n.startswith(DECODER)}
+        da = _l2_with_floor(dec(g_gpu), dec(g_cpu), HARDEN_GRAD_FLOOR)[2]
+        ud = _l2_with_floor(dec(grads(s_ulp)), dec(g_cpu),
+                            HARDEN_GRAD_FLOOR)[2]
+        limits["decoder's gradient, overall"] = (da, HARDEN_GRAD_L2_ALL)
+        log(f"  held (phase 14): gradients worst tensor {HARDEN_GRAD_L2}, "
+            f"overall {grad_l2_all:.3e}; the decoder's overall {da:.3e} "
+            f"(one ulp away {ud:.3e}) within {HARDEN_GRAD_L2_ALL}")
     limits.update({f"{k} (rel)": (rel[k], 1e-5) for k in rel
                    if k != "contras_loss"})
     bad = {k: v for k, (v, lim) in limits.items() if not v <= lim}
@@ -2581,22 +2638,23 @@ def phase_cli(dev):
     return total
 
 
-def phase_cli_run(label, trainer, inputs):
-    """CLI_WARMUP + CLI_TIMED steps (`run_hardening_steps`), then one
+def phase_cli_run(label, trainer, inputs, warmup=CLI_WARMUP,
+                  timed=CLI_TIMED, weights="the golden weights"):
+    """`warmup` + `timed` steps (`run_hardening_steps`), then one
     profiled step: idle share and device ms by kernel instance. Returns
     (state, launches)."""
     cfg = trainer.cfg
     log(f"cli {label}: HardeningTrainer.train_step at the CLI's "
-        f"train-hardening --fine-tune defaults: Monodepth2-"
-        f"{cfg.num_layers} student in {cfg.compute_dtype} and float32 "
-        f"teacher from the golden weights (statistics calibrated), "
+        f"train-hardening --fine-tune defaults: {_family_name(cfg)}, "
+        f"student in {cfg.compute_dtype} and float32 teacher from "
+        f"{weights} (statistics calibrated), "
         f"{cfg.selfsup.width}x{cfg.selfsup.height}, frames "
         f"{cfg.selfsup.frame_ids}, L0 steps {cfg.adv.steps} on attack batch "
         f"{cfg.adv.attack_batch_size}, supervised + contrastive + "
         f"photometric, batch {cfg.batch_size} of {cfg.adv.ori_w}x"
         f"{cfg.adv.ori_h} frames, car 300x200, Adam lr {cfg.learning_rate}")
-    state, launches = run_hardening_steps(label, trainer, inputs,
-                                          CLI_WARMUP, CLI_TIMED)
+    state, launches = run_hardening_steps(label, trainer, inputs, warmup,
+                                          timed)
     busy_ms, wall_ms, n, by_name, counts = device_busy(
         lambda: trainer.train_step(state, *inputs))
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
@@ -2607,7 +2665,11 @@ def phase_cli_run(label, trainer, inputs):
     return state, launches
 
 
-def phase_cli_bf16_parity(dev, teacher_sd) -> None:
+def phase_cli_bf16_parity(dev, teacher_sd, family=None,
+                          readings=("supervised", "+ photometric",
+                                    "+ contrastive"),
+                          frame_ids=("0", "s"),
+                          grad_l2_all=BENCH_GRAD_L2_ALL) -> None:
     """One small bf16 hardening step (frames ("0", "s"), the model at
     64x192, 96x320 frames, a 24x36 car, batch 4, L0 steps 2 on attack
     batch 2; the student from a seeded init, the teacher float32 from
@@ -2620,18 +2682,23 @@ def phase_cli_bf16_parity(dev, teacher_sd) -> None:
     supervised branch, with the photometric one added and with the
     contrastive one too: the card against the CPU and the CPU's step
     against itself with every weight one ulp away (the scale of the
-    rounding each step amplifies)."""
-    ss = dataclasses.replace(CLI_CFG.selfsup, height=64, width=192)
+    rounding each step amplifies). `family`: HardeningConfig fields of a
+    model family (phase 14; `teacher_sd` that family's weights), its
+    supervised gradients held overall within `grad_l2_all`
+    (FAMILY_GRAD_L2_ALL) and its decoder's within BENCH_GRAD_L2_ALL;
+    `readings` the ones to take, `frame_ids` the frames."""
+    ss = dataclasses.replace(CLI_CFG.selfsup, height=64, width=192,
+                             frame_ids=frame_ids)
     adv = dataclasses.replace(CLI_CFG.adv, steps=2, attack_batch_size=2,
                               ori_h=96, ori_w=320)
     cfg = dataclasses.replace(CLI_CFG, selfsup=ss, adv=adv, batch_size=4,
-                              learning_rate=CONVERGE_LR)
+                              learning_rate=CONVERGE_LR, **(family or {}))
     obj, mask = make_car_object(36, 24, seed=SEED)
     cpu = torch.device("cpu")
     frames, side, flip, scene = _harden_inputs(cpu, cfg, SEED + 92)
 
     def trainer_on(d, c):
-        teacher = make_monodepth2()
+        teacher = make_family_model(c)
         teacher.load_state_dict(teacher_sd)
         return HardeningTrainer(c, torch.Generator().manual_seed(
             CLI_PARITY_SEED), obj, mask, predictor_from(teacher.to(d)),
@@ -2641,7 +2708,7 @@ def phase_cli_bf16_parity(dev, teacher_sd) -> None:
     draws = trainers[0].draw(cfg.batch_size,
                              torch.Generator().manual_seed(SEED + 94))
     draws.identity_noise = torch.randn(
-        (cfg.batch_size, ss.height, ss.width, 1),
+        trainers[0].identity_noise_shape(cfg.batch_size),
         generator=torch.Generator().manual_seed(SEED + 95))
     texs, iters = [], []
     for t in trainers:
@@ -2663,11 +2730,13 @@ def phase_cli_bf16_parity(dev, teacher_sd) -> None:
         return float(m["loss"]), {n: p.grad for n, p in _named_params(st)
                                   if p.grad is not None}
 
-    readings = {}
+    taken = {}
     for name, kw in (("supervised", dict(no_original_train=True,
                                          contrastive_learning=False)),
                      ("+ photometric", dict(contrastive_learning=False)),
                      ("+ contrastive", {})):
+        if name not in readings:
+            continue
         c = dataclasses.replace(cfg, **kw)
         (l_cpu, g_cpu), (l_gpu, g_gpu) = (
             grads(trainer_on(d, c)) for d in (cpu, dev))
@@ -2675,23 +2744,30 @@ def phase_cli_bf16_parity(dev, teacher_sd) -> None:
             raise AssertionError("the card and the CPU differ in which "
                                  "parameters got a gradient")
         _, g_ulp = grads(trainer_on(cpu, c), nudge=True)
-        readings[name] = (abs(l_gpu - l_cpu) / abs(l_cpu), l_gpu,
-                          _l2_with_floor(g_gpu, g_cpu, 0.0)[2],
-                          _l2_with_floor(g_ulp, g_cpu, 0.0)[2])
+        dec = lambda g: {n: v for n, v in g.items() if n.startswith(DECODER)}
+        taken[name] = (abs(l_gpu - l_cpu) / abs(l_cpu), l_gpu,
+                       _l2_with_floor(g_gpu, g_cpu, 0.0)[2],
+                       _l2_with_floor(g_ulp, g_cpu, 0.0)[2],
+                       _l2_with_floor(dec(g_gpu), dec(g_cpu), 0.0)[2],
+                       _l2_with_floor(dec(g_ulp), dec(g_cpu), 0.0)[2])
     log(f"cli bf16 parity: one bf16 step at 64x192 batch 4, frames "
-        f"{ss.frame_ids}, L0 steps 2 on attack batch 2, seeded student, "
+        f"{ss.frame_ids}, {_family_name(cfg)}, L0 steps 2 on attack batch "
+        f"2, seeded student, "
         f"float32 teacher: iterations card {iters[1]} CPU {iters[0]}, "
         f"textures split {split:.4%} (logged); on the CPU's batch, card "
         f"against CPU: loss rel, gradient rel L2 overall; the CPU against "
         f"itself with every weight one ulp away:")
-    for name, (rel, loss, g_all, ulp) in readings.items():
+    for name, (rel, loss, g_all, ulp, _, _) in taken.items():
         log(f"  {name}: loss {loss:.8e} rel {rel:.3e}, gradients {g_all:.3e};"
             f" one ulp away {ulp:.3e}")
-    rel, loss, g_all, _ = readings["supervised"]
+    rel, loss, g_all, ulp, g_dec, ulp_dec = taken["supervised"]
     log(f"  held: supervised, loss rel max {BENCH_LOSS_RTOL}, gradients max "
-        f"{BENCH_GRAD_L2_ALL}")
-    if rel > BENCH_LOSS_RTOL or not g_all <= BENCH_GRAD_L2_ALL or \
-            not math.isfinite(loss):
+        f"{grad_l2_all:.3e}" + (
+            f"; the decoder's {g_dec:.3e} (one ulp away {ulp_dec:.3e}) max "
+            f"{BENCH_GRAD_L2_ALL} (phase 14)" if family else ""))
+    if rel > BENCH_LOSS_RTOL or not g_all <= grad_l2_all or \
+            not math.isfinite(loss) or (family and
+                                        not g_dec <= BENCH_GRAD_L2_ALL):
         raise AssertionError("the card's bf16 hardening step disagrees with "
                              "the plain versions on the CPU")
 
@@ -3253,6 +3329,291 @@ def phase_zoo_distill(dev, sd) -> None:
         raise AssertionError("the image distillation step failed")
 
 
+# -- phase 14 ----------------------------------------------------------------
+# BASELINE config 5's model families through the CLI's `train-hardening
+# --fine-tune` defaults (phase 12's CLI_CFG: bf16 student, float32 teacher
+# of the student's family, L0 10 steps on attack batch 12, batch 32,
+# 1024x320, lr 1e-5): 14a `--use-depth-hints --num-layers 50`
+# (contras_loss_wt 0.1, as the JAX config's caller sets it), 14b
+# `--model-family manydepth` (zero lookups), 14c
+# `--manydepth-real-lookup --frame-ids 0,-1,1,s` (the 96-bin sweep); 14d
+# the ManyDepth evaluation wrapper from a reference weights folder
+FAMILY_RUNS = (
+    ("14a", dict(num_layers=50, use_depth_hints=True, contras_loss_wt=0.1),
+     ("0", "s")),
+    ("14b", dict(model_family="manydepth"), ("0", "s")),
+    ("14c", dict(model_family="manydepth", manydepth_real_lookup=True),
+     MONO_FRAMES),
+)
+FAMILY_WARMUP, FAMILY_TIMED = 2, 5
+# the small steps' gradients on the card against the CPU: phases 11 and
+# 12's rules (float32 worst tensor HARDEN_GRAD_L2, overall
+# HARDEN_GRAD_L2_ALL; bf16 supervised overall BENCH_GRAD_L2_ALL), and the
+# decoder's gradients, where kernels D and D-bf16 act, held overall to
+# those bounds on their own. One departure: on ResNet-50 (14a) the whole
+# model's overall bounds are FAMILY_GRAD_L2_ALL's, fixed at 1.5 times the
+# CPU's own step with every weight one ulp away (float32 2.367e-2, bf16
+# supervised 2.235e-1 as phase 14 read them on the host of an NVIDIA H100
+# 80GB HBM3 at 700 W, whose card read 1.741e-2 and 2.127e-1): the
+# Bottleneck encoder's and the SimSiam head's gradients move by that much
+# from one ulp, its decoder's by 1.082e-3 and 8.145e-3 (phase 14's own
+# one-ulp readings there)
+FAMILY_GRAD_L2_ALL = {"14a": (3.55e-2, 0.335)}
+DECODER = "model.decoder."
+# the matching encoder's conv that the reference declares and never applies
+NEVER_APPLIED = ("model.encoder.prematching_conv.",)
+# 14a's fused hints: 12 candidate depths of these column shifts (pixels at
+# model resolution; the "s" frame is "0" shifted by 12 native columns,
+# 9.9 at 1024); the fusion's own check places a model-size scene's right
+# eye at HINT_TRUE_SHIFT; a pixel's best two losses within HINT_TIE
+# (relative) are a tie
+HINT_SHIFTS = tuple(range(4, 16))
+HINT_TRUE_SHIFT = 10
+HINT_TIE = 1e-5
+# 14d: ManyDepthModel at 640x192 (the reference's ManyDepth size), batch 12,
+# a lookup frame 4 columns over and a 0.1 x-translation; the card against
+# the CPU on 2 items: disparities within EVAL_DISP_ATOL, confidence and
+# lowest_cost equal but at most EVAL_SPLIT_MAX of the pixels (argmin ties
+# of the 96-bin volume, logged)
+MANYDEPTH_EVAL = dict(batch=12, height=192, width=640, min_depth_bin=0.1,
+                      max_depth_bin=20.0)
+EVAL_DISP_ATOL, EVAL_SPLIT_MAX = 1e-4, 1e-3
+
+
+def _family_name(cfg) -> str:
+    if cfg.model_family == "manydepth":
+        return (f"ManyDepth on ResNet-{cfg.num_layers} "
+                f"({cfg.manydepth_num_depth_bins} bins, "
+                + ("a real lookup frame)" if cfg.manydepth_real_lookup
+                   else "zero lookups)"))
+    return (f"Monodepth2 on ResNet-{cfg.num_layers}"
+            + (" with DepthHints" if cfg.use_depth_hints else ""))
+
+
+def calibrated_family(dev, cfg, seed):
+    """A float32 model of cfg's family from flax's initialisation drawn
+    from `seed`, every BatchNorm's running statistics set to its batch
+    statistics on 4 synthetic scenes at cfg's size (`calibrated_teacher`'s
+    rule). Returns (its state dict on the host, the deepest feature's
+    largest magnitude and the bf16 eval disp0's relative L2 to the
+    float32 one, on 2 other scenes)."""
+    ss = cfg.selfsup
+    model = flax_init_(make_family_model(cfg), torch.Generator().manual_seed(
+        seed)).to(dev).train()
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None  # a cumulative average: this one batch
+    scenes = lambda n, s: bilinear_resize(torch.from_numpy(make_scene(
+        n, 375, 1242, seed=s)).to(dev), ss.height, ss.width)
+    with torch.no_grad():
+        model.features_and_disps(scenes(4, seed + 1))
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    bf16 = make_family_model(cfg, torch.bfloat16)
+    bf16.load_state_dict(sd)
+    bf16 = bf16.to(dev).eval()
+    x = scenes(2, seed + 2)
+    with torch.no_grad():
+        top = float(model.eval().encode(x)[-1].abs().max())
+        d32, d16 = model(x), bf16(x)
+    return sd, top, float((d16 - d32).norm() / d32.norm())
+
+
+def phase_family_hints(dev, cfg, inputs):
+    """14a's hints, from `fuse_depths` on the card. First its check: a
+    model-size synthetic scene and its right eye HINT_TRUE_SHIFT columns
+    over, 12 candidate depths of the shifts HINT_SHIFTS: the fused hint
+    must be the true shift's depth on every textured pixel (a horizontal
+    step above 0.02 in its 3x3 window, 16 columns in from the borders);
+    the argmin ties are counted. Then each item's hint of the batch's
+    pair as the batch sees it (resized, flipped where the item is, its
+    stereo_T), its mask the hint's validity. Returns the inputs with the
+    hint planes."""
+    ss = cfg.selfsup
+    H, W = ss.height, ss.width
+    K, _ = hint_data.scaled_K(H, W)
+    depth_of = lambda d: float(K[0, 0]) * hint_data.BASELINE / d
+    cands = np.stack([np.full((H, W), depth_of(d), np.float32)
+                      for d in HINT_SHIFTS])
+    full = make_scene(1, H, W + HINT_TRUE_SHIFT, seed=SEED + 140)[0]
+    left, right = full[:, :W], full[:, HINT_TRUE_SHIFT:]
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = -hint_data.BASELINE
+    n = len(HINT_SHIFTS)
+    rep = lambda a: torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(a, (n,) + a.shape))).to(dev)
+    K4, invK4 = hint_data.scaled_K(H, W)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    fused, losses = hint_data.fuse_candidates(
+        torch.from_numpy(cands).to(dev)[..., None], rep(left), rep(right),
+        rep(K4), rep(invK4.astype(np.float32)), rep(T))
+    ev[1].record()
+    ev[1].synchronize()
+    fused = fused[..., 0].cpu().numpy()
+    best2 = losses[..., 0].sort(dim=0).values[:2].cpu().numpy()
+    ties = (best2[1] - best2[0]) <= HINT_TIE * best2[0]
+    step = np.abs(np.diff(left, axis=1)).mean(-1)
+    step = np.pad(step, ((0, 0), (0, 1)))
+    # a step between columns x - 1 | x or x | x + 1 of rows y - 1 .. y + 1:
+    # one inside the pixel's SSIM window
+    win = np.max(np.stack([np.roll(np.roll(step, dy, 0), dx, 1)
+                           for dy in (-1, 0, 1) for dx in (0, 1)]), 0)
+    textured = win > 0.02
+    textured[:, :16] = textured[:, -16:] = False
+    textured[:2] = textured[-2:] = False
+    right_shift = fused[textured] == np.float32(depth_of(HINT_TRUE_SHIFT))
+    api = hint_data.fuse_depths(cands, left, right, T, H, W, device=dev)
+    log(f"family 14a hints: fuse_candidates of {n} candidate depths at "
+        f"{W}x{H} on the card: {ev[0].elapsed_time(ev[1]):.3f} ms (CUDA "
+        f"events, first call); the true shift {HINT_TRUE_SHIFT} picked on "
+        f"{int(right_shift.sum())} of {int(textured.sum())} textured "
+        f"pixels; argmin ties (best two within {HINT_TIE} relative) "
+        f"{int(ties.sum())} of {H * W} pixels, {int(ties[textured].sum())} "
+        f"of them textured; fuse_depths equal to it: "
+        f"{bool(np.array_equal(api, fused))}")
+    if not right_shift.all() or not np.array_equal(api, fused) or \
+            not textured.sum() > 0.1 * H * W:
+        raise AssertionError("the fused hint misses the true shift")
+    frames, side, flip, scene = inputs
+    stereo = stereo_T_batch(side, flip).cpu().numpy()
+    hints = []
+    for b in range(side.shape[0]):
+        view = lambda f: bilinear_resize(
+            (f[b:b + 1].flip(2) if bool(flip[b]) else f[b:b + 1]), H,
+            W)[0].cpu().numpy()
+        hints.append(hint_data.fuse_depths(cands, view(frames["0"]),
+                                           view(frames["s"]), stereo[b], H,
+                                           W, device=dev))
+    hint = torch.from_numpy(np.stack(hints)[..., None]).to(dev)
+    frames = dict(frames, depth_hint=hint, depth_hint_mask=(hint > 0).float())
+    picked = np.unique(np.stack(hints), return_counts=True)
+    log(f"  batch hints: {side.shape[0]} items fused on the card; depths "
+        f"picked (value: pixels) {dict(zip(picked[0].round(4).tolist(), picked[1].tolist()))}")
+    return frames, side, flip, scene
+
+
+def phase_families(dev):
+    """Phase 14: the model families (14a-c) and ManyDepth's evaluation
+    (14d); returns the launch counts of their timed steps, summed."""
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    total, manydepth_sd = {}, None
+    for i, (label, family, frame_ids) in enumerate(FAMILY_RUNS):
+        cfg = dataclasses.replace(_cli_cfg(frame_ids), **family)
+        sd, top, rel = calibrated_family(dev, cfg, SEED + 130 + i)
+        log(f"family {label}: {_family_name(cfg)}: seeded float32 weights, "
+            f"BatchNorm statistics calibrated on 4 synthetic scenes at "
+            f"{cfg.selfsup.width}x{cfg.selfsup.height}: deepest feature max "
+            f"|f4| {top:.4f}, bf16 eval disp0 {rel:.4e} relative L2 from the "
+            f"float32 one" + (" (bf16 out of range)" if rel > 0.05 else ""))
+        f32_all, bf16_all = FAMILY_GRAD_L2_ALL.get(
+            label, (HARDEN_GRAD_L2_ALL, BENCH_GRAD_L2_ALL))
+        phase_harden_parity(dev, frame_ids, family=family, sd=sd,
+                            grad_l2_all=f32_all)
+        phase_cli_bf16_parity(dev, sd, family=family, readings=(
+            "supervised",), frame_ids=frame_ids, grad_l2_all=bf16_all)
+        trainer = _harden_trainer(dev, cfg, sd, obj, mask, SEED + 134)
+        inputs = _harden_inputs(dev, cfg, SEED + 135)
+        if cfg.use_depth_hints:
+            inputs = phase_family_hints(dev, cfg, inputs)
+        state, launches = phase_cli_run(
+            label, trainer, inputs, FAMILY_WARMUP, FAMILY_TIMED,
+            "the same seeded weights")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if cfg.model_family == "manydepth" and not cfg.manydepth_real_lookup:
+            manydepth_sd = sd
+        del state, trainer, inputs
+        torch.cuda.empty_cache()
+    for k, v in phase_manydepth_eval(dev, manydepth_sd).items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_manydepth_eval(dev, sd):
+    """14d: `load_manydepth_reference` from a weights folder written under
+    build/manydepth_smoke/ from 14b's weights (metadata 640x192, bins 0.1
+    to 20), then `ManyDepthModel` in eval mode at batch 12: single-frame
+    (zero lookups through the general path) and `multi_frame`. The card
+    against the CPU on 2 items; 2 warm-up and 5 timed forwards of each
+    with the launch counters reset before the timed ones (a forward pools
+    once, over the current and lookup frames, and runs D's 4 scale-0
+    convs); s/forward, peak memory; one profiled multi-frame forward:
+    idle share and device ms by kernel. Returns the launches."""
+    e = MANYDEPTH_EVAL
+    root = os.path.join(REPO, "build", "manydepth_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    folder = checkpoints.export_manydepth_reference(
+        root, 0, sd, height=e["height"], width=e["width"],
+        min_depth_bin=e["min_depth_bin"], max_depth_bin=e["max_depth_bin"])
+    cpu_model, meta = checkpoints.load_manydepth_reference(folder,
+                                                           device="cpu")
+    model, _ = checkpoints.load_manydepth_reference(folder, device=dev)
+    shutil.rmtree(root, ignore_errors=True)
+    B, H, W = e["batch"], e["height"], e["width"]
+    x = bilinear_resize(torch.from_numpy(make_scene(B, 375, 1242,
+                                                    seed=SEED + 150)), H, W)
+    look = torch.roll(x, 4, dims=2)[:, None]
+    pose = torch.eye(4).repeat(B, 1, 1)
+    pose[:, 0, 3] = 0.1
+    K, invK = quarter_intrinsics(MONODEPTH2_K, H, W)
+    args = lambda d, n: dict(K=K.expand(n, 4, 4).to(d),
+                             invK=invK.expand(n, 4, 4).to(d),
+                             min_depth_bin=meta["min_depth_bin"],
+                             max_depth_bin=meta["max_depth_bin"])
+    runs = {"single": lambda m, d, n: (m(x[:n].to(d), **args(d, n)),),
+            "multi": lambda m, d, n: m.multi_frame(
+                x[:n].to(d), look[:n].to(d), pose[:n, None].to(d),
+                **args(d, n))}
+    out, launches = {}, {k.name: 0 for k in _build.KERNELS}
+    for mode, run in runs.items():
+        with torch.no_grad():
+            cpu = run(cpu_model, torch.device("cpu"), 2)
+            got = [t.cpu() for t in run(model, dev, 2)]
+        disp_err = float((got[0] - cpu[0]).abs().max())
+        splits = [float((g != c).float().mean()) for g, c in
+                  zip(got[1:], cpu[1:])]
+        with torch.no_grad():
+            for n in range(FAMILY_WARMUP + FAMILY_TIMED):
+                if n == FAMILY_WARMUP:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    _build.reset_launches()
+                    t0 = time.perf_counter()
+                run(model, dev, B)
+            torch.cuda.synchronize()
+        secs = (time.perf_counter() - t0) / FAMILY_TIMED
+        counted = {k.name: k.launches for k in _build.KERNELS}
+        predicted = {k.name: 0 for k in _build.KERNELS}
+        predicted.update(maxpool3x3s2_fwd=FAMILY_TIMED,
+                         conv3x3_fwd=4 * FAMILY_TIMED)
+        log(f"family 14d {mode}: load_manydepth_reference (metadata "
+            f"{json.dumps({k: v for k, v in meta.items()})}) + "
+            f"ManyDepthModel at {W}x{H} batch {B}, 96 bins: card vs CPU on "
+            f"2 items: disp0 max |difference| {disp_err:.3e} (max "
+            f"{EVAL_DISP_ATOL}), lowest_cost and confidence differ on "
+            f"{json.dumps(splits)} of their pixels (max {EVAL_SPLIT_MAX}); "
+            f"{secs:.4f} s per forward (host clock around {FAMILY_TIMED} "
+            f"after {FAMILY_WARMUP} warm-up, synchronised), "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} "
+            f"B; launches {json.dumps(counted)}")
+        if counted != predicted or not disp_err <= EVAL_DISP_ATOL or \
+                not all(sp <= EVAL_SPLIT_MAX for sp in splits) or \
+                not bool(torch.isfinite(got[0]).all()):
+            raise AssertionError(f"ManyDepth's {mode} evaluation failed")
+        for k, v in counted.items():
+            launches[k] += v
+        out[mode] = got
+    with torch.no_grad():
+        busy_ms, wall_ms, n, by_name, counts = device_busy(
+            lambda: runs["multi"](model, dev, B))
+    log(f"  idle: one multi-frame forward under the profiler: device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms host wall, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
+    log_kernel_ms(by_name, counts)
+    return launches
+
+
 def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -3282,10 +3643,13 @@ def main() -> int:
     cli = timed("phase 12", phase_cli, dev)
     torch.cuda.empty_cache()
     zoo = timed("phase 13", phase_zoo, dev)
+    torch.cuda.empty_cache()
+    families = timed("phase 14", phase_families, dev)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
                          + distill_launches[name] + bench_launches[name]
-                         + harden[name] + cli[name] + zoo[name])
+                         + harden[name] + cli[name] + zoo[name]
+                         + families[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "host_ms",

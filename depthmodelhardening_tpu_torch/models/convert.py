@@ -1,10 +1,13 @@
 """Weights into the port's state dicts.
 
 (a) `from_jax_variables`: the JAX package's flax variables of a
-    MonodepthModel, as a tree of numpy arrays (HWIO kernels, BatchNorm
-    scale/bias/mean/var, decoder modules named as in
-    `depthmodelhardening_tpu/models/depth_decoder.py:374`); a tree of
-    gradients, {"params": grads}, converts the same way.
+    MonodepthModel or a ManyDepth model, as a tree of numpy arrays (HWIO
+    kernels, BatchNorm scale/bias/mean/var, decoder modules named as in
+    `depthmodelhardening_tpu/models/depth_decoder.py:374`; the encoder's
+    scopes are torchvision's names with "_" for ".", so a Bottleneck's
+    `layer{i}_{b}/conv3`, `bn3`, `downsample_0/1` and the matching
+    encoder's `reduce_conv` and `prematching_conv` convert like the
+    rest); a tree of gradients, {"params": grads}, converts the same way.
     `from_jax_train_state` takes the JAX trainer's collections
     ({"params": {"depth": ...}, "batch_stats": {"depth": ...}});
     `from_jax_distill_state` a JAX `DistillState` with its Adam moments.
@@ -16,9 +19,10 @@
     trainer state: student, heads, pose nets, Adam moments, step.
 (b) `load_reference_state_dict`: the reference checkpoints' layouts
     (`encoder.pth` + `depth.pth`, which is the port's own naming;
-    `pose_encoder.pth`, `pose.pth`, PoseCNN's and SimSiam's, renamed to
+    `pose_encoder.pth`, `pose.pth`, PoseCNN's and SimSiam's, and
+    ManyDepth's `encoder.pth` with its Sequential regrouping, renamed to
     the port's module names; cf. `depthmodelhardening_tpu/models/
-    torch_import.py:67-190`).
+    torch_import.py:67-190, 281-334`).
 
 All return a state dict for `module.load_state_dict(..., strict=True)`.
 """
@@ -34,7 +38,7 @@ import torch
 from .depth_decoder import decoder_module_names
 
 METADATA_KEYS = {"height", "width", "use_stereo", "min_depth_bin",
-                  "max_depth_bin"}
+                 "max_depth_bin", "depth_binning"}
 
 
 def _t(v) -> torch.Tensor:
@@ -253,7 +257,59 @@ def _sub(pattern: str, repl):
 
 # the reference PoseDecoder's `net` ModuleList order (pose_decoder.py:25-33)
 _POSE_NET = ("squeeze", "pose_0", "pose_1", "pose_2")
-REFERENCE_KINDS = ("depth", "pose_encoder", "pose", "pose_cnn", "simsiam")
+REFERENCE_KINDS = ("depth", "manydepth", "pose_encoder", "pose",
+                   "pose_cnn", "simsiam")
+
+
+def _matching_name(key: str):
+    """A ManyDepth `encoder.pth` key -> the port's ResnetEncoderMatching
+    name, or None for a key the JAX converter skips
+    (`convert_matching_encoder`): layer0.0 = conv1, layer0.1 = bn1,
+    layer1.1.<b> = layer1.<b> (layer1.0 is the pool), layer2-4 as they
+    are, prematching_conv.0 / reduce_conv.0 (Sequential(conv, relu)) ->
+    prematching_conv / reduce_conv."""
+    name = key[len("encoder."):] if key.startswith("encoder.") else key
+    for pattern, repl in ((r"layer0\.0\.", "conv1."), (r"layer0\.1\.", "bn1."),
+                          (r"layer1\.1\.", "layer1."),
+                          (r"layer([234])\.", r"layer\1."),
+                          (r"(prematching_conv|reduce_conv)\.0\.", r"\1.")):
+        if re.match(pattern, name):
+            return re.sub(pattern, repl, name, count=1)
+    return None
+
+
+# the port's ResnetEncoderMatching names -> the reference's: the inverse
+# of `_matching_name`
+_MATCHING_TO_REFERENCE = ((r"conv1\.", "layer0.0."), (r"bn1\.", "layer0.1."),
+                          (r"layer1\.", "layer1.1."),
+                          (r"(prematching_conv|reduce_conv)\.", r"\1.0."))
+
+
+def to_reference_matching_encoder(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """The "encoder." tensors of a ManyDepthModel / ManyDepthTrainModel
+    state dict -> ManyDepth's `encoder.pth` keys (layer0.0 = conv1,
+    layer0.1 = bn1, layer1.1.<b> = layer1.<b>, prematching_conv.0 /
+    reduce_conv.0; layer2-4 as they are), without the metadata."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in sd.items():
+        if not key.startswith("encoder."):
+            continue
+        name = key[len("encoder."):]
+        for pattern, repl in _MATCHING_TO_REFERENCE:
+            if re.match(pattern, name):
+                name = re.sub(pattern, repl, name, count=1)
+                break
+        out[name] = v
+    return out
+
+
+def _reference_matching_encoder(sd: Mapping) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for key, v in sd.items():
+        name = None if key in METADATA_KEYS else _matching_name(key)
+        if name is not None:
+            out["encoder." + name] = _t(v)
+    return out
 
 
 def load_reference_state_dict(sd: Mapping, decoder_sd: Mapping = None,
@@ -265,8 +321,12 @@ def load_reference_state_dict(sd: Mapping, decoder_sd: Mapping = None,
 
     * "depth": `encoder.pth` (sd) + `depth.pth` (decoder_sd) ->
       MonodepthModel: the "encoder."-prefixed torchvision trunk (the
-      classifier head and the metadata keys dropped) and the
-      "decoder.<idx>" ModuleList, the port's own naming;
+      classifier head and the metadata keys dropped; ResNet-18 to 152)
+      and the "decoder.<idx>" ModuleList, the port's own naming;
+    * "manydepth": ManyDepth's `encoder.pth` + `depth.pth` ->
+      ManyDepthModel / ManyDepthTrainModel: the regrouped trunk
+      (`_matching_name`; metadata keys and any other key dropped, as the
+      JAX converter drops them) and the decoder as "depth"'s;
     * "pose_encoder": `pose_encoder.pth` -> ResnetEncoder(
       num_input_images=2) (its conv1 takes 6 channels);
     * "pose": `pose.pth` -> PoseDecoder (`net.<i>`: squeeze, pose_0,
@@ -276,10 +336,11 @@ def load_reference_state_dict(sd: Mapping, decoder_sd: Mapping = None,
       `predictor.<i>` Sequentials, BatchNorm1d at projector 1, 4, 7 and
       predictor 1) -> SimSiam's `projector_<i>` / `predictor_<i>`.
     """
-    if kind == "depth":
+    if kind in ("depth", "manydepth"):
         if decoder_sd is None:
-            raise ValueError("kind 'depth' needs depth.pth as decoder_sd")
-        out = _reference_encoder(sd, "encoder.")
+            raise ValueError(f"kind {kind!r} needs depth.pth as decoder_sd")
+        out = (_reference_encoder(sd, "encoder.") if kind == "depth"
+               else _reference_matching_encoder(sd))
         out.update(_renamed(decoder_sd, _sub(r"decoder\.", "decoder.decoder.")))
         return out
     if decoder_sd is not None:

@@ -2,7 +2,9 @@
 
 Counterpart of `depthmodelhardening_tpu/models/simsiam.py:1-69`
 (reference DepthNetworks/monodepth2/contrastive.py:6-93): the deepest
-encoder feature average-pooled to 512 values in float32, a 3-layer
+encoder feature average-pooled in float32 (512 values on ResNet-18/34,
+`in_dim` = 2048 on the Bottleneck ResNets: flax infers the first Dense's
+input from the features), a 3-layer
 projector to 1000 (its last BatchNorm affine-free), a 2-layer predictor
 to 1000, and the symmetric negative cosine loss with the gradient
 stopped on the projector's outputs.
@@ -36,9 +38,9 @@ def _bn(n: int, affine: bool = True) -> nn.BatchNorm1d:
 
 class SimSiam(nn.Module):
     def __init__(self, dim: int = 1000, pred_dim: int = 512,
-                 feat_dim: int = 512):
+                 feat_dim: int = 512, in_dim: int = 512):
         super().__init__()
-        self.projector_0 = nn.Linear(feat_dim, feat_dim, bias=False)
+        self.projector_0 = nn.Linear(in_dim, feat_dim, bias=False)
         self.projector_1 = _bn(feat_dim)
         self.projector_3 = nn.Linear(feat_dim, feat_dim, bias=False)
         self.projector_4 = _bn(feat_dim)

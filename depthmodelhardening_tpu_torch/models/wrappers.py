@@ -1,7 +1,8 @@
-"""Model assembly: Monodepth2 (encoder + decoder) and the frozen predictor.
+"""Model assembly: Monodepth2 (encoder + decoder), ManyDepth (the
+cost-volume encoder + decoder) and the frozen predictor.
 
-Counterpart of `depthmodelhardening_tpu/models/wrappers.py:27-124`
-(reference depth_model.py:10-58). Public calls take and return NHWC
+Counterpart of `depthmodelhardening_tpu/models/wrappers.py:27-302`
+(reference depth_model.py:10-134). Public calls take and return NHWC
 tensors, as the JAX package's do; the modules run NCHW inside.
 
 A model carries its compute dtype (`dtype`: float32 or bfloat16;
@@ -16,11 +17,15 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from .depth_decoder import DepthDecoder
-from .resnet import ResnetEncoder
+from .matching_encoder import (
+    MAX_DEPTH_BIN, MIN_DEPTH_BIN, ResnetEncoderMatching,
+)
+from .resnet import ResnetEncoder, encoder_channels
 
 LECUN_TRUNC_STD = 0.87962566103423978
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -55,7 +60,8 @@ class MonodepthModel(nn.Module):
         self.dtype = compute_dtype(dtype)
         self.fold_bn = fold_bn
         self.encoder = ResnetEncoder(num_layers)
-        self.decoder = DepthDecoder(scales=scales)
+        self.decoder = DepthDecoder(scales=scales,
+                                    num_ch_enc=encoder_channels(num_layers))
 
     def features_and_disps(self, images, scales=None):
         """(features NCHW, {("disp", s): NCHW float32}) for images (B, H,
@@ -135,6 +141,147 @@ class EvalView:
                                               (images, self.head))
         finally:
             model.train(was_training)
+
+
+MANYDEPTH_SCALE = 8.6437
+
+
+def manydepth_rescale(disp):
+    """ManyDepth's output rescale (depth_model.py:58)."""
+    return disp / MANYDEPTH_SCALE
+
+
+def _stack_nchw(frames):
+    """(B, F, H, W, 3) -> (B, F, 3, H, W)."""
+    return frames.permute(0, 1, 4, 2, 3)
+
+
+class ManyDepthModel(nn.Module):
+    """ManyDepth's evaluation wrapper (JAX :127-189, depth_model.py:
+    22-58): the cost-volume encoder with adaptive bins and linear
+    binning, the decoder, the disparity divided by 8.6437. K / invK
+    (B, 4, 4) are the 1/4-resolution intrinsics (`quarter_intrinsics`).
+    `forward` feeds zero lookup frames and poses through the general
+    path, as the reference does; `multi_frame` real ones. The mode is the
+    module's (eval for evaluation)."""
+
+    def __init__(self, num_layers: int = 18,
+                 scales: Sequence[int] = (0, 1, 2, 3),
+                 input_height: int = 192, input_width: int = 640,
+                 num_depth_bins: int = 96, dtype=torch.float32):
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.encoder = ResnetEncoderMatching(
+            num_layers=num_layers, input_height=input_height,
+            input_width=input_width, num_depth_bins=num_depth_bins,
+            adaptive_bins=True)
+        self.decoder = DepthDecoder(scales=scales,
+                                    num_ch_enc=encoder_channels(num_layers))
+
+    def forward(self, x, K, invK, min_depth_bin=MIN_DEPTH_BIN,
+                max_depth_bin=MAX_DEPTH_BIN):
+        """disp0 (B, H, W, 1) of images x (B, H, W, 3)."""
+        lookup = torch.zeros_like(x)[:, None]
+        poses = torch.zeros(x.shape[0], 1, 4, 4, device=x.device)
+        return self.multi_frame(x, lookup, poses, K, invK, min_depth_bin,
+                                max_depth_bin)[0]
+
+    def multi_frame(self, x, lookup_frames, rel_poses, K, invK,
+                    min_depth_bin=MIN_DEPTH_BIN,
+                    max_depth_bin=MAX_DEPTH_BIN):
+        """(disp0 (B, H, W, 1), lowest_cost, confidence (B, h, w)) from
+        lookup frames (B, N, H, W, 3) and current -> lookup transforms
+        rel_poses (B, N, 4, 4)."""
+        features, lowest_cost, confidence = self.encoder(
+            x.permute(0, 3, 1, 2), _stack_nchw(lookup_frames), rel_poses,
+            K, invK, min_depth_bin, max_depth_bin, self.dtype)
+        disp = self.decoder(features, (0,), self.dtype)[("disp", 0)]
+        return (manydepth_rescale(disp).permute(0, 2, 3, 1), lowest_cost,
+                confidence)
+
+
+class ManyDepthTrainModel(nn.Module):
+    """ManyDepth with the hardening trainer's interface (JAX :192-290;
+    `MonodepthModel`'s calls): the cost-volume encoder with fixed bins in
+    the reference's single-frame mode (zero lookups, through
+    `skip_cost_volume`: manydepth2/trainer.py:345-386), the bins fixed at
+    MIN_DEPTH_BIN .. MAX_DEPTH_BIN, every disparity
+    divided by 8.6437; `encode_multi` / `features_and_disps_multi` build
+    the volume from real lookup frames and poses
+    (`manydepth_real_lookup`). The intrinsics are Monodepth2's at a
+    quarter of the static input size. No BatchNorm fold (the JAX matching
+    encoder has none)."""
+
+    def __init__(self, num_layers: int = 18,
+                 scales: Sequence[int] = (0, 1, 2, 3),
+                 input_height: int = 320, input_width: int = 1024,
+                 num_depth_bins: int = 96, dtype=torch.float32):
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.encoder = ResnetEncoderMatching(
+            num_layers=num_layers, input_height=input_height,
+            input_width=input_width, num_depth_bins=num_depth_bins,
+            adaptive_bins=False)
+        self.decoder = DepthDecoder(scales=scales,
+                                    num_ch_enc=encoder_channels(num_layers))
+        K, invK = quarter_intrinsics(MONODEPTH2_K, input_height, input_width,
+                                     np.float32)
+        self.register_buffer("K", K, persistent=False)
+        self.register_buffer("invK", invK, persistent=False)
+
+    def _K(self, B: int):
+        return self.K.expand(B, 4, 4), self.invK.expand(B, 4, 4)
+
+    def encode(self, images):
+        """The features (NCHW) of images (B, H, W, 3) in the single-frame
+        mode."""
+        K, invK = self._K(images.shape[0])
+        return self.encoder(images.permute(0, 3, 1, 2), None, None, K, invK,
+                            dtype=self.dtype, skip_cost_volume=True)[0]
+
+    def encode_multi(self, images, lookup_frames, rel_poses):
+        """The features with the volume built from lookup frames (B, F, H,
+        W, 3) and current -> lookup transforms rel_poses (B, F, 4, 4)."""
+        K, invK = self._K(images.shape[0])
+        return self.encoder(images.permute(0, 3, 1, 2),
+                            _stack_nchw(lookup_frames), rel_poses, K, invK,
+                            dtype=self.dtype)[0]
+
+    def _disps(self, features, scales):
+        outs = self.decoder(features, scales, self.dtype)
+        return features, {k: manydepth_rescale(v) for k, v in outs.items()}
+
+    def features_and_disps(self, images, scales=None):
+        """(features, {("disp", s): NCHW float32 / 8.6437}), single-frame."""
+        return self._disps(self.encode(images), scales)
+
+    def features_and_disps_multi(self, images, lookup_frames, rel_poses,
+                                 scales=None):
+        return self._disps(self.encode_multi(images, lookup_frames,
+                                             rel_poses), scales)
+
+    def forward(self, images, head: int = 0):
+        """disp at scale `head` (B, H / 2^head, W / 2^head, 1)."""
+        _, disps = self.features_and_disps(images, (head,))
+        return disps[("disp", head)].permute(0, 2, 3, 1)
+
+
+# Monodepth2's normalised KITTI intrinsics (kitti_dataset.py:27-30)
+MONODEPTH2_K = np.array([[0.58, 0, 0.5, 0], [0, 1.92, 0.5, 0],
+                         [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+
+
+def quarter_intrinsics(K_norm, height: int, width: int, dtype=np.float64):
+    """Normalised 4x4 intrinsics -> the 1/4-size unnormalised (K, invK),
+    float32, scaled and pseudo-inverted in `dtype`: float64 as the
+    reference's evaluation loads them (depth_model.py:60-75
+    load_and_preprocess_intrinsics), float32 as JAX
+    `ManyDepthTrainModel._quarter_K` computes them."""
+    K = np.asarray(K_norm, dtype).copy()
+    K[0, :] *= width // 4
+    K[1, :] *= height // 4
+    return (torch.from_numpy(K.astype(np.float32)),
+            torch.from_numpy(np.linalg.pinv(K).astype(np.float32)))
 
 
 def make_monodepth2(num_layers: int = 18,

@@ -14,8 +14,10 @@ what the uninterrupted run would have drawn.
 `export_reference_pth` / `load_reference_pth` write and read the
 reference's `weights_<epoch>/{encoder,depth}.pth` (the encoder dict with
 height, width and use_stereo), which the JAX package's
-`load_reference_pth` reads too. `save_options` writes the JAX package's
-`opt.json`.
+`load_reference_pth` reads too; `export_manydepth_reference` /
+`load_manydepth_reference` write and read a ManyDepth weights folder (the
+encoder regrouped as the reference's, with its depth bins). `save_options` writes
+the JAX package's `opt.json`.
 """
 
 from __future__ import annotations
@@ -28,7 +30,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from ..models.convert import METADATA_KEYS, load_reference_state_dict
+from ..device import resolve_device
+from ..models.convert import (
+    METADATA_KEYS, load_reference_state_dict, to_reference_matching_encoder,
+)
 
 STATE_FILE = "state.pt"
 # the JAX package's TPU layout options, which the port does not have (it
@@ -143,6 +148,28 @@ def export_reference_pth(save_dir: str, epoch, state_dict,
     return folder
 
 
+def export_manydepth_reference(save_dir: str, epoch, state_dict,
+                               height: int = 192, width: int = 640,
+                               min_depth_bin: float = 0.1,
+                               max_depth_bin: float = 20.0) -> str:
+    """Write a ManyDepth weights_<epoch>/{encoder,depth}.pth from a
+    ManyDepthModel / ManyDepthTrainModel state dict: the encoder in the
+    reference's Sequential layout (`to_reference_matching_encoder`) with
+    height, width, use_stereo (False) and the depth bins, the decoder's
+    ModuleList (manydepth2/trainer.py save_model). Returns the folder."""
+    folder = os.path.join(save_dir, f"weights_{epoch}")
+    os.makedirs(folder, exist_ok=True)
+    cpu = {k: v.detach().cpu() for k, v in state_dict.items()}
+    enc = to_reference_matching_encoder(cpu)
+    enc.update(height=height, width=width, use_stereo=False,
+               min_depth_bin=min_depth_bin, max_depth_bin=max_depth_bin)
+    dec = {k[len("decoder."):]: v for k, v in cpu.items()
+           if k.startswith("decoder.")}
+    torch.save(enc, os.path.join(folder, "encoder.pth"))
+    torch.save(dec, os.path.join(folder, "depth.pth"))
+    return folder
+
+
 def load_reference_pth(weights_folder: str
                        ) -> Tuple[Dict[str, torch.Tensor], dict]:
     """Reference weights_*/encoder.pth + depth.pth -> (the MonodepthModel
@@ -155,7 +182,29 @@ def load_reference_pth(weights_folder: str
     return load_reference_state_dict(enc, dec), meta
 
 
-def load_manydepth_reference(*args, **kwargs):
-    raise NotImplementedError(
-        "ManyDepth weights are not ported yet (ROADMAP Queue 1, slice 6b: "
-        "ManyDepth)")
+def load_manydepth_reference(weights_folder: str, height: int = 192,
+                             width: int = 640, device=None):
+    """A ManyDepth weights folder (`encoder.pth` with the Sequential
+    layer0 / layer1 regrouping and its metadata: height, width,
+    min_depth_bin, max_depth_bin, ...; `depth.pth`) -> (a ManyDepthModel
+    in eval mode with those weights, at the metadata's height and width
+    where present, else `height` and `width`, on `device` (default the
+    card, `resolve_device`); the metadata) (depth_model.py:108-134; JAX
+    `load_manydepth_reference`). The depth bins go to the model's calls:
+    `model(x, K, invK, meta["min_depth_bin"], meta["max_depth_bin"])`.
+    Linear binning only: a folder whose metadata says otherwise raises."""
+    from ..models.wrappers import ManyDepthModel
+
+    load = lambda name: torch.load(os.path.join(weights_folder, name),
+                                   map_location="cpu", weights_only=True)
+    enc, dec = load("encoder.pth"), load("depth.pth")
+    meta = {k: v for k, v in enc.items() if k in METADATA_KEYS}
+    if meta.get("depth_binning", "linear") != "linear":
+        raise NotImplementedError(
+            f"depth_binning {meta['depth_binning']!r}: the port's matching "
+            f"encoder bins linearly only")
+    model = ManyDepthModel(input_height=int(meta.get("height", height)),
+                           input_width=int(meta.get("width", width)))
+    model.load_state_dict(load_reference_state_dict(enc, dec,
+                                                    kind="manydepth"))
+    return model.to(resolve_device(device)).eval(), meta

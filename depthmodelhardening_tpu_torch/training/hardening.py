@@ -34,13 +34,24 @@ Counterpart of `depthmodelhardening_tpu/training/hardening.py:55-517`
 The non-adversarial step (`selfsup_step`, `selfsup_frames_step`, the
 CLI's --no-adv-train) is steps 2-4 on a plain batch.
 
+The model families (BASELINE config 5; JAX hardening.py:85-148):
+`num_layers` 50/101/152 builds Bottleneck ResNets; `use_depth_hints`
+takes the DepthHints loss (`training/depth_hints.py`: the hint's planes
+"depth_hint" and "depth_hint_mask", (B, H, W, 1) at model resolution
+and already flipped with their items, ride in the frames and join the
+batch; the automask noise has one channel); `model_family="manydepth"`
+trains `ManyDepthTrainModel` in the reference's single-frame mode, and
+with `manydepth_real_lookup` builds its cost volume from the first
+temporal source frame and the pose networks' transform (poses first,
+then the student's forward and the benign encode on that lookup). The
+ManyDepth student's attack view folds nothing (the JAX matching encoder
+has no fold).
+
 The state is a model, the SimSiam head, the pose networks and their
 optimizer, updated in place; the step methods also return it, as the JAX
 package's do (`training/checkpoints.py` saves and restores it). Random
 draws come from the trainer's CPU generator (the automask noise from a
 device generator seeded from it), or are injected (`StepDraws`).
-DepthHints and ManyDepth raise NotImplementedError and name their
-ROADMAP item.
 
 Compute dtype (`cfg.compute_dtype`, JAX hardening.py:88-115): the
 student computes in it, and so does its attack view; parameters and
@@ -69,10 +80,11 @@ from ..attacks.l0_object import L0Draws, L0ObjectAttack
 from ..attacks.pgd_object import PGDDraws, PGDObjectAttack
 from ..device import resolve_device
 from ..models.pose import PoseDecoder, init_pose_nets, make_pose_nets
-from ..models.resnet import ResnetEncoder
+from ..models.resnet import ResnetEncoder, encoder_channels
 from ..models.simsiam import SimSiam, init_simsiam
 from ..models.wrappers import (
-    EvalView, MonodepthModel, init_monodepth2, make_monodepth2,
+    EvalView, ManyDepthTrainModel, MonodepthModel, flax_init_,
+    make_monodepth2,
 )
 from ..ops.geometry import disp_to_depth, transformation_from_parameters
 from ..physics.eot import TRAIN_DIST_RANGE, monodepth2_K
@@ -80,13 +92,27 @@ from .adv_synth import (
     SynthDraws, build_plain_batch, draw_jitter, draw_synth,
     make_synth_compositor, stereo_T_batch, synthesize_adv_batch,
 )
+from . import depth_hints
 from .config import HardeningConfig
 from .selfsup import compute_selfsup_losses, identity_noise_shape
 
-_LATER = {
-    "model_family": "ROADMAP Queue 1, slice 6b (ManyDepth)",
-    "depth_hints": "ROADMAP Queue 1, slice 6b (DepthHints)",
-}
+FAMILIES = ("monodepth2", "manydepth")
+
+
+def make_family_model(cfg: HardeningConfig, dtype="float32",
+                      fold_bn: bool = False):
+    """A new model of cfg's family and depth, at cfg's size (ManyDepth's
+    intrinsics) and scales, in `dtype`: a ManyDepthTrainModel or a
+    Monodepth2 (folding its eval-mode BatchNorm when `fold_bn`). The
+    student and, in the caller's hands, the teacher."""
+    ss = cfg.selfsup
+    if cfg.model_family == "manydepth":
+        return ManyDepthTrainModel(
+            num_layers=cfg.num_layers, scales=ss.scales,
+            input_height=ss.height, input_width=ss.width,
+            num_depth_bins=cfg.manydepth_num_depth_bins, dtype=dtype)
+    return make_monodepth2(cfg.num_layers, ss.scales, dtype=dtype,
+                           fold_bn=fold_bn)
 
 
 @dataclasses.dataclass
@@ -95,7 +121,7 @@ class TrainState:
     branch), the pose encoder and decoder (with temporal frame ids), their
     one Adam optimizer, and the number of steps taken."""
 
-    model: MonodepthModel
+    model: Union[MonodepthModel, ManyDepthTrainModel]
     optimizer: torch.optim.Adam
     step: int = 0
     simsiam: Optional[SimSiam] = None
@@ -130,16 +156,19 @@ def _scaled_K(height: int, width: int):
     return K, np.linalg.pinv(K).astype(np.float32)
 
 
-def _refuse_unported(cfg: HardeningConfig) -> None:
-    checks = (
-        (cfg.use_depth_hints, "use_depth_hints=True", "depth_hints"),
-        (cfg.model_family != "monodepth2" or cfg.manydepth_real_lookup,
-         f"model_family={cfg.model_family!r}", "model_family"),
-    )
-    for bad, what, item in checks:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported yet ({_LATER[item]})")
+def _check_family(cfg: HardeningConfig) -> None:
+    """JAX's refusals (hardening.py:89-97), and an unknown family."""
+    if cfg.model_family not in FAMILIES:
+        raise ValueError(f"model_family must be one of {FAMILIES}, got "
+                         f"{cfg.model_family!r}")
+    if cfg.manydepth_real_lookup:
+        if cfg.model_family != "manydepth":
+            raise ValueError("manydepth_real_lookup requires "
+                             "model_family='manydepth'")
+        if not cfg.selfsup.use_pose_net:
+            raise ValueError(
+                "manydepth_real_lookup needs monocular frame_ids (a "
+                "previous frame + pose net supply the lookup)")
 
 
 class HardeningTrainer:
@@ -166,24 +195,24 @@ class HardeningTrainer:
                  obj_img, obj_mask, teacher=None, device=None,
                  steps_per_epoch: int = 1000,
                  init_state_dict: Optional[Mapping] = None):
-        _refuse_unported(cfg)
         if cfg.supervised_adv and teacher is None:
             raise ValueError("supervised_adv requires a frozen teacher")
+        _check_family(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.teacher = teacher
         self.generator = generator
         ss = cfg.selfsup
         if init_state_dict is None:
-            model = init_monodepth2(generator, cfg.num_layers, ss.scales)
-            init_state_dict = model.state_dict()
+            init_state_dict = flax_init_(self.make_student(),
+                                         generator).state_dict()
         self._init_state_dict = _cpu_copy(init_state_dict)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         self.noise_generator = torch.Generator(self.device).manual_seed(seed)
         self._init_simsiam = None
         if cfg.contrastive_learning:
-            self._init_simsiam = _cpu_copy(
-                init_simsiam(generator).state_dict())
+            self._init_simsiam = _cpu_copy(init_simsiam(
+                generator, in_dim=self._feature_dim()).state_dict())
         self._init_pose = None
         if ss.use_pose_net:
             self._init_pose = tuple(_cpu_copy(m.state_dict())
@@ -241,6 +270,17 @@ class HardeningTrainer:
             self.attack.predict_scale = self.scale_view
 
     # -- state ----------------------------------------------------------------
+    def _feature_dim(self) -> int:
+        """Channels of the student's deepest feature, SimSiam's input."""
+        return encoder_channels(self.cfg.num_layers)[-1]
+
+    def make_student(self):
+        """A new student of the configured family, in the compute dtype
+        (the Monodepth2 student folds its attack view's BatchNorm when
+        cfg.fold_bn)."""
+        return make_family_model(self.cfg, self.cfg.compute_dtype,
+                                 self.cfg.fold_bn)
+
     def make_state(self, resume: Optional[Mapping] = None) -> TrainState:
         """A fresh student (and SimSiam head, and pose networks) from the
         initial weights, in train mode, with a new Adam over all of them
@@ -248,12 +288,10 @@ class HardeningTrainer:
         or, with `resume` (`models/convert.py:from_jax_hardening_state`),
         those modules, the Adam state and the step."""
         cfg = self.cfg
-        modules = {"model": make_monodepth2(
-            cfg.num_layers, cfg.selfsup.scales, dtype=cfg.compute_dtype,
-            fold_bn=cfg.fold_bn)}
+        modules = {"model": self.make_student()}
         init = {"model": self._init_state_dict}
         if self._init_simsiam is not None:
-            modules["simsiam"] = SimSiam()
+            modules["simsiam"] = SimSiam(in_dim=self._feature_dim())
             init["simsiam"] = self._init_simsiam
         if self._init_pose is not None:
             modules["pose_encoder"], modules["pose_decoder"] = \
@@ -303,9 +341,15 @@ class HardeningTrainer:
             attack=self.attack.draw(gen, self.cfg.adv.attack_batch_size),
             synth=draw_synth(gen, batch_size, self.cfg.adv))
 
+    def identity_noise_shape(self, batch_size: int):
+        """Shape of the automask's tie-break draw for a batch: one channel
+        a source frame, one in all with DepthHints."""
+        shape = (depth_hints.identity_noise_shape if self.cfg.use_depth_hints
+                 else identity_noise_shape)
+        return shape(self.cfg.selfsup, batch_size)
+
     def draw_identity_noise(self, batch_size: int) -> torch.Tensor:
-        return torch.randn(identity_noise_shape(self.cfg.selfsup,
-                                                batch_size),
+        return torch.randn(self.identity_noise_shape(batch_size),
                            generator=self.noise_generator,
                            device=self.device)
 
@@ -342,11 +386,15 @@ class HardeningTrainer:
     def synth_batch(self, frames, side_is_l, do_flip, obj_adv,
                     draws: StepDraws):
         """Step 2 of `train_step`: the batch synthesised with texture
-        `obj_adv`, with K, inv_K and stereo_T."""
+        `obj_adv`, with K, inv_K and stereo_T, and the DepthHints planes
+        where the frames carry them (JAX hardening.py:414-418)."""
         batch = synthesize_adv_batch(
             self.synth_eot, frames, obj_adv, self.obj_img, self.obj_mask,
             side_is_l, do_flip, draws.synth, self.cfg.selfsup, self.cfg.adv)
         batch["stereo_T"] = stereo_T_batch(side_is_l, do_flip)
+        for k in ("depth_hint", "depth_hint_mask"):
+            if k in frames:
+                batch[k] = frames[k]
         return self._K_batch(batch, frames["0"].shape[0])
 
     def disparities(self, model, batch) -> Dict[int, torch.Tensor]:
@@ -354,8 +402,13 @@ class HardeningTrainer:
         batch["color_aug"]["0"]."""
         return self._features_and_disps(model, batch)[1]
 
-    def _features_and_disps(self, model, batch):
-        feats, outs = model.features_and_disps(batch["color_aug"]["0"])
+    def _features_and_disps(self, model, batch, lookup=None):
+        """The student's features and disparities {scale: NHWC} of
+        batch["color_aug"]["0"]; `lookup`: (frames, poses) of a ManyDepth
+        student's real-lookup volume."""
+        x = batch["color_aug"]["0"]
+        feats, outs = (model.features_and_disps(x) if lookup is None
+                       else model.features_and_disps_multi(x, *lookup))
         return feats, {s: outs[("disp", s)].permute(0, 2, 3, 1)
                        for s in self.cfg.selfsup.scales}
 
@@ -390,10 +443,18 @@ class HardeningTrainer:
         """The weighted sum of the configured branches and each of them
         (JAX `_losses`, hardening.py:265-365); the train-mode passes
         update the BatchNorm statistics in JAX's order (the student's,
-        the head's, then the pose encoder's)."""
+        the head's, then the pose encoder's; with the real lookup the
+        pose encoder's first)."""
         cfg, ss = self.cfg, self.cfg.selfsup
         model = state.model
-        feats_aug, disps = self._features_and_disps(model, batch)
+        poses = lookup = None
+        if cfg.manydepth_real_lookup:
+            # the poses first, so the student's volume can use them; the
+            # attack stays single-frame (JAX hardening.py:275-290)
+            poses = self.predict_poses(state, batch["color_aug"])
+            fid = ss.temporal_source_ids[0]
+            lookup = (batch["color_aug"][fid][:, None], poses[fid][:, None])
+        feats_aug, disps = self._features_and_disps(model, batch, lookup)
         metrics = {}
         total = 0.0
         if cfg.supervised_adv:
@@ -413,16 +474,19 @@ class HardeningTrainer:
             metrics["sup_loss"] = loss_sup
             total = total + loss_sup
         if cfg.contrastive_learning:
-            feats_ben = model.encode(batch["color_ben"])
+            feats_ben = (model.encode(batch["color_ben"]) if lookup is None
+                         else model.encode_multi(batch["color_ben"], *lookup))
             contras = cfg.contras_loss_wt * state.simsiam(feats_aug,
                                                           feats_ben)
             metrics["contras_loss"] = contras
             total = total + contras
         if not cfg.no_original_train:
-            poses = (self.predict_poses(state, batch["color_aug"])
-                     if ss.use_pose_net else {})
-            selfsup, _ = compute_selfsup_losses(disps, batch, poses,
-                                                identity_noise, ss)
+            if poses is None:
+                poses = (self.predict_poses(state, batch["color_aug"])
+                         if ss.use_pose_net else {})
+            losses = (depth_hints.compute_depth_hints_losses
+                      if cfg.use_depth_hints else compute_selfsup_losses)
+            selfsup, _ = losses(disps, batch, poses, identity_noise, ss)
             metrics["selfsup_loss"] = selfsup
             total = total + selfsup
         metrics["loss"] = total

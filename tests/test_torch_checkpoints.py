@@ -209,6 +209,47 @@ def test_exported_weights_read_back_in_jax(tmp_path):
                                atol=EXPORT_ATOL, rtol=0)
 
 
-def test_manydepth_reference_names_its_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 6"):
-        checkpoints.load_manydepth_reference("weights_0")
+def test_manydepth_reference_names_its_slice(tmp_path):
+    """ManyDepth weights load (ported in slice 6b): a folder written by
+    `export_manydepth_reference` from a seeded model (the encoder
+    regrouped as the reference's, with its metadata; depth.pth) gives
+    back the model's tensors, at the metadata's size, in eval mode, on
+    the device asked for (tests/test_torch_manydepth.py holds the load
+    against JAX's)."""
+    from depthmodelhardening_tpu_torch.models.wrappers import (
+        ManyDepthModel, flax_init_,
+    )
+
+    model = flax_init_(ManyDepthModel(input_height=64, input_width=96),
+                       torch.Generator().manual_seed(1))
+    sd = model.state_dict()
+    folder = checkpoints.export_manydepth_reference(
+        str(tmp_path), 0, sd, height=64, width=96, min_depth_bin=0.5,
+        max_depth_bin=30.0)
+    enc = torch.load(os.path.join(folder, "encoder.pth"), weights_only=True)
+    assert {"layer0.0.weight", "layer0.1.running_var",
+            "layer1.1.0.conv1.weight", "reduce_conv.0.bias",
+            "prematching_conv.0.weight", "layer4.1.bn2.bias"} <= set(enc)
+    back, meta = checkpoints.load_manydepth_reference(folder, device="cpu")
+    assert meta == {"height": 64, "width": 96, "use_stereo": False,
+                    "min_depth_bin": 0.5, "max_depth_bin": 30.0}
+    assert not back.training
+    assert back.encoder.input_height == 64
+    for k, v in back.state_dict().items():
+        assert v.device.type == "cpu"
+        assert torch.equal(v, sd[k]), k
+
+
+def test_manydepth_reference_refuses_inverse_binning(tmp_path):
+    """The port bins linearly only: a folder whose metadata asks for
+    inverse binning raises instead of loading into linear bins."""
+    from depthmodelhardening_tpu_torch.models.wrappers import ManyDepthModel
+
+    folder = checkpoints.export_manydepth_reference(
+        str(tmp_path), 0, ManyDepthModel(input_height=64,
+                                         input_width=96).state_dict())
+    path = os.path.join(folder, "encoder.pth")
+    enc = torch.load(path, weights_only=True)
+    torch.save(dict(enc, depth_binning="inverse"), path)
+    with pytest.raises(NotImplementedError, match="depth_binning"):
+        checkpoints.load_manydepth_reference(folder, device="cpu")

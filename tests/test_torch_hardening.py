@@ -742,16 +742,42 @@ def test_train_step_draws_its_own_draws(setup):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(use_depth_hints=True), NotImplementedError, "ROADMAP.*slice 6"),
-    (dict(model_family="manydepth"), NotImplementedError,
-     "ROADMAP.*slice 6"),
+    (dict(use_depth_hints=True, contras_loss_wt=0.1), None, None),
+    (dict(model_family="manydepth"), None, None),
     (dict(), ValueError, "requires a frozen teacher"),
+    (dict(manydepth_real_lookup=True, supervised_adv=False), ValueError,
+     "requires model_family='manydepth'"),
+    (dict(model_family="manydepth", manydepth_real_lookup=True,
+          supervised_adv=False), ValueError, "monocular frame_ids"),
 ])
 def test_unported_and_invalid_settings_raise(kw, err, match):
-    with pytest.raises(err, match=match):
-        HardeningTrainer(HardeningConfig(**kw),
-                         torch.Generator().manual_seed(0),
-                         *make_car_object(36, 24), device="cpu")
+    """DepthHints and ManyDepth (ported in slice 6b) build with a teacher
+    and take one plain step on the CPU; JAX's refusals raise its
+    ValueErrors: the supervised branch without a teacher, a real lookup
+    outside ManyDepth or without temporal frame ids."""
+    if err is not None:
+        with pytest.raises(err, match=match):
+            HardeningTrainer(HardeningConfig(**kw),
+                             torch.Generator().manual_seed(0),
+                             *make_car_object(36, 24), device="cpu")
+        return
+    cfg = HardeningConfig(selfsup=SelfSupConfig(height=32, width=64),
+                          batch_size=2, **kw)
+    tr = HardeningTrainer(cfg, torch.Generator().manual_seed(0),
+                          *make_car_object(36, 24),
+                          predictor_from(make_monodepth2()), device="cpu")
+    state = tr.make_state()
+    frames = {f: torch.rand(2, 40, 80, 3, generator=torch.Generator()
+                            .manual_seed(i)) for i, f in enumerate("0s")}
+    batch = tr.plain_batch(frames, torch.tensor([True, False]),
+                           torch.tensor([False, True]))
+    batch["depth_hint"] = torch.full((2, 32, 64, 1), 3.0)
+    batch["depth_hint_mask"] = torch.ones(2, 32, 64, 1)
+    batch["color_ben"] = batch["color"]["0"]
+    state, metrics = tr.selfsup_step(state, batch)
+    assert torch.isfinite(metrics["loss"]) and state.step == 1
+    assert set(metrics) == {"sup_loss", "contras_loss", "selfsup_loss",
+                            "loss"}
 
 
 def test_mono_stereo_config_builds_and_steps():

@@ -68,7 +68,8 @@ def test_every_module_imports_without_jax():
         "attacks.square_object", "attacks.random_object",
         "attacks.light_object", "attacks.physical", "attacks.pgd_image",
         "physics.light", "evaluation.presets", "evaluation.clean_eval",
-        "evaluation.sweeps")} <= set(mods)
+        "evaluation.sweeps", "models.matching_encoder",
+        "training.depth_hints", "data.depth_hints")} <= set(mods)
     code = "\n".join(
         ["import sys"]
         + [f"sys.modules[{m!r}] = None" for m in BLOCKED]

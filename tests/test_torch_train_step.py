@@ -305,13 +305,29 @@ def _trainer(**kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(use_depth_hints=True), "slice 6"),
-    (dict(model_family="manydepth"), "slice 6"),
+    (dict(use_depth_hints=True), "slice 6b"),
+    (dict(model_family="manydepth"), "slice 6b"),
 ])
 def test_unported_options_raise_and_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.*{re.escape(item)}"):
-        _trainer(**kw)
+    """The model families of ROADMAP Queue 1 `item` (DepthHints,
+    ManyDepth) build on the CPU and take one plain self-supervised step:
+    DepthHints on a built batch with the hint planes added (the plain
+    batch carries none, as JAX's) and its one-channel automask noise,
+    ManyDepth straight from raw frames."""
+    tr = _trainer(selfsup=SelfSupConfig(height=H, width=W), **kw)
+    state = tr.make_state()
+    frames = {f: torch.from_numpy(v) for f, v in _frames().items()}
+    side, flip = torch.from_numpy(SIDE), torch.from_numpy(FLIP)
+    if kw.get("use_depth_hints"):
+        batch = tr.plain_batch(frames, side, flip)
+        batch["depth_hint"] = torch.full((B, H, W, 1), 4.0)
+        batch["depth_hint_mask"] = torch.ones(B, H, W, 1)
+        assert tr.identity_noise_shape(B) == (B, H, W, 1)
+        state, metrics = tr.selfsup_step(state, batch)
+    else:
+        state, metrics = tr.selfsup_frames_step(state, frames, side, flip)
+        assert type(state.model).__name__ == "ManyDepthTrainModel"
+    assert torch.isfinite(metrics["loss"]) and state.step == 1, item
 
 
 def test_mono_plain_step_warps_the_temporal_frames():
