@@ -207,6 +207,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
    `multi_frame`: card against CPU on 2 items (disp0 within 1e-4,
    lowest_cost and confidence), 2 + 5 forwards with launches (B 1, D 4
    a forward), one profiled forward.
+15. cli: the port's command line, `cli.main.main([...])` on the card, on
+   KITTI-layout trees the phase writes under a temporary directory at
+   375x1242 (tests/kitti_trees.py: standard-library PNGs, the calib
+   files, velodyne scans; a raw drive of 32 frames x 2 eyes, an object
+   tree of 24 scenes, the 300x200 car, a weights folder of phase 12's
+   calibrated golden weights): `native.decoder()`'s route; fetch-splits
+   (--from-dir, --generate-odom); export-gt-depths; eval-clean on 8 test
+   lines (launches: B 1 and D 4 a frame); eval-attacks with an L0 and an
+   L-inf preset, --eval-count 2 (launches against `zoo_launches` of each
+   batch); train-hardening --fine-tune at its defaults (bf16 student,
+   float32 teacher, L0 10 steps on attack batch 12, batch 32, frames
+   0,s, a robustness val at step 0) with --epochs 1 --log-frequency 1,
+   run twice (the second resumes at step 2): seconds a step (host clock
+   around `train_step`, synchronised), each batch's wait on the prefetch
+   loader, each step's launches against `harden_launches(i, bf16=True)`,
+   one step under the profiler (idle share), peak memory, the JSONL keys,
+   checkpoints and opt.json, and the first step against two direct
+   `train_step`s of trainers built from the same seed on the same loader
+   batch and scenes (bit-equal where the direct runs agree, else within
+   CLI_STEP_SPREAD times their spread); train-distill --epochs 1
+   --eval-count 1 on a list of two batches (JSONL, weights folders, the
+   kernels it runs launched); infer where PIL imports (B 1, D 4);
+   eval-attacks --dump-dir where PIL and matplotlib import (otherwise a
+   line says which is missing); each subcommand's wall seconds.
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -218,6 +242,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import math
 import os
@@ -225,13 +251,16 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from depthmodelhardening_tpu_torch.attacks.base import PhysObjAttackConfig
+from depthmodelhardening_tpu_torch.attacks.l0_object import L0ObjectAttack
 from depthmodelhardening_tpu_torch.data import depth_hints as hint_data
 from depthmodelhardening_tpu_torch.data.synthetic import (
     make_car_object, make_scene,
@@ -3614,6 +3643,456 @@ def phase_manydepth_eval(dev, sd):
     return launches
 
 
+# -- phase 15 ----------------------------------------------------------------
+# the port's command line (cli/main.py) on KITTI-layout trees that the
+# phase writes at native size (tests/kitti_trees.py, standard-library
+# PNGs): a raw drive of CLI_FRAMES frame indices (train_files: both eyes
+# of each, 64 lines, two steps at train-hardening's batch 32; the first
+# CLI_TEST_FRAMES as eigen's test_files, with velodyne scans), a KITTI
+# object tree of CLI_SCENES scenes (two attack batches of 12), the
+# 300x200 car and a reference weights folder of the golden weights with
+# calibrated statistics (phase 12's teacher)
+CLI_FRAMES, CLI_TEST_FRAMES, CLI_SCENES = 32, 8, 24
+CLI_PRESETS = ("l0_thresh01", "linf_eps01")
+CLI_EVAL_COUNT = 2
+CLI_DISTILL_SCENES = 32  # two batches of train-distill's default batch 16
+# the CLI's first step against direct `train_step`s of trainers built from
+# the same seed on the same batch: bit for bit where two direct runs agree;
+# where they do not (atomic adds in the bilinear resize's backward make
+# the card's gradients differ in the last bits, and the L0 loop's Adam at
+# lr 0.5 can part the textures from there), the CLI's step must lie within
+# CLI_STEP_SPREAD times their spread in the step's gradients (Adam's first
+# moment) and running statistics, relative L2 over all of them (sums over
+# millions of values: a wrong batch, seed or draw moves them by O(1))
+CLI_STEP_SPREAD = 2.0
+CLI_PROFILED_STEP = 3  # the resumed run's second step
+
+
+def _kitti_trees():
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import kitti_trees
+
+    return kitti_trees
+
+
+def phase_cli_files(dev, root):
+    """The trees, the split source, the car and the weights folder under
+    `root`; a namespace of their paths."""
+    kt = _kitti_trees()
+    t0 = time.perf_counter()
+    raw, drive = kt.write_raw_tree(
+        os.path.join(root, "raw"), CLI_FRAMES, 375, 1242, seed=SEED + 200,
+        velodyne=range(CLI_TEST_FRAMES))
+    src = os.path.join(root, "splits_src")
+    test = [f"{drive} {fr} l" for fr in range(CLI_TEST_FRAMES)]
+    kt.write_split(src, "eigen_full", train=[
+        f"{drive} {fr} {side}" for fr in range(CLI_FRAMES)
+        for side in ("l", "r")], val=test)
+    kt.write_split(src, "eigen", test=test)
+    obj = os.path.join(root, "object")
+    names = kt.write_object_tree(obj, CLI_SCENES, 375, 1242, seed=SEED + 240)
+    with open(os.path.join(obj, "distill_train.txt"), "w") as f:
+        f.write("\n".join((names * 2)[:CLI_DISTILL_SCENES]) + "\n")
+    car = kt.write_car(os.path.join(root, "BMW.png"), 300, 200, seed=SEED)
+    _, sd = _golden_weights()
+    weights = checkpoints.export_reference_pth(
+        root, "cli", calibrated_teacher(dev, sd), height=320, width=1024)
+    log(f"cli files: raw drive {CLI_FRAMES} frames x 2 eyes at 1242x375, "
+        f"{CLI_TEST_FRAMES} velodyne scans, {CLI_SCENES} object scenes, car "
+        f"300x200, weights folder of the calibrated golden weights: "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    return types.SimpleNamespace(
+        root=root, raw=raw, drive=drive, src=src, splits=os.path.join(
+            root, "splits"), obj=obj, car=car, weights=weights)
+
+
+class _CliRuns:
+    """The CLI's subcommands through `cli.main.main(argv)` on the card:
+    each one's wall seconds (synchronised) and launches (counters reset
+    before, read after), summed into `total` (the phase's launches)."""
+
+    def __init__(self):
+        self.total = {k.name: 0 for k in _build.KERNELS}
+        self.seconds = {}
+
+    def __call__(self, name, argv):
+        from depthmodelhardening_tpu_torch.cli import main as cli_main
+
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = cli_main.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _build.KERNELS}
+        for k, v in launches.items():
+            self.total[k] += v
+        self.seconds[name] = self.seconds.get(name, 0.0) + secs
+        for line in out.getvalue().splitlines()[-12:]:
+            log(f"    | {line}")
+        log(f"  {name}: {secs:.3f} s wall (synchronised); launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        return result, launches, out.getvalue()
+
+
+def _expect_launches(name, launches, want) -> None:
+    full = {k.name: 0 for k in _build.KERNELS}
+    full.update(want)
+    if launches != full:
+        raise AssertionError(f"cli {name}: launches "
+                             f"{json.dumps(launches)}, predicted "
+                             f"{json.dumps(full)}")
+
+
+def _finite(name, values) -> None:
+    values = list(values)
+    if not values or not all(math.isfinite(float(v)) for v in values):
+        raise AssertionError(f"cli {name}: non-finite or no values "
+                             f"{values}")
+
+
+def _jsonl(log_dir):
+    with open(os.path.join(log_dir, "train_metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def phase_cli_commands(dev):
+    """Phase 15: the port's command line on files; returns its launches."""
+    from depthmodelhardening_tpu_torch import native
+
+    log(f"cli: image decoding route {native.decoder()}")
+    runs = _CliRuns()
+    with tempfile.TemporaryDirectory(prefix="dmh_cli_") as root:
+        f = phase_cli_files(dev, root)
+        runs("fetch-splits --from-dir", ["fetch-splits", "--dest", f.splits,
+                                         "--from-dir", f.src])
+        runs("fetch-splits --generate-odom", ["fetch-splits", "--dest",
+                                              f.splits, "--generate-odom"])
+        for name in ("eigen_full/train_files.txt", "eigen/test_files.txt",
+                     "odom/test_files_10.txt"):
+            if not os.path.isfile(os.path.join(f.splits, name)):
+                raise AssertionError(f"cli fetch-splits: no {name}")
+        runs("export-gt-depths", ["export-gt-depths", "--data-path", f.raw,
+                                  "--split-dir", f.splits])
+        phase_cli_eval(runs, f)
+        phase_cli_train(runs, f, dev)
+        phase_cli_distill(runs, f)
+        phase_cli_extras(runs, f)
+    log("  wall seconds by subcommand: " + json.dumps(
+        {k: round(v, 3) for k, v in runs.seconds.items()}))
+    return runs.total
+
+
+def phase_cli_eval(runs, f) -> None:
+    """eval-clean on the 8 test lines and eval-attacks with an L0 and an
+    L-inf preset, --eval-count 2, at the CLI's 1024x320, the launches
+    against the forwards and `zoo_launches` of each batch."""
+    gt = np.load(os.path.join(f.splits, "eigen", "gt_depths.npz"),
+                 allow_pickle=True)["data"]
+    valid = [int((np.asarray(g) > 0).sum()) for g in gt]
+    if len(gt) != CLI_TEST_FRAMES or min(valid) < 100:
+        raise AssertionError(f"cli export-gt-depths: {len(gt)} maps, "
+                             f"valid pixels {valid}")
+    metrics, launches, _ = runs("eval-clean", [
+        "eval-clean", "--data-path", f.raw, "--split-dir", f.splits,
+        "--weights-folder", f.weights])
+    log(f"  eval-clean metrics {json.dumps(metrics)} (valid gt pixels "
+        f"{valid})")
+    _finite("eval-clean", metrics.values())
+    _expect_launches("eval-clean", launches, {
+        "maxpool3x3s2_fwd": CLI_TEST_FRAMES,
+        "conv3x3_fwd": 4 * CLI_TEST_FRAMES})
+    iterations = []
+    orig_call = L0ObjectAttack.__call__
+
+    def counting(self, *a, **kw):
+        out = orig_call(self, *a, **kw)
+        iterations.append(self.last_iterations)
+        return out
+
+    L0ObjectAttack.__call__ = counting
+    try:
+        for preset in CLI_PRESETS:
+            iterations.clear()
+            res, launches, _ = runs(f"eval-attacks --preset {preset}", [
+                "eval-attacks", "--preset", preset, "--object-data-root",
+                f.obj, "--object-image", f.car, "--weights-folder",
+                f.weights, "--eval-count", str(CLI_EVAL_COUNT)])
+            cfg = dataclasses.replace(EVAL_PRESETS[preset],
+                                      eval_count=CLI_EVAL_COUNT)
+            want = {}
+            for i in range(CLI_EVAL_COUNT):
+                its = iterations[i] if cfg.norm_type == "l_0" else 0
+                for k, v in zoo_launches(cfg, its).items():
+                    want[k] = want.get(k, 0) + v
+            log(f"  {preset} ({cfg.norm_type}, batch {cfg.batch_size}, "
+                f"{CLI_EVAL_COUNT} batches; L0 iterations {iterations}): "
+                f"mean {json.dumps(res['mean'])}")
+            _finite(preset, list(res["mean"].values())
+                    + list(res["max"].values()))
+            _expect_launches(preset, launches, want)
+    finally:
+        L0ObjectAttack.__call__ = orig_call
+
+
+def _step_recorder(records, waits, profiled_at):
+    """Patches, from outside the package, `HardeningTrainer.train_step`
+    (host seconds synchronised, launches by difference of the counters,
+    L0 iterations, the first step's inputs and the state after it, one
+    step under the profiler) and `PrefetchLoader.__iter__` (the seconds
+    each batch took to come). Returns the undo."""
+    from depthmodelhardening_tpu_torch.data.loader import PrefetchLoader
+
+    orig_step, orig_iter = HardeningTrainer.train_step, \
+        PrefetchLoader.__iter__
+
+    def step(self, state, frames, side, flip, scenes, draws=None):
+        n = len(records)
+        rec = {}
+        if n == 0:
+            rec["trainer"] = self
+            rec["inputs"] = ({k: v.clone() for k, v in frames.items()},
+                             side.clone(), flip.clone(), np.array(scenes))
+        counts = {k.name: k.launches for k in _build.KERNELS}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if n == profiled_at:
+            out = []
+            rec["busy"] = device_busy(lambda: out.append(orig_step(
+                self, state, frames, side, flip, scenes, draws)))
+            state, metrics = out[0]
+        else:
+            state, metrics = orig_step(self, state, frames, side, flip,
+                                       scenes, draws)
+        torch.cuda.synchronize()
+        rec["secs"] = time.perf_counter() - t0
+        rec["launches"] = {k.name: k.launches - counts[k.name]
+                           for k in _build.KERNELS}
+        rec["iterations"] = self.attack.last_iterations
+        rec["loss"] = float(metrics["loss"])
+        if n == 0:
+            rec["outcome"] = _step_outcome(self, state, metrics)
+        records.append(rec)
+        return state, metrics
+
+    def timed_iter(self):
+        it = orig_iter(self)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            waits.append(time.perf_counter() - t0)
+            yield batch
+
+    HardeningTrainer.train_step, PrefetchLoader.__iter__ = step, timed_iter
+
+    def undo():
+        HardeningTrainer.train_step = orig_step
+        PrefetchLoader.__iter__ = orig_iter
+
+    return undo
+
+
+def _step_outcome(trainer, state, metrics) -> dict:
+    """What one step did: its loss and L0 iterations, the gradients
+    (Adam's first moment after one step is 0.1 g), the running
+    statistics, the parameters and the generators' states."""
+    flat = lambda ts: torch.cat([t.detach().flatten().float() for t in ts])
+    opt = state.optimizer.state
+    tensors = _state_tensors(state)
+    return {
+        "loss": float(metrics["loss"]),
+        "iterations": trainer.attack.last_iterations,
+        "grads": flat(opt[p]["exp_avg"] for _, p in _named_params(state)
+                      if p in opt),
+        "stats": flat(v for k, v in tensors.items()
+                      if k.endswith(("running_mean", "running_var"))),
+        "params": flat(p for _, p in _named_params(state)),
+        "generators": (trainer.generator.get_state(),
+                       trainer.noise_generator.get_state())}
+
+
+def _outcome_distance(a, b) -> dict:
+    rel = lambda k: float((a[k] - b[k]).norm() / b[k].norm())
+    return {"loss": abs(a["loss"] - b["loss"]), "grads": rel("grads"),
+            "stats": rel("stats"),
+            "params": float((a["params"] - b["params"]).abs().max())}
+
+
+def phase_cli_train(runs, f, dev) -> None:
+    """train-hardening --fine-tune at the CLI's defaults (bf16, L0, frames
+    0,s, batch 32, attack batch 12, a robustness val at step 0) with
+    --epochs 1 --log-frequency 1, then the same command again, which
+    resumes at step 2: s/step, loader waits, launches a step against
+    `harden_launches`, the idle share of one step, peak memory, the
+    JSONL, checkpoints and opt.json; the first step against direct
+    `train_step`s of trainers built from the same seed."""
+    log_dir = os.path.join(f.root, "hardening")
+    argv = ["train-hardening", "--data-path", f.raw, "--split-dir",
+            f.splits, "--object-data-root", f.obj, "--object-image", f.car,
+            "--weights-folder", f.weights, "--fine-tune", "--epochs", "1",
+            "--log-frequency", "1", "--log-dir", log_dir]
+    records, waits = [], []
+    undo = _step_recorder(records, waits, CLI_PROFILED_STEP)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        outs = [runs(f"train-hardening ({run})", argv)[2]
+                for run in ("first run", "resumed")]
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = _jsonl(log_dir)
+    keys = set().union(*rows)
+    secs = [r["secs"] for r in records]
+    timed = [s for i, s in enumerate(secs) if i != CLI_PROFILED_STEP]
+    busy_ms, wall_ms, n_act, by_name, counts = records[
+        CLI_PROFILED_STEP]["busy"]
+    log(f"  train-hardening: {len(records)} steps; seconds a step (host "
+        f"clock around train_step, synchronised) {json.dumps(secs)}, "
+        f"median of the unprofiled {float(np.median(timed)):.4f}; loader "
+        f"wait a batch (s) {json.dumps([round(w, 4) for w in waits])}; L0 "
+        f"iterations {[r['iterations'] for r in records]}; losses "
+        f"{[r['loss'] for r in records]}; peak max_memory_allocated {peak} B")
+    log(f"  idle: step {CLI_PROFILED_STEP} under the profiler: device busy "
+        f"{busy_ms:.3f} ms of {wall_ms:.3f} ms host wall, idle share "
+        f"{1.0 - busy_ms / wall_ms:.4f}, {n_act} device activities")
+    log_kernel_ms(by_name, counts)
+    for i, r in enumerate(records):
+        _expect_launches(f"train-hardening step {i}", r["launches"],
+                         harden_launches(r["iterations"], bf16=True))
+    if len(records) != 4 or "resumed from step 2" not in outs[1] or \
+            "resumed" in outs[0]:
+        raise AssertionError("cli train-hardening: 2 + 2 steps, the second "
+                             "run resuming at step 2, expected")
+    if not {"loss", "val/mean_abs_err", "sup_loss", "contras_loss",
+            "selfsup_loss"} <= keys:
+        raise AssertionError(f"cli train-hardening: JSONL keys {keys}")
+    _finite("train-hardening", [v for r in rows for v in r.values()])
+    for path in ("ckpts/2/state.pt", "ckpts/4/state.pt", "opt.json"):
+        if not os.path.isfile(os.path.join(log_dir, path)):
+            raise AssertionError(f"cli train-hardening: no {path}")
+    phase_cli_first_step(records[0], f, dev)
+
+
+def phase_cli_first_step(first, f, dev) -> None:
+    """The CLI's first step against two direct `train_step`s, each of a
+    trainer built from the same seed (17, the CLI's) on the loader batch
+    and the scene batch the CLI passed; that loader batch against the
+    first batch of a loader built here on the same split and seed."""
+    from depthmodelhardening_tpu_torch.data.kitti_raw import (
+        KittiRawDataset, collate, load_split,
+    )
+    from depthmodelhardening_tpu_torch.data.loader import PrefetchLoader
+
+    t = first["trainer"]
+    frames, side, flip, scenes = first["inputs"]
+    ds = KittiRawDataset(f.raw, load_split(f.splits, "eigen_full"),
+                         t.cfg.selfsup.frame_ids, t.cfg.adv.ori_h,
+                         t.cfg.adv.ori_w)
+    batch = next(iter(PrefetchLoader(ds, t.cfg.batch_size, collate,
+                                     seed=17, device=dev)))
+    same = all(torch.equal(batch["frames"][k], frames[k]) for k in frames) \
+        and torch.equal(batch["side_is_l"], side) and \
+        torch.equal(batch["do_flip"], flip)
+    direct = []
+    for _ in range(2):
+        tr = HardeningTrainer(
+            t.cfg, torch.Generator().manual_seed(17), t.obj_img, t.obj_mask,
+            t.teacher, device=dev,
+            steps_per_epoch=t.transition_steps // t.cfg.scheduler_step_size,
+            init_state_dict=t._init_state_dict)
+        state, m = tr.train_step(tr.make_state(), frames, side, flip, scenes)
+        direct.append(_step_outcome(tr, state, m))
+        del tr, state
+    cli = first["outcome"]
+    spread = _outcome_distance(direct[1], direct[0])
+    dist = _outcome_distance(cli, direct[0])
+    gens = all(torch.equal(a, b) for a, b in zip(cli["generators"],
+                                                 direct[0]["generators"]))
+    log(f"  first step against direct train_steps (loader batch as a "
+        f"loader built here gives it: {same}; generator states equal: "
+        f"{gens}): loss CLI {cli['loss']:.9e}, direct {direct[0]['loss']:.9e}"
+        f" / {direct[1]['loss']:.9e}; L0 iterations {cli['iterations']} / "
+        f"{direct[0]['iterations']} / {direct[1]['iterations']}; CLI vs "
+        f"direct {json.dumps(dist)}; direct vs direct {json.dumps(spread)}")
+    bit_equal = all(v == 0 for v in dist.values())
+    within = all(dist[k] <= CLI_STEP_SPREAD * spread[k]
+                 for k in ("grads", "stats"))
+    if not (same and gens and (bit_equal or within)):
+        raise AssertionError("cli train-hardening: the first step is not "
+                             "the direct step")
+    log(f"  held: {'bit for bit' if bit_equal else f'within {CLI_STEP_SPREAD} x the direct spread'}")
+
+
+def phase_cli_distill(runs, f) -> None:
+    """train-distill --epochs 1 --eval-count 1 at its defaults (bf16
+    student, float32 disp0 teacher, batch 16, PGD-10) on a scene list of
+    two batches: the JSONL, opt.json and the weights folders; A, B-bf16,
+    D-bf16 and float32 D launched."""
+    log_dir = os.path.join(f.root, "distill")
+    state, launches, _ = runs("train-distill", [
+        "train-distill", "--object-data-root", f.obj, "--object-image",
+        f.car, "--weights-folder", f.weights, "--epochs", "1",
+        "--eval-count", "1", "--train-list", "distill_train.txt",
+        "--log-dir", log_dir])
+    rows = _jsonl(log_dir)
+    keys = set().union(*rows)
+    log(f"  train-distill: {state.step} steps; rows {json.dumps(rows)}")
+    _finite("train-distill", [v for r in rows for v in r.values()])
+    if state.step != 2 or not {"loss", "eval/atk_perf",
+                               "eval/model_perf"} <= keys:
+        raise AssertionError(f"cli train-distill: {state.step} steps, "
+                             f"keys {keys}")
+    for path in ("opt.json", "weights_1/encoder.pth",
+                 "weights_final/depth.pth"):
+        if not os.path.isfile(os.path.join(log_dir, path)):
+            raise AssertionError(f"cli train-distill: no {path}")
+    quiet = [k for k in ("vertical_resample_fwd", "vertical_resample_bwd",
+                         "maxpool3x3s2_fwd_bf16", "maxpool3x3s2_bwd_bf16",
+                         "conv3x3_fwd_bf16", "conv3x3_dgrad_bf16",
+                         "conv3x3_fwd") if launches[k] <= 0]
+    if quiet:
+        raise AssertionError(f"cli train-distill: never launched {quiet}")
+
+
+def phase_cli_extras(runs, f) -> None:
+    """infer where PIL imports (one forward at 1024x320: B 1, D 4), and
+    eval-attacks --dump-dir where PIL and matplotlib import; otherwise a
+    line says which was not run and why."""
+    missing = [m for m in ("PIL", "matplotlib")
+               if importlib.util.find_spec(m) is None]
+    image = os.path.join(f.raw, f.drive, "image_02", "data",
+                         "0000000000.png")
+    if "PIL" in missing:
+        log("  infer: not run, PIL is not installed")
+    else:
+        from depthmodelhardening_tpu_torch.native import load_image
+
+        disp, launches, _ = runs("infer", ["infer", "--image", image,
+                                           "--weights-folder", f.weights])
+        size = load_image(image).shape[:2]
+        if disp.shape != (1, *size, 1) or not np.isfinite(disp).all():
+            raise AssertionError(f"cli infer: {disp.shape} for {size}")
+        _expect_launches("infer", launches, {"maxpool3x3s2_fwd": 1,
+                                             "conv3x3_fwd": 4})
+    if missing:
+        log(f"  eval-attacks --dump-dir: not run, "
+            f"{' and '.join(missing)} not installed")
+        return
+    dump = os.path.join(f.root, "dumps")
+    runs("eval-attacks --dump-dir", [
+        "eval-attacks", "--preset", "linf_eps01", "--object-data-root",
+        f.obj, "--object-image", f.car, "--weights-folder", f.weights,
+        "--eval-count", "1", "--dump-dir", dump])
+    if sorted(os.listdir(dump)) != ["adv_000.png", "ben_000.png",
+                                    "panel_000.png"]:
+        raise AssertionError(f"cli --dump-dir: {os.listdir(dump)}")
+
+
 def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -3645,11 +4124,13 @@ def main() -> int:
     zoo = timed("phase 13", phase_zoo, dev)
     torch.cuda.empty_cache()
     families = timed("phase 14", phase_families, dev)
+    torch.cuda.empty_cache()
+    commands = timed("phase 15", phase_cli_commands, dev)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
                          + distill_launches[name] + bench_launches[name]
                          + harden[name] + cli[name] + zoo[name]
-                         + families[name])
+                         + families[name] + commands[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "host_ms",

@@ -1,0 +1,4 @@
+from .main import run
+
+if __name__ == "__main__":
+    raise SystemExit(run())

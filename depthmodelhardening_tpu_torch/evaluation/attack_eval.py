@@ -18,6 +18,7 @@ of [abs_err, abs_rel, sq_rel, rmse, rmse_log, a1, a2, a3].
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
@@ -67,8 +68,9 @@ class AttackEvalConfig:
     scene_w: int = 1024
     ori_h: int = 375
     ori_w: int = 1242
-    # per-batch image dumps (evaluate_depth_physical.py:124-165): not
-    # ported yet (ROADMAP Queue 1, slice 7: utils/visualize.py)
+    # per-batch image dumps (evaluate_depth_physical.py:124-165): the
+    # attacked and benign scene 0 and their 6-panel disparity comparison
+    # (PIL and matplotlib, `utils/visualize.py`)
     dump_dir: Optional[str] = None
 
 
@@ -144,12 +146,11 @@ def evaluate_attacks(predictor, attack, scenes_iter: Iterable,
     generator: the CPU torch.Generator of the attack's draws (default:
       seeded with 17); draws[i], when given, replaces batch i's draws.
     vanila_obj: the texture the "vanila" norm type projects.
+    cfg.dump_dir: where each batch's adv_%03d.png, ben_%03d.png (scene 0)
+      and panel_%03d.png (`utils/visualize.py:eval_depth_diff` through
+      the measured model) go.
     Returns {"mean": {...}, "max": {...}} keyed by METRIC_NAMES.
     """
-    if cfg.dump_dir:
-        raise NotImplementedError(
-            "dump_dir's image dumps are not ported yet: ROADMAP Queue 1, "
-            "slice 7 (utils/visualize.py)")
     if generator is None:
         generator = torch.Generator().manual_seed(17)
     metric_predictor = metric_predictor or predictor
@@ -174,6 +175,8 @@ def evaluate_attacks(predictor, attack, scenes_iter: Iterable,
         with torch.no_grad():
             errs = _batch_metrics(metric_predictor, adv, ben, masks)
         rows.append(torch.stack(errs).cpu().numpy())
+        if cfg.dump_dir:
+            _dump(cfg.dump_dir, i, adv, ben, metric_predictor)
     if not rows:
         raise ValueError("no scene batches to evaluate")
     rows = np.stack(rows)  # (n, 8)
@@ -181,6 +184,20 @@ def evaluate_attacks(predictor, attack, scenes_iter: Iterable,
         "mean": dict(zip(METRIC_NAMES, rows.mean(axis=0).tolist())),
         "max": dict(zip(METRIC_NAMES, rows.max(axis=0).tolist())),
     }
+
+
+def _dump(dump_dir: str, i: int, adv, ben, predictor) -> None:
+    """Image dumps like evaluate_depth_physical.py:124-165 (JAX
+    `evaluation/attack_eval.py:173-188`): the attacked and benign scene 0
+    of batch i and their 6-panel disparity comparison."""
+    from ..utils.visualize import eval_depth_diff, save_pic
+
+    os.makedirs(dump_dir, exist_ok=True)
+    adv0, ben0 = (t[0].float().cpu().numpy() for t in (adv, ben))
+    save_pic(adv0, os.path.join(dump_dir, f"adv_{i:03d}.png"))
+    save_pic(ben0, os.path.join(dump_dir, f"ben_{i:03d}.png"))
+    panel, _, _ = eval_depth_diff(ben0, adv0, predictor=predictor)
+    panel.save(os.path.join(dump_dir, f"panel_{i:03d}.png"))
 
 
 def iter_eval_scenes(dataset, cfg: AttackEvalConfig,

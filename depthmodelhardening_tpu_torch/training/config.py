@@ -12,8 +12,9 @@ BatchNorm fold `fold_bn` (default on, as in JAX), and the attack's
 `attack_scale` (0, 1 or 2), `attack_scale_fine_steps` and
 `attack_view_dtype`, which the attack's own config checks
 (`attacks/base.py:PhysObjAttackConfig`), and the L0 attack's `adam_lr`,
-`mask_wt` and `l0_thresh` (`adv_type="object_l0"`). It leaves out the
-options that only unported code reads (`epochs`, `obj_name`: the CLI).
+`mask_wt` and `l0_thresh` (`adv_type="object_l0"`). It leaves out
+`epochs` (the CLI's `train-distill` loop takes `--epochs` itself) and
+`obj_name` (nothing in the distillation step reads it, in JAX either).
 `HardeningConfig` carries `fold_bn` (the attack's eval view of the
 student) and `compute_dtype` "float32" or "bfloat16" (the student's,
 and so its attack view's; the CLI's `train-hardening` default is

@@ -37,8 +37,7 @@ teacher is the caller's: in `bench.py`'s configuration a bf16, folded
 The state is a model and its optimizer, updated in place; `train_step`
 also returns it. Random draws come from a CPU `torch.Generator` or are
 injected as `PGDDraws` (`L0Draws` for `adv_type="object_l0"`, the L0
-attack: BASELINE config 3b; `ImageDraws` for "image"). Unported: the
-eval's logger images (slice 7) raise NotImplementedError.
+attack: BASELINE config 3b; `ImageDraws` for "image").
 """
 
 from __future__ import annotations
@@ -225,13 +224,14 @@ def eval_atk_perf(trainer: DistillTrainer, state: DistillState, scenes_iter,
       model_perf: mean |depth(student(ben)) - depth(teacher(ben))|,
       atk_perf:   the same for student(adv), inside the object mask.
 
-    Draws come from `generator`, or batch i's from `draws[i]`. Returns
-    (model_perf, atk_perf), averaged over batches. The reference's
-    comparison images (a `logger`) are not ported (slice 7)."""
-    if logger is not None:
-        raise NotImplementedError(
-            "eval_atk_perf's logger images are not ported yet (ROADMAP "
-            "Queue 1, slice 7)")
+    Draws come from `generator`, or batch i's from `draws[i]`. With a
+    `logger` (`utils/logging.py:MetricsLogger`), the first batch's 6-panel
+    comparisons go to it at step `epoch` as "eval/model_comp" (the
+    student's and the teacher's disparity of the benign scene) and
+    "eval/atk_comp" (the student's of the attacked scene against the
+    teacher's of the benign one), the reference's TensorBoard panels
+    (JAX `distill.py:229-242`). Returns (model_perf, atk_perf), averaged
+    over batches."""
     attack = trainer.attack_student(state)
     view = trainer.student_view
     B = trainer.cfg.batch_size
@@ -251,6 +251,9 @@ def eval_atk_perf(trainer: DistillTrainer, state: DistillState, scenes_iter,
             disp_gt = trainer.teacher(ben)
             disp_pre = view(ben)
             disp_atk = view(adv)
+        if i == 0 and logger is not None:
+            _log_comparisons(logger, epoch, adv, ben, disp_pre, disp_atk,
+                             disp_gt)
         model_acc += float(get_mean_depth_diff(disp_pre, disp_gt, None,
                                                use_abs=True))
         atk_acc += float(get_mean_depth_diff(disp_atk, disp_gt, masks,
@@ -258,3 +261,18 @@ def eval_atk_perf(trainer: DistillTrainer, state: DistillState, scenes_iter,
         n += 1
     n = max(n, 1)
     return model_acc / n, atk_acc / n
+
+
+def _log_comparisons(logger, epoch, adv, ben, disp_pre, disp_atk,
+                     disp_gt) -> None:
+    from ..utils.visualize import eval_depth_diff
+
+    host = lambda t: t[0].float().cpu().numpy()
+    ben0, adv0 = host(ben), host(adv)
+    gt0 = host(disp_gt)[..., 0]
+    img_model, _, _ = eval_depth_diff(ben0, ben0, disp1=host(disp_pre)[
+        ..., 0], disp2=gt0)
+    img_atk, _, _ = eval_depth_diff(adv0, ben0, disp1=host(disp_atk)[
+        ..., 0], disp2=gt0)
+    logger.log_image(epoch, "eval/model_comp", np.asarray(img_model))
+    logger.log_image(epoch, "eval/atk_comp", np.asarray(img_atk))

@@ -45,6 +45,7 @@ Tolerances, and why:
 * eval_atk_perf: 1e-3 relative (depths of a few hundred mask pixels).
 """
 
+import os
 import re
 
 import jax
@@ -80,6 +81,7 @@ from depthmodelhardening_tpu_torch.training.config import DistillConfig
 from depthmodelhardening_tpu_torch.training.distill import (
     DistillTrainer, build_attack, eval_atk_perf,
 )
+from depthmodelhardening_tpu_torch.utils.logging import MetricsLogger
 
 from golden_common import depth_decoder_state_dict, resnet18_encoder_state_dict
 
@@ -405,9 +407,11 @@ def test_cropped_objective_matches_jax(ref):
                                atol=1e-3 * scale)
 
 
-def test_eval_atk_perf_matches_jax(ref, port):
+def test_eval_atk_perf_matches_jax(ref, port, tmp_path):
     """model_perf and atk_perf of the student after step 1 on one scene
-    batch, port vs JAX `eval_atk_perf` (the port gets JAX's draws)."""
+    batch, port vs JAX `eval_atk_perf` (the port gets JAX's draws); with
+    a logger, the same numbers and the reference's two comparison
+    images."""
     after = ref["steps"][0]["after"]
     rng = jax.random.PRNGKey(31)
     want = j_eval_atk_perf(ref["tr"], after, [ref["scenes"]], rng)
@@ -417,8 +421,14 @@ def test_eval_atk_perf_matches_jax(ref, port):
                                       jax.random.fold_in(rng, 0))])
     assert got[0] > 0 and got[1] > 0
     np.testing.assert_allclose(got, want, rtol=1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 7"):
-        eval_atk_perf(port, state, [ref["scenes"]], logger=object())
+    logger = MetricsLogger(str(tmp_path))
+    logged = eval_atk_perf(port, state, [ref["scenes"]], logger=logger,
+                           epoch=3, draws=[_draws(
+                               ref["tr"].attack, jax.random.fold_in(rng, 0))])
+    logger.close()
+    assert logged == got
+    assert sorted(os.listdir(tmp_path / "images")) == [
+        "eval_atk_comp_00000003.png", "eval_model_comp_00000003.png"]
 
 
 @pytest.mark.parametrize("kw,err,match", [
