@@ -231,6 +231,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    kernels it runs launched); infer where PIL imports (B 1, D 4);
    eval-attacks --dump-dir where PIL and matplotlib import (otherwise a
    line says which is missing); each subcommand's wall seconds.
+16. parallel: data parallelism, inside phase 15's temporary directory.
+   16a: the CLI's step (12a's configuration) at global batch 32 on two
+   ranks of the one card over gloo (NCCL refuses two ranks on one card),
+   each a child process (`dp_rank`) joined with a timeout, its group
+   through a file store with a 60 s timeout, against one process on the
+   same inputs and injected draws: the ranks' textures bit-equal, their
+   L0 iterations the one process's, the share of texels where they
+   differ from the one process's texture (a reading); the training half
+   on the one process's texture with the float32 student within
+   CLI_STEP_SPREAD times the larger of one process's two-run spread and
+   its one-ulp spread (loss and running statistics with DP_LOSS_RTOL and
+   DP_STATS_FLOOR), while each of DP_FAULTS planted on the ranks (the
+   gradient mean skipped, BatchNorm over a rank's rows) must fail that
+   rule; the bf16 half's gradients a reading, its loss and statistics
+   held alike; each rank's launches `harden_launches(i, bf16=True)`;
+   each rank's s/step and the gradients' all-reduce. 16b:
+   `train-hardening --fine-tune --data-parallel` on phase 15's tree over
+   NCCL at world size 1, 2 steps: launches, the first step against phase
+   15's (bf16: the gradients a reading, the loss and statistics held),
+   rank 0's checkpoint, s/step, the all-reduce alone; 16a's float32 half
+   over the same group, held by 16a's rule. 16c: the
+   JAX package's tests/test_convergence.py with the port at its shapes
+   and with its assertions (40 distillation steps, 50 hardening steps on
+   `make_stereo_pair`). 16d: `models/zoo.load_pretrained` from a zip
+   written here onto the card against the CPU (no fetch: urllib's
+   `urlretrieve` raises).
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -242,6 +268,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import importlib.util
 import io
 import json
@@ -282,6 +309,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
     make_monodepth2, predictor_from, quarter_intrinsics,
 )
 from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
+from depthmodelhardening_tpu_torch.parallel.mesh import Mesh
 from depthmodelhardening_tpu_torch.ops.padding import reflect_pad1
 from depthmodelhardening_tpu_torch.ops.resize import bilinear_resize
 from depthmodelhardening_tpu_torch.physics.eot import (
@@ -2291,14 +2319,14 @@ def log_kernel_ms(by_name, counts) -> None:
         log(f"    {ms:9.3f}  {k[:110]}")
 
 
-def _harden_trainer(dev, cfg, sd, obj, mask, seed):
+def _harden_trainer(dev, cfg, sd, obj, mask, seed, mesh=None):
     """Student and frozen float32 teacher of cfg's family from the
     weights `sd` (--fine-tune); the SimSiam head from `seed`."""
     teacher = make_family_model(cfg)
     teacher.load_state_dict(sd)
     return HardeningTrainer(cfg, torch.Generator().manual_seed(seed), obj,
                             mask, predictor_from(teacher.to(dev)),
-                            device=dev, init_state_dict=sd)
+                            device=dev, init_state_dict=sd, mesh=mesh)
 
 
 def _harden_inputs(dev, cfg, seed):
@@ -3758,31 +3786,33 @@ def _jsonl(log_dir):
         return [json.loads(ln) for ln in f if ln.strip()]
 
 
-def phase_cli_commands(dev):
-    """Phase 15: the port's command line on files; returns its launches."""
+def phase_cli_commands(dev, root):
+    """Phase 15: the port's command line on files written under `root`;
+    returns its launches and the namespace of its files, which also
+    holds train-hardening's first step and the direct runs' spread
+    (phase 16 reads them)."""
     from depthmodelhardening_tpu_torch import native
 
     log(f"cli: image decoding route {native.decoder()}")
     runs = _CliRuns()
-    with tempfile.TemporaryDirectory(prefix="dmh_cli_") as root:
-        f = phase_cli_files(dev, root)
-        runs("fetch-splits --from-dir", ["fetch-splits", "--dest", f.splits,
-                                         "--from-dir", f.src])
-        runs("fetch-splits --generate-odom", ["fetch-splits", "--dest",
-                                              f.splits, "--generate-odom"])
-        for name in ("eigen_full/train_files.txt", "eigen/test_files.txt",
-                     "odom/test_files_10.txt"):
-            if not os.path.isfile(os.path.join(f.splits, name)):
-                raise AssertionError(f"cli fetch-splits: no {name}")
-        runs("export-gt-depths", ["export-gt-depths", "--data-path", f.raw,
-                                  "--split-dir", f.splits])
-        phase_cli_eval(runs, f)
-        phase_cli_train(runs, f, dev)
-        phase_cli_distill(runs, f)
-        phase_cli_extras(runs, f)
+    f = phase_cli_files(dev, root)
+    runs("fetch-splits --from-dir", ["fetch-splits", "--dest", f.splits,
+                                     "--from-dir", f.src])
+    runs("fetch-splits --generate-odom", ["fetch-splits", "--dest",
+                                          f.splits, "--generate-odom"])
+    for name in ("eigen_full/train_files.txt", "eigen/test_files.txt",
+                 "odom/test_files_10.txt"):
+        if not os.path.isfile(os.path.join(f.splits, name)):
+            raise AssertionError(f"cli fetch-splits: no {name}")
+    runs("export-gt-depths", ["export-gt-depths", "--data-path", f.raw,
+                              "--split-dir", f.splits])
+    phase_cli_eval(runs, f)
+    phase_cli_train(runs, f, dev)
+    phase_cli_distill(runs, f)
+    phase_cli_extras(runs, f)
     log("  wall seconds by subcommand: " + json.dumps(
         {k: round(v, 3) for k, v in runs.seconds.items()}))
-    return runs.total
+    return runs.total, f
 
 
 def phase_cli_eval(runs, f) -> None:
@@ -3854,7 +3884,9 @@ def _step_recorder(records, waits, profiled_at):
         if n == 0:
             rec["trainer"] = self
             rec["inputs"] = ({k: v.clone() for k, v in frames.items()},
-                             side.clone(), flip.clone(), np.array(scenes))
+                             side.clone(), flip.clone(),
+                             scenes.clone() if torch.is_tensor(scenes)
+                             else np.array(scenes))
         counts = {k.name: k.launches for k in _build.KERNELS}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3897,23 +3929,33 @@ def _step_recorder(records, waits, profiled_at):
     return undo
 
 
-def _step_outcome(trainer, state, metrics) -> dict:
-    """What one step did: its loss and L0 iterations, the gradients
-    (Adam's first moment after one step is 0.1 g), the running
-    statistics, the parameters and the generators' states."""
+def _half_outcome(state, metrics) -> dict:
+    """What one step did to the state: its loss, the gradients (Adam's
+    first moment after one step is 0.1 g), the running statistics and
+    the parameters, each flattened."""
     flat = lambda ts: torch.cat([t.detach().flatten().float() for t in ts])
     opt = state.optimizer.state
     tensors = _state_tensors(state)
     return {
         "loss": float(metrics["loss"]),
-        "iterations": trainer.attack.last_iterations,
         "grads": flat(opt[p]["exp_avg"] for _, p in _named_params(state)
                       if p in opt),
         "stats": flat(v for k, v in tensors.items()
                       if k.endswith(("running_mean", "running_var"))),
-        "params": flat(p for _, p in _named_params(state)),
-        "generators": (trainer.generator.get_state(),
-                       trainer.noise_generator.get_state())}
+        "params": flat(p for _, p in _named_params(state))}
+
+
+def _on_host(outcome) -> dict:
+    return {k: v.cpu() if torch.is_tensor(v) else v
+            for k, v in outcome.items()}
+
+
+def _step_outcome(trainer, state, metrics) -> dict:
+    """`_half_outcome`, the L0 iterations and the generators' states."""
+    return {**_half_outcome(state, metrics),
+            "iterations": trainer.attack.last_iterations,
+            "generators": (trainer.generator.get_state(),
+                           trainer.noise_generator.get_state())}
 
 
 def _outcome_distance(a, b) -> dict:
@@ -3975,6 +4017,7 @@ def phase_cli_train(runs, f, dev) -> None:
     for path in ("ckpts/2/state.pt", "ckpts/4/state.pt", "opt.json"):
         if not os.path.isfile(os.path.join(log_dir, path)):
             raise AssertionError(f"cli train-hardening: no {path}")
+    f.secs = timed
     phase_cli_first_step(records[0], f, dev)
 
 
@@ -4025,6 +4068,7 @@ def phase_cli_first_step(first, f, dev) -> None:
     if not (same and gens and (bit_equal or within)):
         raise AssertionError("cli train-hardening: the first step is not "
                              "the direct step")
+    f.first, f.spread = first, spread
     log(f"  held: {'bit for bit' if bit_equal else f'within {CLI_STEP_SPREAD} x the direct spread'}")
 
 
@@ -4093,6 +4137,647 @@ def phase_cli_extras(runs, f) -> None:
         raise AssertionError(f"cli --dump-dir: {os.listdir(dump)}")
 
 
+# -- phase 16 ----------------------------------------------------------------
+# data parallelism (`parallel/`, the trainers' mesh=, --data-parallel):
+# 16a two ranks on the one card over gloo (NCCL refuses two ranks on one
+# card) at the CLI's configuration, each rank a child process joined with
+# a timeout, its group through a file store with a DP_GROUP_TIMEOUT;
+# 16b the CLI's --data-parallel over NCCL at world size 1 on phase 15's
+# tree; 16c the JAX
+# package's two longitudinal checks (tests/test_convergence.py) at their
+# shapes and with their assertions; 16d the zoo loader onto the card
+DP_WORLD, DP_TIMEOUT, DP_GROUP_TIMEOUT = 2, 400, 60
+DP_SEED = SEED + 300
+DP_WORK = os.path.join(REPO, "build", "dp_smoke")
+# The training half under a mesh is held against one process's on the
+# same inputs in float32 (phase 11's student; the teacher is float32
+# either way): within CLI_STEP_SPREAD times the larger of the one
+# process's two-run spread and its spread with every weight one ulp away
+# (phase 11's rule), with floors for what two runs keep bit-equal (the
+# loss, the running statistics: the global BatchNorm sums in another
+# order than nn.BatchNorm2d; on the CPU 1e-7 relative at world size 1,
+# 2.2e-5 on two ranks at batch 4, tests/test_torch_parallel.py's
+# STEP_STATS 1e-4). Each of DP_FAULTS, planted on the ranks, must fail
+# that rule, or it could not tell a fault from rounding. In bf16 (the
+# CLI's student) one ulp of the weights moves the gradients by 0.35-1.07
+# relative L2, so no spread there tells a fault from rounding: the bf16
+# gradients are printed, and only the loss and the running statistics
+# are held, by the same rule.
+DP_LOSS_RTOL, DP_STATS_FLOOR = 1e-5, 1e-4
+DP_FAULTS = ("gradient mean skipped", "BatchNorm over the rank's rows")
+CONVERGE_H, CONVERGE_W, CONVERGE_ORI = 64, 192, (96, 320)
+
+
+def _within_spread(dist, spread, loss,
+                   keys=("grads", "stats", "loss")) -> bool:
+    bound = {"grads": CLI_STEP_SPREAD * spread["grads"],
+             "stats": max(CLI_STEP_SPREAD * spread["stats"], DP_STATS_FLOOR),
+             "loss": max(CLI_STEP_SPREAD * spread["loss"],
+                         DP_LOSS_RTOL * abs(loss))}
+    return all(dist[k] <= bound[k] for k in keys)
+
+
+def _nudge_state(state, seed) -> None:
+    """Every weight and statistic of the state's modules one ulp away."""
+    for i, m in enumerate(state.modules().values()):
+        m.load_state_dict(_ulp_nudged(
+            {k: v.cpu() for k, v in m.state_dict().items()}, seed + i))
+
+
+class _GradMeanSkipped(Mesh):
+    """A mesh whose `all_mean` leaves its tensors as they are (a planted
+    fault: each rank keeps its own gradients and metrics)."""
+
+    def all_mean(self, tensors):
+        return list(tensors)
+
+
+def _dp_half(trainer, inputs, rows=slice(None), nudge=None, fault=None):
+    """The training half (`synth_batch` + `_update`) of a fresh state on
+    the inputs' texture, this rank's `rows`, every weight one ulp away
+    with `nudge` (a seed), one of DP_FAULTS planted with `fault`; returns
+    (state, metrics)."""
+    dev, mesh = trainer.device, trainer.mesh
+    try:
+        if fault == DP_FAULTS[1]:
+            trainer.mesh = None  # make_state keeps nn.BatchNorm2d
+        state = trainer.make_state()
+        trainer.mesh = mesh
+        if fault == DP_FAULTS[0]:
+            trainer.mesh = _GradMeanSkipped(mesh.rank, mesh.world_size,
+                                            mesh.device, mesh.group)
+        if nudge is not None:
+            _nudge_state(state, nudge)
+        frames = {k: v[rows].to(dev) for k, v in inputs["frames"].items()}
+        batch = trainer.synth_batch(frames, inputs["side"][rows].to(dev),
+                                    inputs["flip"][rows].to(dev),
+                                    inputs["texture"].to(dev),
+                                    inputs["draws"])
+        return trainer._update(state, batch, inputs["draws"].identity_noise)
+    finally:
+        trainer.mesh = mesh
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dp_rank(rank: int, device: str) -> None:
+    """One rank of 16a (run in a child process by `phase_parallel`): joins
+    the gloo group through DP_WORK's file store, then on its rows of the
+    inputs 16a wrote: the texture refresh and the bf16 training half on
+    the one process's texture (launches counted over both), one timed
+    `train_step`, the gradients' all-reduce timed alone; then the float32
+    training half, as it is and with each of DP_FAULTS planted; saves
+    DP_WORK/rank<rank>.pt."""
+    from depthmodelhardening_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device(device)
+    use_f32_numerics()
+    pmesh.initialize_distributed(
+        f"file://{DP_WORK}/store", world_size=DP_WORLD, rank=rank,
+        backend="gloo", timeout=datetime.timedelta(seconds=DP_GROUP_TIMEOUT))
+    try:
+        mesh = pmesh.make_mesh(dev, backend="gloo")
+        inp = torch.load(os.path.join(DP_WORK, "inputs.pt"),
+                         weights_only=False)
+        cfg = inp["cfg"]
+        trainer = _harden_trainer(dev, cfg, inp["cal"], inp["obj"],
+                                  inp["mask"], DP_SEED + 2, mesh)
+        rows = mesh.rows(cfg.batch_size)
+        scenes = inp["scenes"][mesh.rows(cfg.adv.attack_batch_size)].to(dev)
+        _sync(dev)
+        _build.reset_launches()
+        tex = trainer.refresh_texture(trainer.make_state(), scenes,
+                                      inp["draws"])
+        iterations = trainer.attack.last_iterations
+        state, metrics = _dp_half(trainer, inp, rows)
+        _sync(dev)
+        launches = {k.name: k.launches for k in _build.KERNELS}
+        outcome = _half_outcome(state, metrics)
+        frames = {k: v[rows].to(dev) for k, v in inp["frames"].items()}
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(trainer.make_state(), frames,
+                                      inp["side"][rows].to(dev),
+                                      inp["flip"][rows].to(dev), scenes,
+                                      inp["draws"])
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        grads = [p.grad for _, p in _named_params(state)
+                 if p.grad is not None]
+        reduce_ms = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            mesh.all_mean(grads)
+            _sync(dev)
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        grad_bytes = sum(g.numel() * 4 for g in grads)
+        del trainer, state, grads
+        trainer = _harden_trainer(dev, inp["cfg32"], inp["cal"], inp["obj"],
+                                  inp["mask"], DP_SEED + 2, mesh)
+        outcome32 = _on_host(_half_outcome(*_dp_half(trainer, inp, rows)))
+        faults32 = {fault: _on_host(_half_outcome(*_dp_half(
+            trainer, inp, rows, fault=fault))) for fault in DP_FAULTS}
+        torch.save({"texture": tex.cpu(), "iterations": iterations,
+                    "launches": launches, "secs": secs,
+                    "reduce_ms": reduce_ms, "grad_bytes": grad_bytes,
+                    "outcome": _on_host(outcome), "outcome32": outcome32,
+                    "faults32": faults32},
+                   os.path.join(DP_WORK, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_dp_ranks(dev, cal, obj, mask, spread15):
+    """16a: the CLI's step (`_cli_cfg`: bf16 student, float32 teacher,
+    L0 10 steps on attack batch 12, frames 0,s, 1024x320) at global batch
+    32 on two ranks of the one card over gloo, against the one process
+    on the same inputs and injected draws; the training half also with
+    the float32 student, as it is and with DP_FAULTS planted. Returns the
+    ranks' launches and what 16b compares with: the inputs, the one
+    process's float32 half and its spread."""
+    cfg = _cli_cfg(("0", "s"))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    B, A = cfg.batch_size, cfg.adv.attack_batch_size
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    os.makedirs(DP_WORK)
+    frames, side, flip, _ = _harden_inputs(torch.device("cpu"), cfg, DP_SEED)
+    scenes = torch.from_numpy(make_scene(A, cfg.adv.ori_h, cfg.adv.ori_w,
+                                         seed=DP_SEED + 1))
+    trainer = _harden_trainer(dev, cfg, cal, obj, mask, DP_SEED + 2)
+    draws = trainer.draw(B, torch.Generator().manual_seed(DP_SEED + 3))
+    draws.identity_noise = torch.randn(
+        trainer.identity_noise_shape(B),
+        generator=torch.Generator().manual_seed(DP_SEED + 4))
+    tex = trainer.refresh_texture(trainer.make_state(), scenes.to(dev), draws)
+    iterations = trainer.attack.last_iterations
+    inputs = dict(cfg=cfg, cfg32=cfg32, cal=cal, obj=obj, mask=mask,
+                  frames=frames, side=side, flip=flip, scenes=scenes,
+                  draws=draws, texture=tex.cpu())
+    torch.save(inputs, os.path.join(DP_WORK, "inputs.pt"))
+    logs = [open(os.path.join(DP_WORK, f"rank{r}.log"), "w")
+            for r in range(DP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.dp_rank({r}, {str(dev)!r})"],
+        cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(DP_WORLD)]
+    try:
+        # meanwhile the one process's training half in bf16 and float32,
+        # twice each (its spread) and once with every weight one ulp away
+        # (phase 11's rule)
+        solo = [_on_host(_half_outcome(*_dp_half(trainer, inputs, nudge=n)))
+                for n in (None, None, DP_SEED + 5)]
+        del trainer
+        trainer = _harden_trainer(dev, cfg32, cal, obj, mask, DP_SEED + 2)
+        solo32 = [_on_host(_half_outcome(*_dp_half(trainer, inputs,
+                                                     nudge=n)))
+                  for n in (None, None, DP_SEED + 5)]
+        del trainer
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=DP_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"phase 16a: rank {r} hung")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(DP_WORK, f"rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        if p.returncode != 0:
+            raise AssertionError(f"phase 16a: rank {r} failed "
+                                 f"({p.returncode}):\n{tail}")
+    ranks = [torch.load(os.path.join(DP_WORK, f"rank{r}.pt"),
+                        weights_only=False) for r in range(DP_WORLD)]
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    same_tex = torch.equal(ranks[0]["texture"], ranks[1]["texture"])
+    split = float((ranks[0]["texture"] != tex.cpu()).float().mean())
+    half_spread = _outcome_distance(solo[1], solo[0])
+    ulp = _outcome_distance(solo[2], solo[0])
+    spread = {k: max(half_spread[k], spread15[k], ulp[k])
+              for k in half_spread}
+    dists = [_outcome_distance(r["outcome"], solo[0]) for r in ranks]
+    two32 = _outcome_distance(solo32[1], solo32[0])
+    ulp32 = _outcome_distance(solo32[2], solo32[0])
+    spread32 = {k: max(two32[k], ulp32[k]) for k in two32}
+    dists32 = [_outcome_distance(r["outcome32"], solo32[0]) for r in ranks]
+    faults32 = [{fault: _outcome_distance(r["faults32"][fault], solo32[0])
+                 for fault in DP_FAULTS} for r in ranks]
+    log(f"dp 16a: two ranks on one card over gloo, {_family_name(cfg)}, "
+        f"bf16 student, float32 teacher, global batch {B} ({B // 2} frames "
+        f"and {A // 2} attack scenes a rank), L0 steps {cfg.adv.steps}: "
+        f"textures equal across ranks {same_tex}; L0 iterations ranks "
+        f"{[r['iterations'] for r in ranks]}, one process {iterations}; "
+        f"texels where the ranks' texture differs from the one process's "
+        f"{split:.4%} (a reading: L0 trajectories part under Adam)")
+    log(f"  the bf16 training half on the one process's texture (gradients "
+        f"a reading; loss and statistics held): ranks vs one process "
+        f"{json.dumps(dists)}, one process vs itself "
+        f"{json.dumps(half_spread)}, vs itself with every weight one ulp "
+        f"away {json.dumps(ulp)}, phase 15's direct spread "
+        f"{json.dumps(spread15)}")
+    log(f"  the float32 training half on that texture (held): ranks vs one "
+        f"process {json.dumps(dists32)}, one process vs itself "
+        f"{json.dumps(two32)}, vs itself with every weight one ulp away "
+        f"{json.dumps(ulp32)}; the bound {CLI_STEP_SPREAD} x the larger; "
+        f"planted faults (each must fail it) {json.dumps(faults32)}")
+    for r, res in enumerate(ranks):
+        log(f"  rank {r}: {res['secs']:.4f} s for one train_step (host "
+            f"clock, synchronised, two ranks sharing the card: no scaling "
+            f"is claimed); the gradients' all-reduce "
+            f"({res['grad_bytes']} B over gloo) "
+            f"{json.dumps([round(m, 3) for m in res['reduce_ms']])} ms; "
+            f"launches {json.dumps({k: v for k, v in res['launches'].items() if v})}")
+    bad = [f"rank {r} launches" for r, res in enumerate(ranks)
+           if res["launches"] != {**{k.name: 0 for k in _build.KERNELS},
+                                  **harden_launches(res["iterations"],
+                                                    bf16=True)}]
+    if not same_tex:
+        bad.append("textures differ across ranks")
+    if any(r["iterations"] != iterations for r in ranks):
+        bad.append("L0 iterations")
+    bad += [f"rank {r}'s bf16 loss or statistics"
+            for r, d in enumerate(dists)
+            if not _within_spread(d, spread, solo[0]["loss"],
+                                  keys=("stats", "loss"))]
+    bad += [f"rank {r}'s float32 training half"
+            for r, d in enumerate(dists32)
+            if not _within_spread(d, spread32, solo32[0]["loss"])]
+    bad += [f"rank {r}: the planted fault '{fault}' passes the float32 rule"
+            for r, by_fault in enumerate(faults32)
+            for fault, d in by_fault.items()
+            if _within_spread(d, spread32, solo32[0]["loss"])]
+    if bad:
+        raise AssertionError(f"phase 16a failed: {bad}")
+    launches = {k.name: sum(r["launches"][k.name] for r in ranks)
+                for k in _build.KERNELS}
+    return launches, {"inputs": inputs, "solo32": solo32[0],
+                      "spread32": spread32}
+
+
+def phase_dp_cli(runs, f, dev, dp) -> None:
+    """16b: train-hardening --fine-tune --data-parallel at its defaults on
+    phase 15's tree (NCCL, world size 1), 2 steps: each step's launches,
+    its first step against phase 15's CLI step (bf16: the gradients a
+    reading, the loss and statistics held by phase 15's rule with
+    DP_STATS_FLOOR and DP_LOSS_RTOL), rank 0's checkpoint and opt.json;
+    s/step beside phase 15's; the gradients' all-reduce timed alone; over
+    the same group, 16a's float32 training half (`dp`: its inputs, the
+    one process's half and spread) held by 16a's float32 rule."""
+    (ulp,) = _direct_steps(f.first, dev, n=1, nudge=DP_SEED + 6)
+    ulp = _outcome_distance(ulp, f.first["outcome"])
+    spread = {k: max(f.spread[k], ulp[k]) for k in ulp}
+    log_dir = os.path.join(f.root, "hardening_dp")
+    argv = ["train-hardening", "--data-path", f.raw, "--split-dir",
+            f.splits, "--object-data-root", f.obj, "--object-image", f.car,
+            "--weights-folder", f.weights, "--fine-tune", "--epochs", "1",
+            "--log-frequency", "1", "--log-dir", log_dir, "--data-parallel"]
+    records, waits = [], []
+    undo = _step_recorder(records, waits, None)
+    try:
+        state = runs("train-hardening --data-parallel", argv)[0]
+        mesh = Mesh(torch.distributed.get_rank(),
+                    torch.distributed.get_world_size(), dev)
+        backend = torch.distributed.get_backend()
+        grads = [p.grad for _, p in _named_params(state)
+                 if p.grad is not None]
+        reduce_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh.all_mean(grads)
+            torch.cuda.synchronize()
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        grad_bytes = sum(g.numel() * 4 for g in grads)
+        del state, grads
+        inp = dp["inputs"]
+        trainer = _harden_trainer(dev, inp["cfg32"], inp["cal"], inp["obj"],
+                                  inp["mask"], DP_SEED + 2, mesh)
+        one32 = _on_host(_half_outcome(*_dp_half(trainer, inp)))
+        del trainer
+        phase_dp_batchnorm(mesh)
+    finally:
+        undo()
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    dist = _outcome_distance(records[0]["outcome"], f.first["outcome"])
+    log(f"  train-hardening --data-parallel ({backend}, world size "
+        f"{mesh.world_size}): seconds a step {json.dumps([r['secs'] for r in records])} "
+        f"(phase 15's unprofiled steps {json.dumps(f.secs)}); L0 iterations "
+        f"{[r['iterations'] for r in records]}; the first step against "
+        f"phase 15's {json.dumps(dist)} (phase 15's direct spread "
+        f"{json.dumps(f.spread)}; a direct step with every weight one ulp "
+        f"away against it {json.dumps(ulp)}); the gradients' all-reduce alone "
+        f"({grad_bytes} B) "
+        f"{json.dumps([round(m, 3) for m in reduce_ms])} ms")
+    dist32 = _outcome_distance(one32, dp["solo32"])
+    log(f"  the float32 training half over this group against 16a's one "
+        f"process {json.dumps(dist32)} (16a's spread "
+        f"{json.dumps(dp['spread32'])}, the bound {CLI_STEP_SPREAD} x it)")
+    for i, r in enumerate(records):
+        _expect_launches(f"train-hardening --data-parallel step {i}",
+                         r["launches"], harden_launches(r["iterations"],
+                                                        bf16=True))
+    for path in ("ckpts/2/state.pt", "opt.json"):
+        if not os.path.isfile(os.path.join(log_dir, path)):
+            raise AssertionError(f"cli --data-parallel: no {path}")
+    if len(records) != 2 or not _within_spread(
+            dist, spread, f.first["outcome"]["loss"], keys=("stats", "loss")):
+        raise AssertionError("cli --data-parallel: the first step is not "
+                             "phase 15's")
+    if not _within_spread(dist32, dp["spread32"], dp["solo32"]["loss"]):
+        raise AssertionError("cli --data-parallel: the float32 training "
+                             "half at world size 1 is not one process's")
+
+
+DP_BN_SHAPE = (16, 64, 160, 512)  # the stem's BatchNorm at batch 16
+
+
+def _exact_batchnorm(x, ct, w, b, eps=1e-5):
+    """Train-mode BatchNorm of x and the gradients of sum(y * ct) in
+    float64: y, dx, dw, db, the batch mean and unbiased variance."""
+    x, ct = x.double(), ct.double()
+    w, b = w.double().view(1, -1, 1, 1), b.double().view(1, -1, 1, 1)
+    dims = (0, 2, 3)
+    n = x.numel() // x.shape[1]
+    mean = x.mean(dims, keepdim=True)
+    var = ((x - mean) ** 2).mean(dims, keepdim=True)
+    xhat = (x - mean) / torch.sqrt(var + eps)
+    dxhat = ct * w
+    dx = (dxhat - dxhat.mean(dims, keepdim=True) - xhat * (
+        dxhat * xhat).mean(dims, keepdim=True)) / torch.sqrt(var + eps)
+    return {"y": xhat * w + b, "dx": dx, "dw": (ct * xhat).sum(dims),
+            "db": ct.sum(dims), "mean": mean.flatten(),
+            "var": var.flatten() * n / (n - 1)}
+
+
+def phase_dp_batchnorm(mesh) -> None:
+    """The global BatchNorm (world size 1 on the card) and nn.BatchNorm2d
+    against the exact BatchNorm (`_exact_batchnorm`, float64 on the same
+    inputs) at DP_BN_SHAPE, float32 and bf16: the output and the input
+    gradient of sum(y * ct) within one rounding of the exact value in
+    bf16 (each element, plus 1e-6 of the largest magnitude: float32
+    cancels in dx) and 1e-6 relative L2 in float32; the weight and
+    bias gradients and the running statistics within 1e-5 relative L2
+    (float32 sums of 2.6M terms). nn.BatchNorm2d's readings are logged
+    beside, not held."""
+    from depthmodelhardening_tpu_torch.parallel.batchnorm import (
+        global_batchnorm,
+    )
+
+    gen = torch.Generator().manual_seed(DP_SEED + 7)
+    C = DP_BN_SHAPE[1]
+    x0 = torch.randn(DP_BN_SHAPE, generator=gen) * 2.0 + 0.5
+    ct0 = torch.randn(DP_BN_SHAPE, generator=gen)
+    w, b = torch.rand(C, generator=gen) + 0.5, torch.randn(C, generator=gen)
+    bad = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x, ct = x0.to(mesh.device, dtype), ct0.to(mesh.device, dtype)
+        exact = _exact_batchnorm(x, ct, w.to(mesh.device), b.to(mesh.device))
+        rel_of = {}
+        for label, convert in (("nn.BatchNorm2d", False),
+                               ("global BatchNorm", True)):
+            bn = torch.nn.BatchNorm2d(C, momentum=None).to(mesh.device)
+            with torch.no_grad():
+                bn.weight.copy_(w)
+                bn.bias.copy_(b)
+            if convert:
+                bn = global_batchnorm(bn, mesh)
+            xr = x.clone().requires_grad_(True)
+            y = bn(xr)
+            (y.float() * ct.float()).sum().backward()
+            got = {"y": y.detach(), "dx": xr.grad, "dw": bn.weight.grad,
+                   "db": bn.bias.grad, "mean": bn.running_mean,
+                   "var": bn.running_var}
+            rel = {k: float((got[k].double() - exact[k]).norm()
+                            / exact[k].norm()) for k in exact}
+            beyond = {k: float(((got[k].double() - exact[k]).abs()
+                                > torch.finfo(dtype).eps * exact[k].abs()
+                                + 1e-6 * exact[k].abs().max()).float()
+                                .mean()) for k in ("y", "dx")}
+            log(f"  {label} (world size 1) at {DP_BN_SHAPE} in "
+                f"{str(dtype)[6:]} against the exact BatchNorm in float64: "
+                f"relative L2 {json.dumps(rel)}; share of elements beyond "
+                f"one rounding {json.dumps(beyond)}")
+            rel_of[label] = (rel, beyond)
+        rel, beyond = rel_of["global BatchNorm"]
+        for k, v in rel.items():
+            if k in ("y", "dx"):
+                if dtype == torch.bfloat16 and beyond[k] > 0:
+                    bad.append(f"{k} in bf16")
+                elif dtype == torch.float32 and not v <= 1e-6:
+                    bad.append(f"{k} in float32")
+            elif not v <= 1e-5:
+                bad.append(f"{k} in {str(dtype)[6:]}")
+    if bad:
+        raise AssertionError(f"the global BatchNorm is not the exact "
+                             f"BatchNorm to rounding on the card: {bad}")
+
+
+def _direct_steps(first, dev, n=2, nudge=None):
+    """`n` direct `train_step`s of trainers built as phase 15's first step
+    was, on its inputs (every weight one ulp away with `nudge`, a seed);
+    their outcomes."""
+    t = first["trainer"]
+    frames, side, flip, scenes = first["inputs"]
+    out = []
+    for _ in range(n):
+        tr = HardeningTrainer(
+            t.cfg, torch.Generator().manual_seed(17), t.obj_img, t.obj_mask,
+            t.teacher, device=dev,
+            steps_per_epoch=t.transition_steps // t.cfg.scheduler_step_size,
+            init_state_dict=t._init_state_dict)
+        state = tr.make_state()
+        if nudge is not None:
+            _nudge_state(state, nudge)
+        state, m = tr.train_step(state, frames, side, flip, scenes)
+        out.append(_step_outcome(tr, state, m))
+        del tr, state
+    return out
+
+
+def _attack_effect(trainer, state, eval_scene, batch_size) -> float:
+    """tests/test_convergence.py's `_attack_effect`: mean |depth(adv) -
+    depth(ben)| inside the object mask for the in-training student, the
+    eval-pinned sample (my_utils.py:31-41)."""
+    from depthmodelhardening_tpu_torch.ops.metrics import get_mean_depth_diff
+
+    atk = trainer.attack_student(state)
+    adv, ben, masks, _ = atk(eval_scene, batch_size,
+                             torch.Generator().manual_seed(7),
+                             eval_mode=True)
+    with torch.no_grad():
+        view = trainer.student_view
+        return float(get_mean_depth_diff(view(adv), view(ben), masks,
+                                         use_abs=True))
+
+
+def phase_converge_long(dev) -> None:
+    """16c: tests/test_convergence.py on the card with the port, at its
+    shapes (64x192, ori 96x320, the 36x24 car), seeds and assertions: 40
+    distillation steps lower the mean loss of the last 10 below the first
+    10 and the attack effect; 50 hardening steps on
+    `make_stereo_pair(4, 96, 320, shift=10, seed=5)` lower the
+    self-supervised and supervised losses, and the attack effect grows by
+    less than 10%. The teachers are `init_monodepth2` of generators seeded
+    as JAX's keys were (flax's initialisation; ROADMAP Queue 3)."""
+    from depthmodelhardening_tpu_torch.data.synthetic import make_stereo_pair
+
+    H, W, (OH, OW) = CONVERGE_H, CONVERGE_W, CONVERGE_ORI
+    obj, mask = make_car_object(36, 24, seed=0)
+    tens = lambda a: torch.from_numpy(a).to(dev)
+    eval_scene = tens(make_scene(1, OH, OW, seed=99))
+    teacher = init_monodepth2(torch.Generator().manual_seed(0))
+    cfg = DistillConfig(adv_type="object", epsilon=0.1, alpha=0.01, steps=3,
+                        batch_size=4, scene_h=H, scene_w=W, ori_h=OH,
+                        ori_w=OW, learning_rate=1e-3,
+                        compute_dtype="float32")
+    trainer = DistillTrainer(cfg, torch.Generator().manual_seed(1), obj,
+                             mask, predictor_from(teacher.to(dev)),
+                             device=dev,
+                             init_state_dict=teacher.state_dict())
+    state = trainer.make_state()
+    before = _attack_effect(trainer, state, eval_scene, cfg.batch_size)
+    scenes = tens(make_scene(2, OH, OW, seed=3))
+    losses = []
+    for step in range(40):
+        state, m = trainer.train_step(
+            state, scenes[step % 2:step % 2 + 1],
+            torch.Generator().manual_seed(100 + step))
+        losses.append(float(m["loss"]))
+    after = _attack_effect(trainer, state, eval_scene, cfg.batch_size)
+    mean = lambda v: float(np.mean(v))
+    log(f"converge 16c distill: 40 steps, loss mean of the first 10 "
+        f"{mean(losses[:10]):.6e}, of the last 10 {mean(losses[-10:]):.6e}; "
+        f"attack effect before {before:.6e}, after {after:.6e}")
+    ok = {"distill losses finite": bool(np.isfinite(losses).all()),
+          "distill loss falls": mean(losses[-10:]) < mean(losses[:10]),
+          "distill attack effect falls": after < before}
+    teacher = init_monodepth2(torch.Generator().manual_seed(2))
+    cfg = HardeningConfig(
+        selfsup=SelfSupConfig(height=H, width=W, frame_ids=("0", "s")),
+        adv=AdvSynthConfig(norm_type="l_inf", steps=2, attack_batch_size=4,
+                           epsilon=0.1, alpha=0.02, ori_h=OH, ori_w=OW),
+        batch_size=4, learning_rate=3e-4, compute_dtype="float32")
+    trainer = HardeningTrainer(cfg, torch.Generator().manual_seed(3), obj,
+                               mask, predictor_from(teacher.to(dev)),
+                               device=dev, steps_per_epoch=1000,
+                               init_state_dict=teacher.state_dict())
+    state = trainer.make_state()
+    left, right = make_stereo_pair(4, OH, OW, shift=10, seed=5)
+    frames = {"0": tens(left), "s": tens(right)}
+    side = torch.ones(4, dtype=torch.bool, device=dev)
+    flip = torch.zeros(4, dtype=torch.bool, device=dev)
+    scenes = tens(make_scene(4, OH, OW, seed=6))
+    before = _attack_effect(trainer, state, eval_scene,
+                            cfg.adv.attack_batch_size)
+    selfsup, sup = [], []
+    for step in range(50):
+        state, m = trainer.train_step(
+            state, frames, side, flip, scenes, trainer.draw(
+                4, torch.Generator().manual_seed(1000 + step)))
+        selfsup.append(float(m["selfsup_loss"]))
+        sup.append(float(m["sup_loss"]))
+    after = _attack_effect(trainer, state, eval_scene,
+                           cfg.adv.attack_batch_size)
+    log(f"converge 16c harden: 50 steps, self-supervised loss mean of the "
+        f"first 10 {mean(selfsup[:10]):.6e}, of the last 10 "
+        f"{mean(selfsup[-10:]):.6e}; supervised {mean(sup[:10]):.6e} -> "
+        f"{mean(sup[-10:]):.6e}; attack effect before {before:.6e}, after "
+        f"{after:.6e} (x{after / before:.4f})")
+    ok.update({"harden losses finite": bool(np.isfinite(selfsup + sup).all()),
+               "self-supervised loss falls":
+                   mean(selfsup[-10:]) < mean(selfsup[:10]),
+               "supervised loss falls": mean(sup[-10:]) < mean(sup[:10]),
+               "attack effect grows < 10%": after < before * 1.1})
+    bad = [k for k, v in ok.items() if not v]
+    if bad:
+        raise AssertionError(f"phase 16c failed: {bad}")
+
+
+def phase_zoo_loader(dev) -> None:
+    """16d: `models/zoo.load_pretrained` from a zip written here (the
+    golden weights in the release layout, its md5 put in the table for the
+    call, urllib's fetch made to raise) onto the card, against the same
+    load on the CPU: disp0 on 2 scenes at 640x192 within EVAL_DISP_ATOL
+    (phase 14d's rule)."""
+    import urllib.request
+    import zipfile
+
+    from depthmodelhardening_tpu_torch.models import zoo
+
+    _, sd = _golden_weights()
+    name = "mono+stereo_640x192"
+    fetch, entry = urllib.request.urlretrieve, zoo.DOWNLOAD_PATHS[name]
+
+    def refuse(url, path):
+        raise AssertionError(f"phase 16d tried to fetch {url}")
+
+    with tempfile.TemporaryDirectory(prefix="dmh_zoo_") as root:
+        folder = checkpoints.export_reference_pth(root, 0, sd, height=192,
+                                                  width=640)
+        models = os.path.join(root, "models")
+        os.makedirs(models)
+        path = os.path.join(models, f"{name}.zip")
+        with zipfile.ZipFile(path, "w") as z:
+            for n in ("encoder.pth", "depth.pth"):
+                z.write(os.path.join(folder, n), n)
+        zoo.DOWNLOAD_PATHS[name] = (entry[0], zoo._md5(path))
+        urllib.request.urlretrieve = refuse
+        try:
+            model, meta = zoo.load_pretrained(name, models, device=dev)
+            cpu_model, _ = zoo.load_pretrained(name, models, device="cpu")
+        finally:
+            urllib.request.urlretrieve = fetch
+            zoo.DOWNLOAD_PATHS[name] = entry
+    x = bilinear_resize(torch.from_numpy(make_scene(2, 375, 1242,
+                                                    seed=SEED + 310)),
+                        192, 640)
+    with torch.no_grad():
+        got = predictor_from(model)(x.to(dev)).cpu()
+        want = predictor_from(cpu_model)(x)
+    err = float((got - want).abs().max())
+    log(f"zoo 16d: load_pretrained({name!r}) from a local zip onto "
+        f"{next(model.parameters()).device} (metadata {json.dumps(meta)}): "
+        f"disp0 at 640x192 on 2 scenes, card vs CPU max |difference| "
+        f"{err:.3e} (max {EVAL_DISP_ATOL})")
+    if not err <= EVAL_DISP_ATOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError("phase 16d: the zoo's model on the card is "
+                             "not the CPU's")
+
+
+def phase_parallel(dev, f) -> dict:
+    """Phase 16; returns the launches of 16a's ranks and 16b's CLI run."""
+    _, sd = _golden_weights()
+    cal = calibrated_teacher(dev, sd)
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    t0 = time.perf_counter()
+    launches, dp = phase_dp_ranks(dev, cal, obj, mask, f.spread)
+    log(f"[phase 16a: {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = _CliRuns()
+    phase_dp_cli(runs, f, dev, dp)
+    for k, v in runs.total.items():
+        launches[k] += v
+    log(f"[phase 16b: {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_converge_long(dev)
+    log(f"[phase 16c: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    phase_zoo_loader(dev)
+    log(f"[phase 16d: {time.perf_counter() - t0:.1f} s]")
+    return launches
+
+
 def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -4125,12 +4810,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     families = timed("phase 14", phase_families, dev)
     torch.cuda.empty_cache()
-    commands = timed("phase 15", phase_cli_commands, dev)
+    with tempfile.TemporaryDirectory(prefix="dmh_cli_") as root:
+        commands, files = timed("phase 15", phase_cli_commands, dev, root)
+        torch.cuda.empty_cache()
+        data_parallel = timed("phase 16", phase_parallel, dev, files)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
                          + distill_launches[name] + bench_launches[name]
                          + harden[name] + cli[name] + zoo[name]
-                         + families[name] + commands[name])
+                         + families[name] + commands[name]
+                         + data_parallel[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "host_ms",

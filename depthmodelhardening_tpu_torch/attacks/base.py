@@ -153,6 +153,10 @@ class PhysObjAttack:
         # images -> ("disp", cfg.attack_scale) NHWC; the trainer assigns
         # it when cfg.attack_scale > 0 (JAX `predict_scale_fn`)
         self.predict_scale = None
+        # averages the texture's gradients over the ranks of a data-
+        # parallel mesh (`Mesh.all_mean`: a list in, the list out); the
+        # trainers set it, None elsewhere
+        self.grad_mean = None
         dev = predictor.device
         self.obj_img = torch.as_tensor(obj_img, dtype=torch.float32,
                                        device=dev)
@@ -373,12 +377,15 @@ class PhysObjAttack:
                            scenes_model=None, fine: bool = False,
                            geometry=None):
         """(cost, d cost / d obj) of one EoT draw; `fine` and `geometry`
-        as `_objective`'s."""
+        as `_objective`'s. Under a mesh the gradient is the ranks' mean
+        (`grad_mean`), the cost this rank's."""
         with torch.enable_grad():
             obj = obj.detach().requires_grad_(True)
             cost = self._objective(scenes_full, obj, z0s, alphas,
                                    scenes_model, fine, geometry=geometry)
             (g,) = torch.autograd.grad(cost, obj)
+        if self.grad_mean is not None:
+            (g,) = self.grad_mean([g])
         return cost.detach(), g
 
     @torch.no_grad()

@@ -56,6 +56,13 @@ class L0Draws:
     final_alphas: torch.Tensor
     jitter: Optional[Tuple[Sequence[int], Sequence[float]]] = None
 
+    def rows(self, sl: slice) -> "L0Draws":
+        """The draws of the samples `sl` of the batch (the patterns are
+        shared)."""
+        return dataclasses.replace(
+            self, z0s=self.z0s[:, sl], alphas=self.alphas[:, sl],
+            final_z0s=self.final_z0s[sl], final_alphas=self.final_alphas[sl])
+
 
 def _clip01(x):
     """jnp.clip(x, 0, 1) with JAX's gradient: half at a bound (autodiff of
@@ -141,7 +148,9 @@ class L0ObjectAttack(PhysObjAttack):
                        scenes_model=None):
         """One iteration's total cost (the targeted MSE of the texture
         clip(obj + clip(pos) - clip(neg)) plus mask_weight times the mask
-        cost) and its gradients with respect to (pos, neg)."""
+        cost) and its gradients with respect to (pos, neg); under a mesh
+        the gradients are the ranks' mean (`grad_mean`), the cost this
+        rank's."""
         with torch.enable_grad():
             pos = pos_t.detach().requires_grad_(True)
             neg = neg_t.detach().requires_grad_(True)
@@ -149,7 +158,10 @@ class L0ObjectAttack(PhysObjAttack):
             cost = self._objective(scenes_full, obj_adv, z0s, alphas,
                                    scenes_model, transform=transform)
             cost = cost + mask_weight * self._mask_cost(pos, neg)
-            return cost.detach(), torch.autograd.grad(cost, (pos, neg))
+            grads = torch.autograd.grad(cost, (pos, neg))
+        if self.grad_mean is not None:
+            grads = tuple(self.grad_mean(grads))
+        return cost.detach(), grads
 
     def _optimize(self, scenes_full, draws: L0Draws):
         dev = self.obj_img.device

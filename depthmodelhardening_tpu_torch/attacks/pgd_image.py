@@ -32,6 +32,9 @@ class ImageDraws:
 
     noise: torch.Tensor
 
+    def rows(self, sl: slice) -> "ImageDraws":
+        return ImageDraws(self.noise[sl])
+
 
 class PGDImageAttack:
     """attack(scenes (B, ori_h, ori_w, 3), generator | draws=) -> (adv,

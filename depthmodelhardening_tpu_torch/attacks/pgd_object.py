@@ -37,6 +37,13 @@ class PGDDraws:
     final_z0s: torch.Tensor
     final_alphas: torch.Tensor
 
+    def rows(self, sl: slice) -> "PGDDraws":
+        """The draws of the samples `sl` of the batch (the random start is
+        shared)."""
+        return dataclasses.replace(
+            self, z0s=self.z0s[:, sl], alphas=self.alphas[:, sl],
+            final_z0s=self.final_z0s[sl], final_alphas=self.final_alphas[sl])
+
 
 class PGDObjectAttack(PhysObjAttack):
     def __init__(self, predictor, obj_img, obj_mask,

@@ -30,8 +30,16 @@ Where the port differs from the JAX CLI, each a standing difference
   step (`PRNGKey(seed * 100003 + step)`);
 * without --weights-folder the model is `init_monodepth2(
   torch.Generator().manual_seed(0))`: flax's initialisation, not JAX's
-  PRNGKey(0) weights;
-* `--data-parallel` raises NotImplementedError (ROADMAP Queue 1 item 8).
+  PRNGKey(0) weights.
+
+`train-hardening --data-parallel` trains over torch.distributed, one
+process a device: launched by torchrun (`torchrun --nproc-per-node N -m
+depthmodelhardening_tpu_torch.cli train-hardening --data-parallel ...`:
+cuda:LOCAL_RANK, NCCL), or alone as a world of one. --batch-size and
+--attack-batch-size are the global batches, as in the JAX CLI, and must
+divide by the world size. Rank 0 alone writes opt.json and the
+checkpoints, logs and runs the robustness val, while the other ranks
+wait at a barrier; every rank resumes from the same checkpoint.
 
 `infer` reads and resizes its image with PIL; `precompute-hints` needs
 cv2 and PIL (`data/depth_hints.py` raises ImportError naming them);
@@ -49,9 +57,6 @@ import sys
 
 import numpy as np
 import torch
-
-DDP_ITEM = "ROADMAP Queue 1 item 8 (DDP)"
-
 
 def _device(device) -> torch.device:
     from ..device import resolve_device, use_f32_numerics
@@ -308,6 +313,7 @@ def cmd_train_hardening(args, device):
     from ..data.kitti_raw import KittiRawDataset, collate, load_split
     from ..data.loader import PrefetchLoader
     from ..data.object_images import process_car_img
+    from ..parallel.mesh import make_mesh, shard_batch
     from ..training.checkpoints import (
         latest_step, restore_state, save_options, save_state,
     )
@@ -317,9 +323,10 @@ def cmd_train_hardening(args, device):
     from ..training.hardening import HardeningTrainer
     from ..utils.logging import MetricsLogger
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            f"--data-parallel: data parallelism waits for {DDP_ITEM}")
+    mesh = make_mesh(device) if args.data_parallel else None
+    # rank 0 writes, logs and validates; the others wait at a barrier
+    lead = mesh is None or mesh.rank == 0
+    barrier = (lambda: None) if mesh is None else mesh.barrier
     model, predictor = _load_predictor(args, device)
     # the frozen distillation teacher is the pretrained model; a
     # separate folder may override it (trainer.py:93-95 gt_model)
@@ -370,13 +377,13 @@ def cmd_train_hardening(args, device):
     ds = KittiRawDataset(args.data_path, lines, frame_ids=frame_ids,
                          ori_h=args.ori_h, ori_w=args.ori_w)
     loader = PrefetchLoader(ds, cfg.batch_size, collate, seed=args.seed,
-                            device=device)
+                            device=device, mesh=mesh)
     steps_per_epoch = max(len(loader), 1)
 
     trainer = HardeningTrainer(
         cfg, torch.Generator().manual_seed(args.seed), obj, car_mask,
         teacher=teacher if cfg.supervised_adv else None, device=device,
-        steps_per_epoch=steps_per_epoch, init_state_dict=init_sd)
+        steps_per_epoch=steps_per_epoch, init_state_dict=init_sd, mesh=mesh)
     state = trainer.make_state()
     # resume from the latest checkpoint when present (the reference
     # resumes via --load_weights_folder, trainer.py:787-812), the
@@ -385,9 +392,12 @@ def cmd_train_hardening(args, device):
     resume = latest_step(ckpt_dir)
     if resume is not None:
         state = restore_state(ckpt_dir, state, trainer=trainer)
-        print(f"resumed from step {int(state.step)} "
-              f"(checkpoint {resume})")
-    save_options(args.log_dir, cfg)
+        if lead:
+            print(f"resumed from step {int(state.step)} "
+                  f"(checkpoint {resume})")
+    if lead:
+        save_options(args.log_dir, cfg)
+    barrier()
     # continue the global step count so checkpoint numbering advances
     # instead of replaying from 0
     step = int(state.step)
@@ -406,10 +416,8 @@ def cmd_train_hardening(args, device):
         # optimization per batch), so default it 10x sparser than
         # scalar logging
         val_frequency = 10 * args.log_frequency if adv_train else 0
-    val_scene_set = None
+    val_scene_set = val_eval_cfg = None
     if val_frequency:
-        from ..evaluation.attack_eval import iter_eval_scenes
-
         val_scene_set = KittiObjectScenes(
             args.object_data_root, mode="val",
             size=(cfg.adv.ori_w, cfg.adv.ori_h),
@@ -417,7 +425,7 @@ def cmd_train_hardening(args, device):
         val_eval_cfg = trainer.default_eval_cfg(
             eval_count=args.val_eval_count)
 
-    logger = MetricsLogger(args.log_dir)
+    logger = MetricsLogger(args.log_dir) if lead else None
     try:
         for epoch in range(args.epochs):
             for batch in loader:
@@ -428,6 +436,8 @@ def cmd_train_hardening(args, device):
                         scene_iter = iter(scene_set.batches(
                             cfg.adv.attack_batch_size, seed=epoch))
                         scenes, _ = next(scene_iter)
+                    if mesh is not None:
+                        scenes = shard_batch(scenes, mesh)
                     state, metrics = trainer.train_step(
                         state, batch["frames"], batch["side_is_l"],
                         batch["do_flip"], scenes)
@@ -435,7 +445,7 @@ def cmd_train_hardening(args, device):
                     state, metrics = trainer.selfsup_frames_step(
                         state, batch["frames"], batch["side_is_l"],
                         batch["do_flip"])
-                if step % args.log_frequency == 0:
+                if lead and step % args.log_frequency == 0:
                     scalars = {k: float(v)
                                for k, v in metrics.items()}
                     logger.log(step, scalars)
@@ -443,26 +453,33 @@ def cmd_train_hardening(args, device):
                         f"{k}={v:.5f}" for k, v in scalars.items()))
                 if val_frequency and adv_train and \
                         step % val_frequency == 0:
-                    # robustness of the in-training student: attack it
-                    # on held-out scenes and log the masked depth-error
-                    # suite (trainer.py:435-470 val())
-                    res = trainer.evaluate_attacks(
-                        state,
-                        iter_eval_scenes(val_scene_set, val_eval_cfg),
-                        eval_cfg=val_eval_cfg,
-                        generator=torch.Generator().manual_seed(17))
-                    flat = {f"val/{agg}_{name}": v
-                            for agg, row in res.items()
-                            for name, v in row.items()}
-                    logger.log(step, flat)
-                    print(f"  val step {step} "
-                          f"atk_abs_err={res['mean']['abs_err']:.4f} "
-                          f"atk_rmse={res['mean']['rmse']:.4f}")
+                    if lead:
+                        _val(trainer, state, val_scene_set, val_eval_cfg,
+                             logger, step)
+                    barrier()
                 step += 1
-            save_state(ckpt_dir, step, state, trainer=trainer)
+            if lead:
+                save_state(ckpt_dir, step, state, trainer=trainer)
+            barrier()
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
+
+
+def _val(trainer, state, val_scene_set, val_eval_cfg, logger, step) -> None:
+    """The robustness of the in-training student: attack it on held-out
+    scenes and log the masked depth-error suite (trainer.py:435-470
+    val())."""
+    from ..evaluation.attack_eval import iter_eval_scenes
+
+    res = trainer.evaluate_attacks(
+        state, iter_eval_scenes(val_scene_set, val_eval_cfg),
+        eval_cfg=val_eval_cfg, generator=torch.Generator().manual_seed(17))
+    logger.log(step, {f"val/{agg}_{name}": v for agg, row in res.items()
+                      for name, v in row.items()})
+    print(f"  val step {step} atk_abs_err={res['mean']['abs_err']:.4f} "
+          f"atk_rmse={res['mean']['rmse']:.4f}")
 
 
 def cmd_precompute_hints(args, device):
@@ -653,7 +670,9 @@ def build_parser():
                          "reference's zero lookups (beyond-reference; "
                          "needs monocular --frame-ids, e.g. -1,0,1,s)")
     ph.add_argument("--data-parallel", action="store_true",
-                    help=f"not ported: raises ({DDP_ITEM})")
+                    help="train over torch.distributed, one process a "
+                         "device (torchrun's; alone: a world of one); "
+                         "--batch-size is the global batch")
     ph.add_argument("--log-dir", default="./logs/hardening")
     ph.add_argument("--log-frequency", type=int, default=25)
     ph.add_argument("--compute-dtype", default="bfloat16")
@@ -697,6 +716,10 @@ def main(argv=None, device=None):
     runs (default the current CUDA card; raises without one)."""
     args = build_parser().parse_args(argv)
     if args.on_device:
+        if device is None and getattr(args, "data_parallel", False):
+            from ..parallel.mesh import local_device
+
+            device = local_device()  # this process's card under torchrun
         return args.fn(args, _device(device))
     return args.fn(args)
 

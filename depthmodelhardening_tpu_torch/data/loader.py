@@ -13,8 +13,11 @@ memory (on a CUDA device), and the consuming thread copies it to the
 device with `non_blocking=True`, so the copy is queued on the step's
 stream behind the work already there. Numpy arrays become tensors of
 the same dtype (bool stays bool); the nesting of the batch is kept.
-The JAX loader's `mesh=` (a batch sharded over devices) waits for the
-port's data parallelism.
+
+With `mesh=` (JAX loader.py:35, 57-62: each global batch sharded over the
+mesh's devices) the batch size is the global batch's: every rank walks
+the same global batches with the same item seeds, and decodes and yields
+only its own rows of each.
 """
 
 from __future__ import annotations
@@ -51,8 +54,10 @@ class PrefetchLoader:
       (defaults to get_item / __getitem__).
     collate: items -> batch (a dict, possibly nested) of numpy arrays.
     device: where the batches land; default the current CUDA card
-      (`device.resolve_device`, which raises without one). Tests pass
-      "cpu".
+      (`device.resolve_device`, which raises without one), or the mesh's.
+      Tests pass "cpu".
+    mesh: a data-parallel `parallel.mesh.Mesh`: each batch is this rank's
+      batch_size / world_size rows of the global batch.
     """
 
     def __init__(self, dataset, batch_size: int, collate: Callable,
@@ -61,9 +66,9 @@ class PrefetchLoader:
                  prefetch: int = 2, mesh=None,
                  item_fn: Optional[Callable] = None, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: a batch sharded over devices waits for the port's "
-                "data parallelism (ROADMAP Queue 1 item 8, DDP)")
+            mesh.rows(batch_size, "batch_size")
+            device = mesh.own_device(device)
+        self.mesh = mesh
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate = collate
@@ -119,11 +124,13 @@ class PrefetchLoader:
                         if stop.is_set():
                             return
                         seeds = rng.randint(0, 2 ** 31, size=len(idxs))
+                        mine = (slice(None) if self.mesh is None
+                                else self.mesh.rows(len(idxs)))
                         items = list(pool.map(
                             lambda a: self.item_fn(
                                 self.dataset, int(a[0]),
                                 np.random.RandomState(int(a[1]))),
-                            zip(idxs, seeds)))
+                            zip(idxs[mine], seeds[mine])))
                         if not _put(_to_host(self.collate(items), pin)):
                             return
             except Exception as e:  # handed to the consumer, raised there

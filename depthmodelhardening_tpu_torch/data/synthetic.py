@@ -66,3 +66,12 @@ def make_scene(batch: int = 1, height: int = 375, width: int = 1242,
         texture = np.kron(texture, np.ones((8, 8, 1)))[:height, :width]
         out[b] = np.clip(scene * (0.85 + 0.3 * texture), 0.0, 1.0)
     return out
+
+
+def make_stereo_pair(batch: int = 1, height: int = 375, width: int = 1242,
+                     shift: int = 18, seed: int = 0):
+    """(left, right) scenes where right is a horizontal shift of left —
+    a crude but consistent stereo geometry for smoke tests."""
+    left = make_scene(batch, height, width, seed)
+    right = np.roll(left, -shift, axis=2)
+    return left, right

@@ -62,6 +62,9 @@ class JitterDraws:
     enabled: torch.Tensor
     factors: torch.Tensor
 
+    def rows(self, sl: slice) -> "JitterDraws":
+        return JitterDraws(self.enabled[sl], self.factors[sl])
+
 
 @dataclasses.dataclass
 class SynthDraws:
@@ -77,6 +80,13 @@ class SynthDraws:
     alphas: torch.Tensor
     half: Optional[torch.Tensor] = None
     jitter: Optional[JitterDraws] = None
+
+    def rows(self, sl: slice) -> "SynthDraws":
+        """The draws of the items `sl` of the batch."""
+        return SynthDraws(
+            self.z0s[sl], self.alphas[sl],
+            None if self.half is None else self.half[sl],
+            None if self.jitter is None else self.jitter.rows(sl))
 
 
 def draw_jitter(generator: torch.Generator, batch: int) -> JitterDraws:

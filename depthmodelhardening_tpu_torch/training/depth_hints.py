@@ -56,12 +56,14 @@ def depth_hint_warp(batch) -> torch.Tensor:
 
 
 def compute_depth_hints_losses(disps, batch, poses, identity_noise,
-                               cfg: SelfSupConfig):
+                               cfg: SelfSupConfig, mesh=None):
     """The self-supervised loss with the proxy hint, averaged over scales.
 
     disps: {scale: (B, h_s, w_s, 1)} sigmoid disparities; poses: {fid:
     (B, 4, 4)} for the temporal frames; identity_noise: a standard normal
     draw of `identity_noise_shape`, or None with disable_automasking.
+    mesh: the data-parallel mesh, whose ranks each hold their rows: the
+    masked means are then the global batch's (as under JAX's mesh).
     Returns (total, aux) as `compute_selfsup_losses` does."""
     preds, depths = generate_images_pred(disps, batch, poses, cfg)
     target = batch["color"]["0"]
@@ -83,6 +85,14 @@ def compute_depth_hints_losses(disps, batch, poses, identity_noise,
                 f"identity_noise must have shape {tuple(identity.shape)}")
         identity = identity + identity_noise * 1e-5
 
+    def denominator(mask):
+        """mask's sum + 1e-7; under a mesh the global batch's over the
+        world size, so the ranks' mean of sum / denominator is the
+        global ratio."""
+        if mesh is None:
+            return mask.sum() + 1e-7
+        return (mesh.all_sum(mask.sum()) + 1e-7) / mesh.world_size
+
     aux = {"depth": depths[cfg.scales[0]]}
     total = 0.0
     for scale in cfg.scales:
@@ -101,10 +111,10 @@ def compute_depth_hints_losses(disps, batch, poses, identity_noise,
         reproj_mask = ((idxs != 1).to(reproj.dtype) if identity is not None
                        else torch.ones_like(reproj))
 
-        loss = (reproj * reproj_mask).sum() / (reproj_mask.sum() + 1e-7)
+        loss = (reproj * reproj_mask).sum() / denominator(reproj_mask)
         hint_loss = torch.log(abs_jax(batch["depth_hint"] - depths[scale])
                               + 1.0) * batch["depth_hint_mask"] * hint_mask
-        loss = loss + hint_loss.sum() / (hint_mask.sum() + 1e-7)
+        loss = loss + hint_loss.sum() / denominator(hint_mask)
 
         disp = disps[scale]
         color = (bilinear_resize(target, disp.shape[1], disp.shape[2])

@@ -34,6 +34,13 @@ call; its train-mode passes never fold. The
 teacher is the caller's: in `bench.py`'s configuration a bf16, folded
 `DepthPredictor` of disp0.
 
+Data parallelism (`mesh=`, JAX distill.py:84, 155-156, 188-191): the
+batch_size scenes of a step are split over the ranks, each rank attacking
+its share with the global batch's draws (the object attacks average their
+texture gradient over the ranks; "image" attacks each image alone), and
+the student trains as the hardening trainer's does under a mesh: rank
+0's weights, global BatchNorm, gradients and loss averaged.
+
 The state is a model and its optimizer, updated in place; `train_step`
 also returns it. Random draws come from a CPU `torch.Generator` or are
 injected as `PGDDraws` (`L0Draws` for `adv_type="object_l0"`, the L0
@@ -54,6 +61,8 @@ from ..attacks.pgd_object import PGDObjectAttack
 from ..device import resolve_device
 from ..models.wrappers import EvalView, init_monodepth2, make_monodepth2
 from ..ops.metrics import get_mean_depth_diff
+from ..parallel.batchnorm import global_batchnorm
+from ..parallel.mesh import Mesh, replicate
 from ..physics.eot import EVAL_DIST_RANGE
 from .config import DistillConfig
 from .hardening import TrainState
@@ -105,13 +114,21 @@ class DistillTrainer:
       pass "cpu".
     init_state_dict: the student's starting weights (the CLI's
       --fine-tune: usually the teacher's).
+    mesh: the data-parallel `parallel.mesh.Mesh` (its device is the
+      trainer's); cfg.batch_size, the global batch, must divide by its
+      world size.
     """
 
     def __init__(self, cfg: DistillConfig, generator: torch.Generator,
                  obj_img, obj_mask, teacher, device=None,
                  num_layers: int = 18,
-                 init_state_dict: Optional[Mapping] = None):
+                 init_state_dict: Optional[Mapping] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.rows(cfg.batch_size, "batch_size")
+            device = mesh.own_device(device)
         self.device = resolve_device(device)
         self.generator = generator
         self.teacher = teacher
@@ -130,18 +147,24 @@ class DistillTrainer:
             self.scale_view = EvalView(self.device,
                                        scales=(cfg.attack_scale,))
             self.attack.predict_scale = self.scale_view
+        if mesh is not None and cfg.adv_type != "image":
+            self.attack.grad_mean = mesh.all_mean
 
     # -- state ----------------------------------------------------------------
     def make_state(self, resume: Optional[Mapping] = None) -> DistillState:
         """A fresh student from the initial weights, in train mode, with a
         new Adam; or, with `resume` (`models/convert.py:
-        from_jax_distill_state`), that student, Adam state and step."""
+        from_jax_distill_state`), that student, Adam state and step. Under
+        a mesh the student is rank 0's and its BatchNorms global."""
         model = make_monodepth2(self.num_layers,
                                 dtype=self.cfg.compute_dtype,
                                 fold_bn=self.cfg.fold_bn)
         model.load_state_dict(self._init_state_dict if resume is None
                               else resume["model"])
         model = model.to(self.device).train()
+        if self.mesh is not None:
+            replicate([model], self.mesh)
+            model = global_batchnorm(model, self.mesh)
         opt = torch.optim.Adam(model.parameters(), lr=self.cfg.learning_rate,
                                betas=(0.9, 0.999), eps=1e-8)
         if resume is None:
@@ -182,14 +205,19 @@ class DistillTrainer:
     def distill_step(self, state: DistillState, adv, ben):
         """The training half of a step on given composites: MSE of the
         student's disp0 on `adv` against the teacher's on `ben`, backward,
-        Adam. Returns (state, {"loss"})."""
+        Adam (under a mesh: this rank's rows, the gradients and the loss
+        averaged over the ranks). Returns (state, {"loss"})."""
         disp_gt = self.teacher_disp(ben)
         state.optimizer.zero_grad(set_to_none=True)
         loss = torch.mean((disp_gt - self.student_disp(state, adv)) ** 2)
         loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            self.mesh.all_mean([p.grad for p in state.model.parameters()
+                                if p.grad is not None] + [loss])
         state.optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
     def train_step(self, state: DistillState, scenes,
                    generator: Optional[torch.Generator] = None, draws=None):
@@ -198,14 +226,20 @@ class DistillTrainer:
         "image" attacks the batch as given, JAX `distill.py:164-166`).
         The attack's draws come from `generator` (default: the
         trainer's) unless `draws` (`PGDDraws`, `L0Draws` for
-        "object_l0", `ImageDraws` for "image") are given. Returns
-        (state, {"loss"})."""
+        "object_l0", `ImageDraws` for "image") are given. Under a mesh the
+        scenes are this rank's rows (the object attacks' one scene, or
+        batch_size / world_size of them) and the draws the global
+        batch's. Returns (state, {"loss"})."""
         scenes = torch.as_tensor(scenes, dtype=torch.float32,
                                  device=self.device)
         image = self.cfg.adv_type == "image"
-        B = scenes.shape[0] if image else self.cfg.batch_size
+        world = 1 if self.mesh is None else self.mesh.world_size
+        B = scenes.shape[0] * world if image else self.cfg.batch_size
         if draws is None:
             draws = self.attack.draw(generator or self.generator, B)
+        if self.mesh is not None:
+            draws = draws.rows(self.mesh.rows(B))
+            B //= world
         attack = self.attack_student(state)
         if image:
             adv, ben = attack(scenes, draws=draws)

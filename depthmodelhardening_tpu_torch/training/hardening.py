@@ -65,6 +65,18 @@ variance with the unbiased batch variance, flax with the biased one, so
 after a step the running variances differ by the factor n / (n - 1) of
 the batch updates (n = the values per channel of the layer's batch).
 Normalisation, loss and gradients are the same.
+
+Data parallelism (`mesh=`, JAX hardening.py:80-82, 256-257, 455-471): a
+step under a mesh is the one-process step on the global batch. Each
+process passes its rows of the frames and its share of the attack
+scenes; the draws are the global batch's (drawn alike on every rank, or
+injected whole) and each rank keeps its rows. The state is replicated
+from rank 0, its BatchNorms normalise over the global batch
+(`parallel/batchnorm.py`), the attack averages its texture gradient over
+the ranks at every iteration (so every rank holds the same texture, and
+the L0 break fires on all of them at once), and `_update` averages the
+gradients and the metrics. DistributedDataParallel is not used: a step
+calls the student several times, and the unused heads get no gradient.
 """
 
 from __future__ import annotations
@@ -87,6 +99,8 @@ from ..models.wrappers import (
     make_monodepth2,
 )
 from ..ops.geometry import disp_to_depth, transformation_from_parameters
+from ..parallel.batchnorm import global_batchnorm
+from ..parallel.mesh import Mesh, replicate
 from ..physics.eot import TRAIN_DIST_RANGE, monodepth2_K
 from .adv_synth import (
     SynthDraws, build_plain_batch, draw_jitter, draw_synth,
@@ -189,16 +203,26 @@ class HardeningTrainer:
       `models/convert.py`), as --fine-tune does; the head and the pose
       networks start from the generator's draws all the same, as the
       JAX trainer's do under --fine-tune.
+    mesh: the data-parallel `parallel.mesh.Mesh` (its device is the
+      trainer's); cfg.batch_size and cfg.adv.attack_batch_size, the
+      global batches, must divide by its world size. Every rank builds
+      its trainer from the same generator seed.
     """
 
     def __init__(self, cfg: HardeningConfig, generator: torch.Generator,
                  obj_img, obj_mask, teacher=None, device=None,
                  steps_per_epoch: int = 1000,
-                 init_state_dict: Optional[Mapping] = None):
+                 init_state_dict: Optional[Mapping] = None,
+                 mesh: Optional[Mesh] = None):
         if cfg.supervised_adv and teacher is None:
             raise ValueError("supervised_adv requires a frozen teacher")
         _check_family(cfg)
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            mesh.rows(cfg.batch_size, "batch_size")
+            mesh.rows(cfg.adv.attack_batch_size, "attack_batch_size")
+            device = mesh.own_device(device)
         self.device = resolve_device(device)
         self.teacher = teacher
         self.generator = generator
@@ -225,6 +249,8 @@ class HardeningTrainer:
         self.transition_steps = steps_per_epoch * cfg.scheduler_step_size
         self._eval_attacks = {}
         self._build_attack(obj_img, obj_mask)
+        if mesh is not None:
+            self.attack.grad_mean = mesh.all_mean
 
     def _build_attack(self, obj_img, obj_mask) -> None:
         """The attack on the student (trainer.py:224), at the train-time
@@ -286,7 +312,8 @@ class HardeningTrainer:
         initial weights, in train mode, with a new Adam over all of them
         (b1 0.9, b2 0.999, eps 1e-8 outside the square root: optax.adam's);
         or, with `resume` (`models/convert.py:from_jax_hardening_state`),
-        those modules, the Adam state and the step."""
+        those modules, the Adam state and the step. Under a mesh the
+        modules are rank 0's and their BatchNorms global."""
         cfg = self.cfg
         modules = {"model": self.make_student()}
         init = {"model": self._init_state_dict}
@@ -301,6 +328,10 @@ class HardeningTrainer:
             module.load_state_dict(init[key] if resume is None
                                    else resume[key])
             modules[key] = module.to(self.device).train()
+        if self.mesh is not None:
+            replicate(modules.values(), self.mesh)
+            modules = {k: global_batchnorm(m, self.mesh)
+                       for k, m in modules.items()}
         params = [p for m in modules.values() for p in m.parameters()]
         opt = torch.optim.Adam(params, lr=self.learning_rate(0),
                                betas=(0.9, 0.999), eps=1e-8)
@@ -332,10 +363,21 @@ class HardeningTrainer:
         return self.attack
 
     # -- draws ----------------------------------------------------------------
+    def _rows(self, n_local: int) -> slice:
+        """This rank's rows of the global batch whose shares have
+        `n_local` rows (all of them without a mesh)."""
+        if self.mesh is None:
+            return slice(None)
+        return self.mesh.rows(n_local * self.mesh.world_size)
+
+    def _global(self, n_local: int) -> int:
+        return n_local * (1 if self.mesh is None else self.mesh.world_size)
+
     def draw(self, batch_size: int,
              generator: Optional[torch.Generator] = None) -> StepDraws:
-        """The host draws of one `train_step` on `batch_size` frames, from
-        `generator` (default: the trainer's)."""
+        """The host draws of one `train_step` on `batch_size` frames (the
+        global batch under a mesh), from `generator` (default: the
+        trainer's)."""
         gen = generator or self.generator
         return StepDraws(
             attack=self.attack.draw(gen, self.cfg.adv.attack_batch_size),
@@ -349,6 +391,7 @@ class HardeningTrainer:
         return shape(self.cfg.selfsup, batch_size)
 
     def draw_identity_noise(self, batch_size: int) -> torch.Tensor:
+        """The automask's draw for a (global) batch of `batch_size`."""
         return torch.randn(self.identity_noise_shape(batch_size),
                            generator=self.noise_generator,
                            device=self.device)
@@ -363,10 +406,13 @@ class HardeningTrainer:
         """The non-adversarial batch of raw frames {fid: (B, ori_h, ori_w,
         3)} on the trainer's device, with K and inv_K. With
         cfg.adv.color_aug the jitter draws are `jitter`, else drawn from
-        the trainer's generator."""
+        the trainer's generator (the global batch's under a mesh, as given
+        `jitter` is: this rank keeps its rows)."""
         B = frames["0"].shape[0]
         if self.cfg.adv.color_aug and jitter is None:
-            jitter = draw_jitter(self.generator, B)
+            jitter = draw_jitter(self.generator, self._global(B))
+        if jitter is not None:
+            jitter = jitter.rows(self._rows(B))
         batch = build_plain_batch(frames, side_is_l, do_flip,
                                   self.cfg.selfsup, jitter=jitter)
         return self._K_batch(batch, B)
@@ -375,22 +421,26 @@ class HardeningTrainer:
                         draws: StepDraws) -> torch.Tensor:
         """Step 1 of `train_step`: the texture (1, h, w, 3) the attack
         re-optimises against `state`'s student on `attack_batch_size`
-        replicated scenes."""
+        replicated scenes (under a mesh this rank's share: one scene or
+        attack_batch_size / world_size of them; the texture gradient is
+        the global batch's)."""
         atk = self.attack_student(state)
+        n = self.cfg.adv.attack_batch_size // self._global(1)
         scenes = atk._replicate(
             torch.as_tensor(scene_imgs, dtype=torch.float32,
-                            device=self.device),
-            self.cfg.adv.attack_batch_size)
-        return atk._optimize(scenes, draws.attack)
+                            device=self.device), n)
+        return atk._optimize(scenes, draws.attack.rows(self._rows(n)))
 
     def synth_batch(self, frames, side_is_l, do_flip, obj_adv,
                     draws: StepDraws):
         """Step 2 of `train_step`: the batch synthesised with texture
         `obj_adv`, with K, inv_K and stereo_T, and the DepthHints planes
-        where the frames carry them (JAX hardening.py:414-418)."""
+        where the frames carry them (JAX hardening.py:414-418). Under a
+        mesh, this rank's rows of the global `draws`."""
+        synth = draws.synth.rows(self._rows(frames["0"].shape[0]))
         batch = synthesize_adv_batch(
             self.synth_eot, frames, obj_adv, self.obj_img, self.obj_mask,
-            side_is_l, do_flip, draws.synth, self.cfg.selfsup, self.cfg.adv)
+            side_is_l, do_flip, synth, self.cfg.selfsup, self.cfg.adv)
         batch["stereo_T"] = stereo_T_batch(side_is_l, do_flip)
         for k in ("depth_hint", "depth_hint_mask"):
             if k in frames:
@@ -484,9 +534,12 @@ class HardeningTrainer:
             if poses is None:
                 poses = (self.predict_poses(state, batch["color_aug"])
                          if ss.use_pose_net else {})
-            losses = (depth_hints.compute_depth_hints_losses
-                      if cfg.use_depth_hints else compute_selfsup_losses)
-            selfsup, _ = losses(disps, batch, poses, identity_noise, ss)
+            if cfg.use_depth_hints:
+                selfsup, _ = depth_hints.compute_depth_hints_losses(
+                    disps, batch, poses, identity_noise, ss, self.mesh)
+            else:
+                selfsup, _ = compute_selfsup_losses(disps, batch, poses,
+                                                    identity_noise, ss)
             metrics["selfsup_loss"] = selfsup
             total = total + selfsup
         metrics["loss"] = total
@@ -496,17 +549,27 @@ class HardeningTrainer:
     def _update(self, state: TrainState, batch,
                 identity_noise: Optional[torch.Tensor]):
         """Loss, backward and Adam on a built batch; returns (state,
-        metrics)."""
+        metrics). `identity_noise`: the global batch's draw (this rank
+        keeps its rows). Under a mesh the gradients that exist (the same
+        set on every rank) and the metrics are averaged over the ranks."""
+        B = batch["color"]["0"].shape[0]
         if identity_noise is None:
-            identity_noise = self.draw_identity_noise(
-                batch["color"]["0"].shape[0])
+            identity_noise = self.draw_identity_noise(self._global(B))
+        identity_noise = identity_noise[self._rows(B)].to(self.device)
         for module in state.modules().values():
             module.train()
         state.optimizer.zero_grad(set_to_none=True)
         total, metrics = self._losses(state, batch, identity_noise)
         total.backward()
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.mesh is not None:
+            self.mesh.all_mean([p.grad for group in state.optimizer
+                                .param_groups for p in group["params"]
+                                if p.grad is not None])
+            metrics = dict(zip(metrics, self.mesh.all_mean(
+                [v.float().reshape(()) for v in metrics.values()])))
         self._apply_grads(state)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     def _apply_grads(self, state: TrainState) -> None:
         """Adam at the step's learning rate, and the step count."""
@@ -518,9 +581,10 @@ class HardeningTrainer:
     def selfsup_step(self, state: TrainState, batch,
                      identity_noise: Optional[torch.Tensor] = None):
         """One non-adversarial step on a built batch (color / color_aug /
-        K / inv_K / stereo_T). identity_noise: the automask's standard
-        normal tie-break draw, drawn from the trainer's generator when
-        None. Returns (state, metrics)."""
+        K / inv_K / stereo_T; this rank's rows under a mesh).
+        identity_noise: the automask's standard normal tie-break draw of
+        the global batch, drawn from the trainer's generator when None.
+        Returns (state, metrics)."""
         return self._update(state, batch, identity_noise)
 
     def selfsup_frames_step(self, state: TrainState, frames, side_is_l,
@@ -528,7 +592,8 @@ class HardeningTrainer:
                             identity_noise: Optional[torch.Tensor] = None):
         """The plain self-supervised step straight from raw frames
         {fid: (B, ori_h, ori_w, 3)} with per-item side_is_l / do_flip
-        (B,) bool: batch building on the device, then `selfsup_step`."""
+        (B,) bool (this rank's rows under a mesh): batch building on the
+        device, then `selfsup_step`."""
         return self.selfsup_step(
             state, self.plain_batch(frames, side_is_l, do_flip),
             identity_noise)
@@ -540,15 +605,17 @@ class HardeningTrainer:
         ori_w, 3)), synthesis from the raw frames {fid: (B, ori_h, ori_w,
         3)} with per-item side_is_l / do_flip (B,) bool, then loss,
         backward and Adam. Draws from the trainer's generator unless
-        `draws` are given. Returns (state, metrics: "loss" and each
-        branch's)."""
+        `draws` are given. Under a mesh the frames, sides and flips are
+        this rank's rows, the scenes one scene or this rank's share, and
+        the draws the global batch's. Returns (state, metrics: "loss" and
+        each branch's)."""
         frames = {k: torch.as_tensor(v, dtype=torch.float32,
                                      device=self.device)
                   for k, v in frames.items()}
         side_is_l = torch.as_tensor(side_is_l, device=self.device)
         do_flip = torch.as_tensor(do_flip, device=self.device)
         if draws is None:
-            draws = self.draw(frames["0"].shape[0])
+            draws = self.draw(self._global(frames["0"].shape[0]))
         obj_adv = self.refresh_texture(state, scene_imgs, draws)
         batch = self.synth_batch(frames, side_is_l, do_flip, obj_adv, draws)
         return self._update(state, batch, draws.identity_noise)

@@ -18,8 +18,9 @@ package's, on KITTI-layout trees the tests write (tests/kitti_trees.py).
   train-distill on the CPU, one step a run: the JSONL keys, the
   checkpoint, opt.json and the resume; the first step bit-equal to a direct `train_step` of a
   trainer built from the same seed on the same loader batch and scenes;
-  the dump_dir files and the logger's images; --data-parallel and
-  precompute-hints without cv2 raise, naming what they lack.
+  the dump_dir files and the logger's images; precompute-hints bit-equal
+  to JAX's, and without cv2 raising, naming it (--data-parallel runs in
+  tests/test_torch_parallel.py).
 * utils: MetricsLogger's rows, the PNG and .npy images; setup_seed;
   StepTimer; trace; the visualize helpers against JAX's.
 """
@@ -485,17 +486,40 @@ def test_eval_attacks_writes_its_dumps(tree, tmp_path):
                                         "panel_000.png"]
 
 
-def test_data_parallel_and_precompute_hints_raise(tree, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        cli.main(_hardening_argv(tree, "--data-parallel"), device="cpu")
-    monkeypatch.setitem(sys.modules, "cv2", None)
+def _hint_files(tree, *lines):
     names = str(tree.root / "hint_files.txt")
     with open(names, "w") as f:
-        f.write(f"{tree.drive} 1 l\n")
+        f.write("".join(f"{ln}\n" for ln in lines))
+    return names
+
+
+def test_precompute_hints_needs_cv2(tree, monkeypatch):
+    monkeypatch.setitem(sys.modules, "cv2", None)
     with pytest.raises(ImportError, match="cv2"):
         cli.main(["precompute-hints", "--data-path", tree.raw,
-                  "--filenames", names, "--height", str(H), "--width",
-                  str(W)], device="cpu")
+                  "--filenames", _hint_files(tree, f"{tree.drive} 1 l"),
+                  "--height", str(H), "--width", str(W)], device="cpu")
+
+
+def test_precompute_hints_matches_jax(tree, tmp_path):
+    """precompute-hints through both CLIs on two frames of the tree (SGBM
+    on both eyes' PNGs, the fused hint at 64x192): the same files, equal
+    but at the fused hint's argmin ties (ROADMAP Queue 3; held exactly in
+    tests/test_torch_depth_hints.py): at most 0.1% of the pixels (1 of
+    12288 measured)."""
+    names = _hint_files(tree, f"{tree.drive} 1 l", f"{tree.drive} 2 r")
+    argv = ["precompute-hints", "--data-path", tree.raw, "--filenames",
+            names, "--height", str(H), "--width", str(W), "--save-path"]
+    written = cli.main(argv + [str(tmp_path / "port")], device="cpu")
+    j_cli.main(argv + [str(tmp_path / "jax")])
+    files = lambda d: sorted(os.path.relpath(os.path.join(r, n), d)
+                             for r, _, ns in os.walk(d) for n in ns)
+    got, want = files(tmp_path / "port"), files(tmp_path / "jax")
+    assert got == want and len(got) == len(written) == 2
+    for name in got:
+        g, w = np.load(tmp_path / "port" / name), np.load(tmp_path / "jax"
+                                                          / name)
+        assert g.shape == w.shape and (g != w).mean() <= 1e-3
 
 
 def test_the_command_line_runs_on_the_card_or_raises(tree, tmp_path):

@@ -43,6 +43,7 @@ from depthmodelhardening_tpu_torch.data import (
     kitti_object, kitti_raw, object_images, pseudo_lidar, splits, velodyne,
 )
 from depthmodelhardening_tpu_torch.data.loader import PrefetchLoader
+from depthmodelhardening_tpu_torch.parallel.mesh import Mesh
 from depthmodelhardening_tpu_torch.physics import calibration
 
 ORI_H, ORI_W = 96, 320
@@ -566,12 +567,30 @@ def test_prefetch_loader_raises_what_the_producer_raised(tmp_path):
 
 def test_prefetch_loader_device_and_mesh(raw_tree):
     """The loader lands batches on the card unless asked otherwise (and
-    so raises here), and mesh= names the port's DDP item."""
+    so raises here). With mesh= each rank decodes only its rows of each
+    global batch, and the ranks' batches concatenate to the one process's,
+    bit for bit, in the same order (JAX's loader shards them likewise)."""
     root, drive = raw_tree
-    ds = kitti_raw.KittiRawDataset(root, _lines(drive), ("0",))
+    ds = kitti_raw.KittiRawDataset(root, _lines(drive), ("0", "s"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PrefetchLoader(ds, 2, kitti_raw.collate)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        PrefetchLoader(ds, 2, kitti_raw.collate, mesh=object(),
-                       device="cpu")
+
+    def run(mesh):
+        decoded = []
+        item = lambda d, i, rng: (decoded.append(i), d.get_item(i, rng))[1]
+        return list(PrefetchLoader(ds, 4, kitti_raw.collate, seed=3,
+                                   device="cpu", mesh=mesh,
+                                   item_fn=item)), decoded
+
+    whole, n_whole = run(None)
+    parts = [run(Mesh(r, 2, torch.device("cpu"))) for r in range(2)]
+    assert len(whole) == 2 and all(len(p) == 2 for p, _ in parts)
+    assert sorted(parts[0][1] + parts[1][1]) == sorted(n_whole)
+    cat = lambda get: torch.cat([get(p[0][b]) for p in parts])
+    for b, w in enumerate(whole):
+        for fid in ("0", "s"):
+            assert torch.equal(cat(lambda x: x["frames"][fid]),
+                               w["frames"][fid])
+        for k in ("side_is_l", "do_flip"):
+            assert torch.equal(cat(lambda x: x[k]), w[k])

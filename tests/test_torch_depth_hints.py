@@ -266,9 +266,9 @@ def test_sgbm_hint_and_split_match_jax(tmp_path):
 
 
 def test_missing_host_modules_raise_and_name_them(monkeypatch):
-    """Where cv2 or PIL is not installed (the card's machine), the SGBM
-    step and the PNG reading raise ImportError naming the module; the
-    fusion needs neither."""
+    """Where cv2 or PIL is not installed, the SGBM step and the PNG
+    reading raise ImportError naming the module; the fusion needs
+    neither."""
     monkeypatch.setitem(sys.modules, "cv2", None)
     with pytest.raises(ImportError, match="'cv2'"):
         data.make_stereo_matchers()

@@ -47,6 +47,8 @@ from depthmodelhardening_tpu_torch.training.config import (
 )
 from depthmodelhardening_tpu_torch.training.distill import DistillTrainer
 from depthmodelhardening_tpu_torch.training.hardening import HardeningTrainer
+from depthmodelhardening_tpu_torch.models.zoo import load_pretrained
+from depthmodelhardening_tpu_torch.parallel.mesh import make_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(port.__file__)
@@ -75,7 +77,8 @@ def test_every_module_imports_without_jax():
         "data.object_images", "data.splits", "data.pseudo_lidar",
         "data.loader", "utils.logging", "utils.seeding",
         "utils.profiling", "utils.visualize", "cli.main",
-        "cli.__main__")} <= set(mods)
+        "cli.__main__", "parallel.mesh", "parallel.batchnorm",
+        "models.zoo")} <= set(mods)
     code = "\n".join(
         ["import sys"]
         + [f"sys.modules[{m!r}] = None" for m in BLOCKED]
@@ -93,7 +96,10 @@ def test_no_source_line_imports_jax():
                      r"depthmodelhardening_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
         os.path.join(REPO, "tests", n)  # chip_smoke.py imports these two
-        for n in ("golden_common.py", "kitti_trees.py")]
+        for n in ("golden_common.py", "kitti_trees.py")] + [
+        os.path.join(REPO, "tools", n)  # the card's probes
+        for n in os.listdir(os.path.join(REPO, "tools"))
+        if n.endswith(".py")]
     for root, _, names in os.walk(PORT_DIR):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = [f"{f}:{i}" for f in files
@@ -113,6 +119,16 @@ def test_synthetic_object_equals_the_original(kw):
 def test_synthetic_scene_equals_the_original(kw):
     np.testing.assert_array_equal(synthetic.make_scene(**kw),
                                   j_synthetic.make_scene(**kw))
+
+
+@pytest.mark.parametrize("kw", [dict(batch=2, height=96, width=320,
+                                     shift=10, seed=5),
+                                dict(batch=1, height=40, width=64, shift=3,
+                                     seed=2)])
+def test_synthetic_stereo_pair_equals_the_original(kw):
+    for got, want in zip(synthetic.make_stereo_pair(**kw),
+                         j_synthetic.make_stereo_pair(**kw)):
+        np.testing.assert_array_equal(got, want)
 
 
 def test_calibration_equals_the_original():
@@ -140,8 +156,9 @@ def test_require_cuda_raises_without_a_card():
 
 @pytest.mark.parametrize("device", [None, "cuda"])
 @pytest.mark.parametrize("make", ["hardening", "distill", "hardening_l0",
-                                  "distill_l0", "hardening_mono_bf16"])
-def test_trainers_run_on_the_card_or_raise(make, device):
+                                  "distill_l0", "hardening_mono_bf16",
+                                  "mesh", "zoo"])
+def test_trainers_run_on_the_card_or_raise(make, device, tmp_path):
     """A trainer runs on the CUDA card unless given "cpu": without
     `device=`, or asked for "cuda", it checks for the card before it
     builds anything (`device.resolve_device`) and raises here. The
@@ -149,7 +166,8 @@ def test_trainers_run_on_the_card_or_raise(make, device):
     the teacher), its mono+stereo bf16 configuration (the pose
     networks) and the L0 distillation likewise; the L0 attack, the
     colour jitter, SimSiam and the synthesis run where their inputs
-    are."""
+    are. So do the data-parallel mesh (`make_mesh`) and the zoo's
+    `load_pretrained`: they raise before any process group or file."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     obj, mask = synthetic.make_car_object(width=60, height=40)
@@ -165,6 +183,10 @@ def test_trainers_run_on_the_card_or_raise(make, device):
             HardeningTrainer(HardeningConfig(),
                              torch.Generator().manual_seed(0), obj, mask,
                              teacher, **kw)
+        elif make == "mesh":
+            make_mesh(**kw)
+        elif make == "zoo":
+            load_pretrained("mono_640x192", str(tmp_path), **kw)
         elif make == "hardening_mono_bf16":
             HardeningTrainer(HardeningConfig(
                 selfsup=SelfSupConfig(frame_ids=("0", "-1", "1", "s")),
