@@ -229,8 +229,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CLI_STEP_SPREAD times their spread); train-distill --epochs 1
    --eval-count 1 on a list of two batches (JSONL, weights folders, the
    kernels it runs launched); infer where PIL imports (B 1, D 4);
-   eval-attacks --dump-dir where PIL and matplotlib import (otherwise a
-   line says which is missing); each subcommand's wall seconds.
+   precompute-hints where cv2 and PIL import (two frames' SGBM hints
+   fused on the card at 1024x320: the files, their shape, finite, C once
+   a hint); eval-attacks --dump-dir where PIL and matplotlib import
+   (otherwise a line says which is missing); each subcommand's wall
+   seconds.
 16. parallel: data parallelism, inside phase 15's temporary directory.
    16a: the CLI's step (12a's configuration) at global batch 32 on two
    ranks of the one card over gloo (NCCL refuses two ranks on one card),
@@ -257,6 +260,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
    `make_stereo_pair`). 16d: `models/zoo.load_pretrained` from a zip
    written here onto the card against the CPU (no fetch: urllib's
    `urlretrieve` raises).
+17. classifier: the classifier attack surface (attacks/classifier.py,
+   classifier_auto.py) through a ResNet-18 classifier (the port's
+   ResnetEncoder(18), a global average pool, Linear(512, 10); flax's
+   seeded init with BatchNorm statistics calibrated on the batch, eval,
+   float32, `CountingClassifier`), 224x224, batch 16 of synthetic
+   scenes, the labels its own predictions. 17a: every attack of both
+   modules once at JAX's defaults but CLS_CUTS (SparseFool's and FAB's
+   iterations, OnePixel's generations and population, Square's queries,
+   APGD-T's steps and AutoAttack's inner budgets): seconds, the
+   constraint (L-inf, L2 or L0 against eps), accuracy before and after,
+   the goal class's mean probability, the model's forwards and input
+   gradients against the predicted ones; fails on a broken constraint,
+   a non-finite output, an untargeted attack that raises accuracy, a
+   targeted one that lowers its target's probability. 17b: FGSM, BIM (3
+   steps), PGD from an injected start, MIFGSM, CW (3 steps), DeepFool (2
+   steps) and APGD (5 steps, injected start) on the card against the
+   CPU at batch 2: the input gradient at the images and at PGD's start
+   within CLS_GRAD_L2 relative L2, FGSM's step split on at most CLS_SPLIT_ONE of
+   the values, DeepFool within CLS_SAME_DF, the others' adversarial
+   images predicted alike (their first splits spread through the
+   receptive field: the share apart is logged). 17c: B1's and B2's launches over 17a-17b equal to the
+   classifier's forwards and input gradients; B at (16, 64, 112, 112)
+   bit for bit against its plain version, timed beside it, the library
+   and the bound. 17d: the options the earlier slices left: ManyDepth's
+   evaluation (14d's setting, seeded weights) from a folder whose
+   metadata says `depth_binning: "inverse"`, and with missing bins left
+   at 0, card against CPU by 14d's rule; the object APGD under L2 (eps 8,
+   n_restarts 2) and untargeted whole-image PGD, one batch each of
+   their presets at full width, launches against `zoo_launches`; one
+   14a step with use_depth_hints False, and the DepthHints loss with
+   use_depth_hints=False on the card against the CPU (C launched).
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -286,7 +320,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from depthmodelhardening_tpu_torch.attacks import (
+    classifier as classifier_attacks, classifier_auto,
+)
+from depthmodelhardening_tpu_torch.attacks.apgd_object import APGDObjectAttack
 from depthmodelhardening_tpu_torch.attacks.base import PhysObjAttackConfig
+from depthmodelhardening_tpu_torch.attacks.pgd_image import PGDImageAttack
 from depthmodelhardening_tpu_torch.attacks.l0_object import L0ObjectAttack
 from depthmodelhardening_tpu_torch.data import depth_hints as hint_data
 from depthmodelhardening_tpu_torch.data.synthetic import (
@@ -304,8 +343,9 @@ from depthmodelhardening_tpu_torch.evaluation.presets import EVAL_PRESETS
 from depthmodelhardening_tpu_torch.models.convert import (
     load_reference_state_dict,
 )
+from depthmodelhardening_tpu_torch.models.resnet import ResnetEncoder
 from depthmodelhardening_tpu_torch.models.wrappers import (
-    MONODEPTH2_K, flax_init_, init_monodepth2,
+    MONODEPTH2_K, ManyDepthModel, flax_init_, init_monodepth2,
     make_monodepth2, predictor_from, quarter_intrinsics,
 )
 from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
@@ -1404,7 +1444,9 @@ def device_busy(fn):
     """(busy ms, host wall ms, device activities, ms by activity name,
     launches by activity name) of one call of fn: the union of the card's
     kernel and copy intervals in a torch.profiler trace, against the host
-    clock around the call."""
+    clock around the call. The trace's device activities are read as
+    kineto recorded them, without the profiler's tree of host events
+    (building it took minutes a phase on a slow host)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1414,17 +1456,18 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith(("Buffer Flush", "Activity Buffer"))]
+    events = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and not e.name().startswith(("Buffer Flush",
+                                           "Activity Buffer"))]
     if not events:
         raise AssertionError("the profiler saw no device activity")
     by_name, counts = {}, {}
-    for e in events:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3
-        counts[e.name] = counts.get(e.name, 0) + 1
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    for name, _, dur in events:
+        by_name[name] = by_name.get(name, 0.0) + dur / 1e3
+        counts[name] = counts.get(name, 0) + 1
+    spans = sorted((start, start + dur) for _, start, dur in events)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:
         if e > end:
@@ -4104,9 +4147,12 @@ def phase_cli_distill(runs, f) -> None:
 
 
 def phase_cli_extras(runs, f) -> None:
-    """infer where PIL imports (one forward at 1024x320: B 1, D 4), and
+    """infer where PIL imports (one forward at 1024x320: B 1, D 4),
+    precompute-hints where cv2 and PIL import (two frames, one each eye:
+    the SGBM hints fused on the card, kernel C once a hint), and
     eval-attacks --dump-dir where PIL and matplotlib import; otherwise a
     line says which was not run and why."""
+    phase_cli_hints(runs, f)
     missing = [m for m in ("PIL", "matplotlib")
                if importlib.util.find_spec(m) is None]
     image = os.path.join(f.raw, f.drive, "image_02", "data",
@@ -4135,6 +4181,35 @@ def phase_cli_extras(runs, f) -> None:
     if sorted(os.listdir(dump)) != ["adv_000.png", "ben_000.png",
                                     "panel_000.png"]:
         raise AssertionError(f"cli --dump-dir: {os.listdir(dump)}")
+
+
+def phase_cli_hints(runs, f) -> None:
+    """precompute-hints on two lines of the raw drive (frame 0 left, 1
+    right) into f.root/hints: one (1, 320, 1024) float32 file each,
+    finite, positive where a depth was found; C launched once a hint."""
+    missing = [m for m in ("cv2", "PIL")
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        log(f"  precompute-hints: not run, {' and '.join(missing)} not "
+            f"installed")
+        return
+    lines = os.path.join(f.root, "hint_files.txt")
+    with open(lines, "w") as fh:
+        fh.write(f"{f.drive} 0 l\n{f.drive} 1 r\n")
+    save = os.path.join(f.root, "hints")
+    written, launches, _ = runs("precompute-hints", [
+        "precompute-hints", "--data-path", f.raw, "--filenames", lines,
+        "--save-path", save])
+    hints = [np.load(p) for p in written]
+    log(f"  precompute-hints: {len(written)} files "
+        f"{[os.path.relpath(p, save) for p in written]}, shapes "
+        f"{[h.shape for h in hints]}, valid share "
+        f"{[round(float((h > 0).mean()), 4) for h in hints]}")
+    if len(hints) != 2 or any(h.shape != (1, 320, 1024) or h.dtype !=
+                              np.float32 or not np.isfinite(h).all() or
+                              not (h > 0).any() for h in hints):
+        raise AssertionError("cli precompute-hints: bad hint files")
+    _expect_launches("precompute-hints", launches, {"reproj_loss_fwd": 2})
 
 
 # -- phase 16 ----------------------------------------------------------------
@@ -4778,6 +4853,606 @@ def phase_parallel(dev, f) -> dict:
     return launches
 
 
+# -- phase 17 ----------------------------------------------------------------
+# the classifier attack surface (attacks/classifier.py, classifier_auto.py)
+# through a ResNet-18 classifier: the port's ResnetEncoder(18), a global
+# average pool of its last features and a linear head to 10 classes
+# (torchvision's ResNet-18 layout, AutoAttack's default n_classes), flax's
+# initialisation from a seed with every BatchNorm's statistics calibrated
+# on the batch and the head scaled and centred to logits of unit spread,
+# eval mode, float32, 224x224, batch 16, on synthetic scenes; the labels
+# are the model's own predictions
+CLS_BATCH, CLS_HW, CLS_CLASSES = 16, 224, 10
+CLS_EPS = 8 / 255
+# what phase 17's budget cuts from JAX's defaults (the rest run at them)
+CLS_CUTS = {
+    "sparsefool": dict(steps=3, deepfool_steps=10),
+    "onepixel": dict(steps=3, popsize=50),
+    "apgdt": dict(steps=20),
+    "fab": dict(steps=10),
+    "square": dict(n_queries=300),
+    "autoattack": dict(steps=20, square_queries=300),
+}
+# 17b: the card against the CPU at batch 2: a value differs when by more
+# than CLS_SAME (float32 rounding of a step); FGSM's one signed step may
+# split (a gradient near 0, where rounding decides its sign) on at most
+# CLS_SPLIT_ONE of the values (4.35e-4 read on an NVIDIA H100 80GB HBM3
+# at 700 W); DeepFool's two continuous steps stay within CLS_SAME_DF. The
+# input gradients are held to CLS_GRAD_L2 relative L2 (the distillation
+# rule's overall bound, tests/test_torch_distill.py): value by value they
+# part by 2.5e-2 of their max where rounding flips a ReLU gate or a pool
+# window's maximum of the calibrated random network (read on that card)
+CLS_SAME, CLS_SPLIT_ONE, CLS_SAME_DF = 1e-5, 1e-3, 1e-4
+CLS_GRAD_L2 = 1e-2
+
+
+class CountingClassifier(torch.nn.Module):
+    """The ResNet-18 classifier (B, 3, H, W) in [0, 1] -> (B, 10); on the
+    card it counts its forwards and the backward passes that reach its
+    input (each pools once forward, kernel B1, and once backward, B2)."""
+
+    def __init__(self):
+        super().__init__()
+        self.encoder = ResnetEncoder(18)
+        self.head = torch.nn.Linear(512, CLS_CLASSES)
+        self.forwards = self.input_grads = 0
+
+    def _count_grad(self, g):
+        self.input_grads += 1
+
+    def forward(self, x):
+        if x.is_cuda:
+            self.forwards += 1
+            if x.requires_grad:
+                x.register_hook(self._count_grad)
+        return self.head(self.encoder(x)[-1].mean(dim=(2, 3)))
+
+
+def _classifier_images(n, seed):
+    return bilinear_resize(torch.from_numpy(make_scene(
+        n, 375, 1242, seed=seed)), CLS_HW, CLS_HW).permute(0, 3, 1, 2)
+
+
+def classifier(dev, images):
+    """The seeded classifier on `dev`, its BatchNorm statistics those of
+    `images` (a cumulative average over that one batch), its head scaled
+    so that the eval logits of `images` have a standard deviation of 1
+    (a random head on calibrated features saturates the softmax, whose
+    gradients then vanish) and centred on each class's mean over them
+    (else similar scenes all take one class), in eval mode."""
+    model = flax_init_(CountingClassifier(),
+                       torch.Generator().manual_seed(SEED + 170)).to(dev)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.reset_running_stats()
+            m.momentum = None
+    with torch.no_grad():
+        model.train()(images.to(dev))
+        logits = model.eval()(images.to(dev))
+        scale = logits.std()
+        model.head.weight /= scale
+        model.head.bias -= logits.mean(dim=0) / scale
+    model.forwards = model.input_grads = 0
+    return model
+
+
+def _cls_suite(B, n_targets):
+    """(name, run(model, x, y, generator) -> adv, constraint (norm,
+    bound), targeted, predicted (forwards, input gradients) or None where
+    the count depends on the data) for every attack of modules 1-2, at
+    JAX's defaults but CLS_CUTS."""
+    c, a = classifier_attacks, classifier_auto
+    E = CLS_EPS
+    sq, op = CLS_CUTS["square"], CLS_CUTS["onepixel"]
+    n_pop = c._onepixel_population(3, 1, op["popsize"])[0]
+    op_fwd = (op["steps"] + 1) * -(-B * n_pop // c.ONEPIXEL_CHUNK)
+    tgt = lambda y: (y + 1) % CLS_CLASSES
+    at, fb = CLS_CUTS["apgdt"]["steps"], CLS_CUTS["fab"]["steps"]
+    return [
+        ("fgsm", lambda m, x, y, g: c.fgsm(m, x, y), ("Linf", E), False,
+         (1, 1)),
+        ("bim", lambda m, x, y, g: c.bim(m, x, y), ("Linf", E), False,
+         (10, 10)),
+        ("rfgsm", lambda m, x, y, g: c.rfgsm(m, x, y, generator=g),
+         ("Linf", E), False, (10, 10)),
+        ("pgd", lambda m, x, y, g: c.pgd(m, x, y, generator=g), ("Linf", E),
+         False, (10, 10)),
+        ("pgd targeted", lambda m, x, y, g: c.pgd(
+            m, x, tgt(y), generator=g, targeted=True), ("Linf", E), True,
+         (10, 10)),
+        ("pgdl2", lambda m, x, y, g: c.pgdl2(m, x, y, generator=g),
+         ("L2", 1.0), False, (10, 10)),
+        ("eotpgd", lambda m, x, y, g: c.eotpgd(m, x, y, generator=g),
+         ("Linf", E), False, (20, 20)),
+        ("ffgsm", lambda m, x, y, g: c.ffgsm(m, x, y, generator=g),
+         ("Linf", E), False, (1, 1)),
+        ("tpgd", lambda m, x, y, g: c.tpgd(m, x, generator=g), ("Linf", E),
+         False, (11, 10)),
+        ("mifgsm", lambda m, x, y, g: c.mifgsm(m, x, y), ("Linf", E), False,
+         (10, 10)),
+        ("gn", lambda m, x, y, g: c.gn(x, generator=g), ("box", None), None,
+         (0, 0)),
+        ("vanila", lambda m, x, y, g: c.vanila(x), ("Linf", 0.0), None,
+         (0, 0)),
+        ("cw", lambda m, x, y, g: c.cw(m, x, y), ("box", None), False,
+         (51, 50)),
+        ("cw targeted", lambda m, x, y, g: c.cw(m, x, tgt(y), targeted=True),
+         ("box", None), True, (51, 50)),
+        ("deepfool", lambda m, x, y, g: c.deepfool(m, x, y), ("box", None),
+         False, None),
+        ("difgsm", lambda m, x, y, g: c.difgsm(m, x, y, generator=g),
+         ("Linf", E), False, (10, 10)),
+        ("jitter", lambda m, x, y, g: c.jitter(m, x, y, generator=g),
+         ("Linf", E), False, (10, 10)),
+        ("upgd", lambda m, x, y, g: c.upgd(m, x, y, generator=g),
+         ("Linf", E), False, (10, 10)),
+        ("tifgsm", lambda m, x, y, g: c.tifgsm(m, x, y, generator=g),
+         ("Linf", E), False, (20, 20)),
+        ("sparsefool", lambda m, x, y, g: c.sparsefool(
+            m, x, y, **CLS_CUTS["sparsefool"]), ("box", None), False, None),
+        ("onepixel", lambda m, x, y, g: c.onepixel(m, x, y, generator=g,
+                                                   **op), ("L0", 1), False,
+         (op_fwd, 0)),
+        ("apgd", lambda m, x, y, g: a.apgd(m, x, y, generator=g),
+         ("Linf", E), False, (101, 101)),
+        ("apgd L2", lambda m, x, y, g: a.apgd(m, x, y, norm="L2", eps=1.0,
+                                              generator=g), ("L2", 1.0),
+         False, (101, 101)),
+        ("apgdt", lambda m, x, y, g: a.apgdt(m, x, y, generator=g, steps=at),
+         ("Linf", E), False,
+         (1 + n_targets * (at + 1), n_targets * (at + 1))),
+        ("fab", lambda m, x, y, g: a.fab(m, x, y, generator=g, steps=fb),
+         ("Linf", 0.3), False, (2 * fb + 3, CLS_CLASSES * fb)),
+        ("square", lambda m, x, y, g: a.square(m, x, y, generator=g, **sq),
+         ("Linf", E), False, (sq["n_queries"] + 1, 0)),
+        ("square L2", lambda m, x, y, g: a.square(
+            m, x, y, norm="L2", eps=1.0, generator=g, **sq), ("L2", 1.0),
+         False, (sq["n_queries"] + 1, 0)),
+        ("multiattack", lambda m, x, y, g: a.multiattack(
+            [lambda xx, yy: c.fgsm(m, xx, yy, eps=1 / 255),
+             lambda xx, yy: c.pgd(m, xx, yy, generator=g)], m, x, y),
+         ("Linf", E), False, None),
+        ("autoattack", lambda m, x, y, g: a.autoattack(
+            m, x, y, **CLS_CUTS["autoattack"]), ("Linf", E), False, None),
+    ]
+
+
+def _constraint(adv, x, norm, eps):
+    """(the perturbation's size under `norm`, whether it holds)."""
+    d = (adv - x).flatten(1)
+    if norm == "Linf":
+        size = float(d.abs().max())
+        return size, size <= eps + 1e-6
+    if norm == "L2":
+        size = float(d.norm(dim=1).max())
+        return size, size <= eps + 1e-4
+    if norm == "L0":
+        size = int(((adv - x).abs() > 0).any(dim=1).flatten(1).sum(1).max())
+        return size, size <= eps
+    return float(d.abs().max()), True  # [0, 1] only: the L-inf size
+
+
+def _goal_prob(model, x, y):
+    with torch.no_grad():
+        return torch.softmax(model(x), 1).gather(1, y[:, None]).mean().item()
+
+
+def phase_classifier_attacks(dev, model, x, y) -> dict:
+    """17a: every attack once at 224x224, batch 16: seconds (synchronised),
+    its constraint against its bound, accuracy before and after, the mean
+    probability of the label (targeted: of the target, label + 1), its
+    forwards and input gradients against the predicted ones. Fails on a
+    broken constraint, a non-finite output, an untargeted attack that
+    raises accuracy or a targeted one that lowers its target's
+    probability."""
+    log(f"classifier 17a: a ResNet-18 classifier (the port's "
+        f"ResnetEncoder(18), global average pool, Linear(512, "
+        f"{CLS_CLASSES})), flax's seeded init, BatchNorm calibrated on the "
+        f"batch, eval, float32, {CLS_HW}x{CLS_HW}, batch {CLS_BATCH}, "
+        f"labels its own predictions; JAX's defaults but these cuts: "
+        f"{json.dumps(CLS_CUTS)}")
+    with torch.no_grad():
+        acc0 = float((model(x).argmax(1) == y).float().mean())
+    for i, (name, run, (norm, eps), targeted, want) in enumerate(
+            _cls_suite(CLS_BATCH, CLS_CLASSES - 1)):
+        goal = (y + 1) % CLS_CLASSES if targeted else y
+        p0 = _goal_prob(model, x, goal)
+        before = (model.forwards, model.input_grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adv = run(model, x, y, torch.Generator().manual_seed(SEED + 300 + i))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counted = (model.forwards - before[0], model.input_grads - before[1])
+        size, held = _constraint(adv, x, norm, eps)
+        with torch.no_grad():
+            acc = float((model(adv).argmax(1) == y).float().mean())
+        p1 = _goal_prob(model, adv, goal)
+        finite = bool(torch.isfinite(adv).all()) and \
+            0.0 <= float(adv.min()) and float(adv.max()) <= 1.0
+        log(f"  {name}: {secs:.4f} s; {norm} {size:.6g} (bound {eps}); "
+            f"accuracy {acc0:.4f} -> {acc:.4f}; mean p("
+            f"{'target' if targeted else 'label'}) {p0:.6f} -> {p1:.6f}; "
+            f"forwards {counted[0]}, input gradients {counted[1]}"
+            + (f" (predicted {want[0]}, {want[1]})" if want else
+               " (data-dependent)"))
+        if not (held and finite):
+            raise AssertionError(f"classifier {name}: constraint {held}, "
+                                 f"finite in [0, 1] {finite}")
+        if (targeted is False and acc > acc0) or \
+                (targeted and p1 < p0):
+            raise AssertionError(f"classifier {name}: the attack moved "
+                                 f"away from its goal")
+        if want is not None and counted != want:
+            raise AssertionError(f"classifier {name}: {counted} model "
+                                 f"passes, predicted {want}")
+
+
+def phase_classifier_parity(dev, model, x, y) -> None:
+    """17b: the card against the CPU's plain versions at batch 2: FGSM,
+    BIM (3 steps), PGD from an injected start, MIFGSM, CW (3 steps),
+    DeepFool (2 steps), APGD (5 steps, injected start). The input
+    gradient at the images and at PGD's start within CLS_GRAD_L2
+    relative L2; FGSM's one signed step
+    split on at most CLS_SPLIT_ONE of the values, the rest within
+    CLS_SAME; DeepFool's two continuous steps within CLS_SAME_DF; the
+    multi-step sign attacks and CW, whose first splits spread through
+    ResNet-18's receptive field (it covers the image) and cannot be held
+    value by value: their share apart logged, and the card's adversarial
+    images predicted as the CPU's."""
+    c, a = classifier_attacks, classifier_auto
+    cpu = CountingClassifier()
+    cpu.load_state_dict(model.state_dict())
+    cpu.eval()
+    xs, ys = x[:2].cpu(), y[:2].cpu()
+    gen = torch.Generator().manual_seed(SEED + 350)
+    start = c.uniform_start(gen, xs, CLS_EPS)
+    t_apgd = [a.apgd_draws(gen, xs, "Linf")]
+    for at, what in ((xs, "the images"),
+                     (torch.clamp(xs + start.noise, 0.0, 1.0), "PGD's start")):
+        g = {d: c._loss_grad(m, at.to(d), ys.to(d), False).cpu()
+             for d, m in ((dev, model), ("cpu", cpu))}
+        l2 = float((g[dev] - g["cpu"]).norm() / g["cpu"].norm())
+        err = float((g[dev] - g["cpu"]).abs().max() / g["cpu"].abs().max())
+        log(f"classifier 17b: input gradient at {what}, card vs CPU: "
+            f"{l2:.3e} relative L2 (max {CLS_GRAD_L2}), its largest "
+            f"difference {err:.3e} of its max")
+        if not l2 <= CLS_GRAD_L2:
+            raise AssertionError(f"classifier: the gradient at {what} "
+                                 f"parts")
+    runs = (("fgsm", lambda m, x_, y_: c.fgsm(m, x_, y_)),
+            ("bim", lambda m, x_, y_: c.bim(m, x_, y_, steps=3)),
+            ("pgd", lambda m, x_, y_: c.pgd(m, x_, y_, steps=3, draws=start)),
+            ("mifgsm", lambda m, x_, y_: c.mifgsm(m, x_, y_, steps=3)),
+            ("cw", lambda m, x_, y_: c.cw(m, x_, y_, steps=3)),
+            ("deepfool", lambda m, x_, y_: c.deepfool(m, x_, y_, steps=2)),
+            ("apgd", lambda m, x_, y_: a.apgd(m, x_, y_, steps=5,
+                                             draws=t_apgd)))
+    for name, run in runs:
+        got = run(model, xs.to(dev), ys.to(dev)).cpu()
+        want = run(cpu, xs, ys)
+        d = (got - want).abs()
+        split = float((d > CLS_SAME).float().mean())
+        with torch.no_grad():
+            same_pred = torch.equal(cpu(got).argmax(1), cpu(want).argmax(1))
+        log(f"classifier 17b {name}: card vs CPU at batch 2: {split:.4%} of "
+            f"the values apart by more than {CLS_SAME}, max |difference| "
+            f"{float(d.max()):.3e}; the same predictions {same_pred}")
+        held = {"fgsm": split <= CLS_SPLIT_ONE,
+                "deepfool": float(d.max()) <= CLS_SAME_DF}.get(name,
+                                                                same_pred)
+        if not held:
+            raise AssertionError(f"classifier {name}: the card and the CPU "
+                                 f"part")
+
+
+def phase_classifier_pool(dev, passes, launches) -> None:
+    """17c: kernel B's launches over 17a-17b against the model passes,
+    then B at the classifier's stem shape against its plain version,
+    forward and backward (bit for bit), timed beside the library's."""
+    b1, b2 = launches["maxpool3x3s2_fwd"], launches["maxpool3x3s2_bwd"]
+    log(f"classifier 17c: B1 {b1}, B2 {b2} launches over 17a-17b; the "
+        f"classifier's forwards {passes[0]}, input gradients {passes[1]}")
+    if (b1, b2) != passes:
+        raise AssertionError("classifier: B's launches are not the model's "
+                             "passes")
+    if others := {k: v for k, v in launches.items()
+                  if v and not k.startswith("maxpool3x3s2_")}:
+        raise AssertionError(f"classifier: unexpected launches {others}")
+    gen = torch.Generator().manual_seed(SEED + 360)
+    shape = (CLS_BATCH, 64, CLS_HW // 2, CLS_HW // 2)
+    x = torch.relu(torch.randn(shape, generator=gen)).to(dev)
+    y_k = pool.maxpool3x3s2_fwd_cuda(x)
+    y_p = pool.maxpool3x3s2_plain(x)
+    g = torch.randn(y_p.shape, generator=gen).to(dev)
+    dx_k = pool.maxpool3x3s2_bwd_cuda(x, g)
+    dx_p = pool.maxpool3x3s2_backward_plain(x, g)
+    exact = torch.equal(y_k, y_p) and torch.equal(dx_k, dx_p)
+    _, idx = F.max_pool2d(x, 3, 2, 1, return_indices=True)
+    fwd = (cuda_ms(lambda: pool.maxpool3x3s2_fwd_cuda(x)),
+           cuda_ms(lambda: pool.maxpool3x3s2_plain(x)),
+           cuda_ms(lambda: F.max_pool2d(x, 3, 2, 1)),
+           bound(nbytes(x, y_k), 8 * y_k.numel()))
+    bwd = (cuda_ms(lambda: pool.maxpool3x3s2_bwd_cuda(x, g)),
+           cuda_ms(lambda: pool.maxpool3x3s2_backward_plain(x, g)),
+           cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+               g, x, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)),
+           bound(nbytes(x, g, dx_k), 26 * g.numel()))
+    for name, (ms, plain, lib, (b, by)) in (("B1", fwd), ("B2", bwd)):
+        log(f"  {name} at {shape}: bit-exact {exact}; {ms:.4f} ms on the "
+            f"card alone, plain {plain:.4f}, library {lib:.4f}, bound "
+            f"{b:.4f} ({by}): {b / ms:.0%} of it")
+    if not exact:
+        raise AssertionError("pool kernel is not bit-exact at the "
+                             "classifier's stem")
+
+
+def phase_options_manydepth(dev) -> dict:
+    """17d: ManyDepth's evaluation forward in 14d's setting (a weights
+    folder, then `ManyDepthModel` at 640x192, batch 12 on the card, a
+    lookup 4 columns over, a 0.1 x-translation; seeded weights) with
+    inverse binning (the folder's metadata) and then with missing bins
+    left at 0: single-frame and multi-frame, card against CPU on 2 items
+    within 14d's EVAL_DISP_ATOL, lowest_cost and confidence within
+    EVAL_SPLIT_MAX of their pixels; B once and D 4 times a forward."""
+    e = MANYDEPTH_EVAL
+    H, W, B = e["height"], e["width"], e["batch"]
+    seeded = flax_init_(ManyDepthModel(input_height=H, input_width=W),
+                        torch.Generator().manual_seed(SEED + 380))
+    root = os.path.join(REPO, "build", "manydepth_options_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    folder = checkpoints.export_manydepth_reference(
+        root, 0, seeded.state_dict(), height=H, width=W,
+        min_depth_bin=e["min_depth_bin"], max_depth_bin=e["max_depth_bin"])
+    path = os.path.join(folder, "encoder.pth")
+    torch.save(dict(torch.load(path, weights_only=True),
+                    depth_binning="inverse"), path)
+    cpu_model, meta = checkpoints.load_manydepth_reference(folder,
+                                                           device="cpu")
+    model, _ = checkpoints.load_manydepth_reference(folder, device=dev)
+    shutil.rmtree(root, ignore_errors=True)
+    x = bilinear_resize(torch.from_numpy(make_scene(B, 375, 1242,
+                                                    seed=SEED + 381)), H, W)
+    look = torch.roll(x, 4, dims=2)[:, None]
+    pose = torch.eye(4).repeat(B, 1, 1)
+    pose[:, 0, 3] = 0.1
+    K, invK = quarter_intrinsics(MONODEPTH2_K, H, W)
+    kw = lambda d, n: dict(K=K.expand(n, 4, 4).to(d),
+                           invK=invK.expand(n, 4, 4).to(d),
+                           min_depth_bin=meta["min_depth_bin"],
+                           max_depth_bin=meta["max_depth_bin"])
+    runs = {"single": lambda m, d, n: (m(x[:n].to(d), **kw(d, n)),),
+            "multi": lambda m, d, n: m.multi_frame(
+                x[:n].to(d), look[:n].to(d), pose[:n, None].to(d),
+                **kw(d, n))}
+    total = {k.name: 0 for k in _build.KERNELS}
+    for option in ("inverse bins", "missing bins at 0"):
+        if option == "missing bins at 0":
+            for m in (model, cpu_model):
+                m.encoder.set_missing_to_max = False
+        for mode, run in runs.items():
+            with torch.no_grad():
+                want = run(cpu_model, torch.device("cpu"), 2)
+                got = [t.cpu() for t in run(model, dev, 2)]
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                full = run(model, dev, B)
+                torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in _build.KERNELS}
+            err = float((got[0] - want[0]).abs().max())
+            splits = [float((g != w).float().mean())
+                      for g, w in zip(got[1:], want[1:])]
+            log(f"options 17d ManyDepth ({option}, metadata depth_binning "
+                f"{meta.get('depth_binning')!r}) {mode} at {W}x{H}: card vs "
+                f"CPU on 2 items: disp0 max |difference| {err:.3e} (max "
+                f"{EVAL_DISP_ATOL}), lowest_cost and confidence differ on "
+                f"{json.dumps(splits)} (max {EVAL_SPLIT_MAX}); batch {B} "
+                f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+            _expect_launches(f"17d {option} {mode}", launches,
+                             {"maxpool3x3s2_fwd": 1, "conv3x3_fwd": 4})
+            if not err <= EVAL_DISP_ATOL or not all(
+                    s <= EVAL_SPLIT_MAX for s in splits) or not all(
+                    bool(torch.isfinite(t).all()) for t in full):
+                raise AssertionError(f"ManyDepth with {option} failed")
+            for k, v in launches.items():
+                total[k] += v
+    return total
+
+
+L2_EPS = 8.0
+
+
+class _KeptImages(PGDImageAttack):
+    """Whole-image PGD that keeps its last (adv, ben) in `kept`."""
+
+    def __call__(self, *a, **k):
+        self.kept = super().__call__(*a, **k)
+        return self.kept
+
+
+def _keeping_textures(attack):
+    """`attack` with each `_optimize`'s texture kept in `attack.textures`."""
+    attack.textures = []
+    orig = attack._optimize
+
+    def run(*a):
+        attack.textures.append(orig(*a))
+        return attack.textures[-1]
+
+    attack._optimize = run
+    return attack
+
+
+def phase_options_zoo(dev) -> dict:
+    """17d: one batch of the object APGD under the L2 norm (the apgd
+    preset's steps and batch, eps 8 over the 300x200 car's texture as
+    the l2_eps8 preset's, n_restarts 2: the first run's result) and one of whole-image PGD
+    untargeted (the image preset), at full width through evaluate_attacks:
+    constraints held, finite metrics, launches against `zoo_launches`
+    (untargeted: one more forward, the clean prediction)."""
+    _, sd = _golden_weights()
+    predictor = _golden_predictor(dev, sd)
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    total = {k.name: 0 for k in _build.KERNELS}
+    image_preset = next(n for n, p in EVAL_PRESETS.items()
+                        if p.norm_type == "image")
+    for i, (name, label) in enumerate((("apgd_eps005", "APGD L2"),
+                                       (image_preset, "image untargeted"))):
+        cfg = _preset_cfg(name, EVAL_PRESETS[name])
+        attack = build_attack(cfg, predictor, obj, mask)
+        if cfg.norm_type == "APGD":
+            attack = _keeping_textures(APGDObjectAttack(
+                predictor, obj, mask, attack.cfg, norm="L2", eps=L2_EPS,
+                steps=cfg.step, n_restarts=2))
+        else:
+            attack = _KeptImages(predictor, eps=cfg.epsilon, alpha=cfg.alpha,
+                                 steps=cfg.step, targeted=False,
+                                 scene_hw=(cfg.scene_h, cfg.scene_w))
+        scenes = make_scene(cfg.batch_size, cfg.ori_h, cfg.ori_w,
+                            seed=SEED + 390 + i)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = evaluate_attacks(predictor, attack, [scenes], cfg,
+                               generator=torch.Generator().manual_seed(
+                                   SEED + 395 + i))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in _build.KERNELS}
+        want = zoo_launches(cfg)
+        if cfg.norm_type == "image":
+            want["maxpool3x3s2_fwd"] += 1
+            want["conv3x3_fwd"] += 4
+            adv, ben = attack.kept
+            size = float((adv - ben).abs().max())
+            if not size <= cfg.epsilon + 1e-6:
+                raise AssertionError(f"17d {label}: L-inf {size}")
+            size = f"L-inf {size:.6g} (bound {cfg.epsilon})"
+        else:
+            size = float((attack.textures[-1] - attack.obj_img).norm())
+            if not size <= L2_EPS + 1e-4:
+                raise AssertionError(f"17d {label}: L2 {size} > {L2_EPS}")
+            size = f"L2 {size:.6f} (bound {L2_EPS})"
+        log(f"options 17d {label} ({name}, batch {cfg.batch_size}, "
+            f"{cfg.step} steps): {secs:.4f} s/batch; {size}; metrics mean "
+            f"{json.dumps({k: round(v, 6) for k, v in res['mean'].items()})};"
+            f" launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        _expect_launches(f"17d {label}", launches, want)
+        if not all(math.isfinite(v) for v in res["mean"].values()):
+            raise AssertionError(f"17d {label}: non-finite metrics")
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def phase_options_hints(dev) -> dict:
+    """17d: one DepthHints step in 14a's configuration (ResNet-50,
+    contras_loss_wt 0.1, the CLI's bf16 student) with use_depth_hints
+    False, which takes the self-supervised loss (as in JAX); then the
+    DepthHints loss itself with use_depth_hints=False on a stereo batch
+    at 1024x320 (batch 2, no hint planes), forward and backward on the
+    card against the CPU's: the loss within 1e-4 relative, C launched 5
+    times forward (4 scales and the identity) and 4 + 4 backward."""
+    from depthmodelhardening_tpu_torch.training import depth_hints
+
+    family = dict(FAMILY_RUNS[0][1], use_depth_hints=False)
+    cfg = dataclasses.replace(_cli_cfg(("0", "s")), **family)
+    sd, _, _ = calibrated_family(dev, cfg, SEED + 130)
+    obj, mask = make_car_object(300, 200, seed=SEED)
+    trainer = _harden_trainer(dev, cfg, sd, obj, mask, SEED + 134)
+    inputs = _harden_inputs(dev, cfg, SEED + 135)
+    _, launches = run_hardening_steps("17d hints off", trainer, inputs, 0, 1)
+    del trainer, inputs
+    torch.cuda.empty_cache()
+    H, W, B = 320, 1024, 2
+    f0 = bilinear_resize(torch.from_numpy(make_scene(B, 375, 1242,
+                                                     seed=SEED + 398)), H, W)
+    K, invK = hint_data.scaled_K(H, W)
+    batch = {"color": {"0": f0, "s": torch.roll(f0, 4, dims=2)},
+             "K": torch.from_numpy(K).expand(B, 4, 4),
+             "inv_K": torch.from_numpy(invK.astype(np.float32)).expand(
+                 B, 4, 4),
+             "stereo_T": stereo_T_batch(torch.tensor([True, False]),
+                                        torch.tensor([False, True]))}
+    gen = torch.Generator().manual_seed(SEED + 399)
+    disps = {s: 0.2 + 0.4 * torch.rand(B, H >> s, W >> s, 1, generator=gen)
+             for s in range(4)}
+    ss = SelfSupConfig(height=H, width=W)
+    noise = torch.randn(depth_hints.identity_noise_shape(ss, B),
+                        generator=gen)
+
+    def loss_and_grad(d):
+        on = lambda t: t.to(d)
+        ds = {s: v.detach().to(d).requires_grad_(True)
+              for s, v in disps.items()}
+        b = {"color": {k: on(v) for k, v in batch["color"].items()},
+             **{k: on(batch[k]) for k in ("K", "inv_K", "stereo_T")}}
+        loss, _ = depth_hints.compute_depth_hints_losses(
+            ds, b, {}, on(noise), ss, use_depth_hints=False)
+        loss.backward()
+        return loss.item(), [ds[s].grad.cpu() for s in range(4)]
+
+    want, g_cpu = loss_and_grad(torch.device("cpu"))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got, g_card = loss_and_grad(dev)
+    torch.cuda.synchronize()
+    direct = {k.name: k.launches for k in _build.KERNELS}
+    grad = max(float((a - b).norm() / b.norm()) for a, b in zip(g_card,
+                                                                g_cpu))
+    log(f"options 17d: compute_depth_hints_losses(use_depth_hints=False) at "
+        f"{W}x{H}, batch 2: card {got:.7f}, CPU {want:.7f} ({_rel(got, want):.2e}"
+        f" relative), the disparities' gradients within {grad:.2e} relative "
+        f"L2; launches {json.dumps({k: v for k, v in direct.items() if v})}")
+    _expect_launches("17d hint-free loss", direct, {
+        "reproj_loss_fwd": 5, "reproj_loss_bwd_q": 4,
+        "reproj_loss_bwd_grad": 4})
+    if not _rel(got, want) <= 1e-4 or not grad <= 1e-3 or \
+            not math.isfinite(got):
+        raise AssertionError("the hint-free DepthHints loss parts from the "
+                             "CPU's")
+    for k, v in direct.items():
+        launches[k] += v
+    return launches
+
+
+def phase_classifier(dev) -> dict:
+    """Phase 17; returns its launches (17a-17b's B, 17d's)."""
+    t_start = time.perf_counter()
+    x = _classifier_images(CLS_BATCH, SEED + 310).to(dev)
+    model = classifier(dev, x)
+    with torch.no_grad():
+        y = model(x).argmax(1)
+    log(f"classifier: own labels of the {CLS_BATCH} images: "
+        f"{y.tolist()}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    model.forwards = model.input_grads = 0
+    t0 = time.perf_counter()
+    phase_classifier_attacks(dev, model, x, y)
+    log(f"  [17a: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    phase_classifier_parity(dev, model, x, y)
+    log(f"  [17b: {time.perf_counter() - t0:.1f} s]")
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _build.KERNELS}
+    passes = (model.forwards, model.input_grads)
+    t0 = time.perf_counter()
+    phase_classifier_pool(dev, passes, launches)
+    log(f"  [17c: {time.perf_counter() - t0:.1f} s]")
+    del model, x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for part in (phase_options_manydepth, phase_options_zoo,
+                 phase_options_hints):
+        for k, v in part(dev).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+    log(f"  [17d: {time.perf_counter() - t0:.1f} s]")
+    log(f"  [phase 17 in all: {time.perf_counter() - t_start:.1f} s]")
+    return launches
+
+
 def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -4814,12 +5489,14 @@ def main() -> int:
         commands, files = timed("phase 15", phase_cli_commands, dev, root)
         torch.cuda.empty_cache()
         data_parallel = timed("phase 16", phase_parallel, dev, files)
+    torch.cuda.empty_cache()
+    classifier_launches = timed("phase 17", phase_classifier, dev)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
                          + distill_launches[name] + bench_launches[name]
                          + harden[name] + cli[name] + zoo[name]
                          + families[name] + commands[name]
-                         + data_parallel[name])
+                         + data_parallel[name] + classifier_launches[name])
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",
                            "launches", "max_abs_err", "ms", "host_ms",

@@ -1,0 +1,2 @@
+from . import classifier
+from . import classifier_auto

@@ -7,9 +7,11 @@ Hein's APGD on the EoT depth objective):
   * every loss evaluation projects with the same pinned EoT sample (the
     reference's fixed-seed RandomState, :104-110; the JAX package's
     `PRNGKey(seed)`; here a generator seeded with `seed`);
-  * a random start on the L-inf sphere scaled by max |t| (:140-142);
+  * a random start on the L-inf sphere scaled by max |t| (:140-142), or
+    under L2 on the eps-sphere, t / ||t||;
   * the momentum iterate z = x + a (x_cand - x) + (1 - a)(x - x_old),
-    a = 0.75 (1.0 on step 0), each stage projected into the eps-box and
+    a = 0.75 (1.0 on step 0), x_cand a step of sign(g) (L-inf) or
+    g / ||g|| (L2), each stage projected into the eps-box (or ball) and
     [0, 1] (:203-209);
   * checkpointed step-size control: at each checkpoint (the first after
     steps_2 = max(int(0.22 steps), 1) steps, the interval shrinking by
@@ -18,11 +20,10 @@ Hein's APGD on the EoT depth objective):
     one when the loss rose in at most rho k of the last k steps, or the
     best loss did not improve since the last checkpoint (:253-289);
     `reduced_last_check` starts True, the loss history at -inf;
-  * the result is the final iterate, not the best one (:122).
-
-L-inf only: the JAX package's L2 norm option has no caller in the port
-and is not ported, nor is its `n_restarts`, which runs once there too
-(the reference keeps the first run's result).
+  * the result is the final iterate, not the best one (:122);
+  * `n_restarts` runs once: the reference keeps the first restart's
+    result (its always-"fooled" accuracy logic, perturb :315-327), and
+    so does the JAX package (:170).
 
 The loop runs on the card: the best-so-far, the loss history and the
 halving are tensors updated with `torch.where`, and no value is read
@@ -43,6 +44,11 @@ from .base import PhysObjAttack, PhysObjAttackConfig
 _RHO = 0.75
 
 
+def _l2(x):
+    """The L2 norm of the whole texture."""
+    return torch.sqrt(torch.sum(x ** 2))
+
+
 @dataclasses.dataclass
 class APGDDraws:
     """Every random draw of one APGD call (CPU float32 tensors).
@@ -61,9 +67,14 @@ class APGDDraws:
 
 class APGDObjectAttack(PhysObjAttack):
     def __init__(self, predictor, obj_img, obj_mask,
-                 cfg: PhysObjAttackConfig, eps: float = 8 / 255,
-                 steps: int = 100, seed: int = 17):
+                 cfg: PhysObjAttackConfig, norm: str = "Linf",
+                 eps: float = 8 / 255, steps: int = 100,
+                 n_restarts: int = 1, seed: int = 17):
         super().__init__(predictor, obj_img, obj_mask, cfg)
+        if norm not in ("Linf", "L2"):
+            raise ValueError(norm)
+        self.norm = norm
+        self.n_restarts = n_restarts
         self.eps = eps
         self.steps = steps
         self.seed = seed
@@ -86,13 +97,20 @@ class APGDObjectAttack(PhysObjAttack):
                          final_alphas=fa)
 
     def _project(self, x0, z):
-        z = torch.minimum(torch.maximum(z, x0 - self.eps), x0 + self.eps)
-        return torch.clamp(z, 0.0, 1.0)
+        if self.norm == "Linf":
+            z = torch.minimum(torch.maximum(z, x0 - self.eps),
+                              x0 + self.eps)
+            return torch.clamp(z, 0.0, 1.0)
+        delta = z - x0
+        n = _l2(delta) + 1e-12
+        return torch.clamp(x0 + delta / n * torch.clamp(n, max=self.eps),
+                           0.0, 1.0)
 
     @torch.no_grad()
     def _optimize(self, scenes_full, draws: APGDDraws):
-        # one run: the reference keeps the first restart's result (its
-        # always-"fooled" accuracy logic, perturb :315-327)
+        # one run whatever n_restarts: the reference keeps the first
+        # restart's result (its always-"fooled" accuracy logic, perturb
+        # :315-327)
         x0 = self.obj_img
         dev = x0.device
         scenes_model = self._resize_scenes(scenes_full)
@@ -106,8 +124,11 @@ class APGDObjectAttack(PhysObjAttack):
             return -cost, -g
 
         t = draws.t.to(device=dev, dtype=torch.float32)
-        x_adv = torch.clamp(x0 + self.eps * t / torch.max(torch.abs(t)), 0.0,
-                            1.0)
+        if self.norm == "Linf":
+            x_adv = x0 + self.eps * t / torch.max(torch.abs(t))
+        else:
+            x_adv = x0 + self.eps * t / (_l2(t) + 1e-12)
+        x_adv = torch.clamp(x_adv, 0.0, 1.0)
         loss, grad = loss_grad(x_adv)
 
         x_old, x_best, grad_best = x_adv, x_adv, grad
@@ -121,7 +142,9 @@ class APGDObjectAttack(PhysObjAttack):
         counter3, k = 0, self.steps_2
         for i in range(self.steps):
             a = 0.75 if i > 0 else 1.0
-            cand = self._project(x0, x_adv + step_size * torch.sign(grad))
+            step = (torch.sign(grad) if self.norm == "Linf"
+                    else grad / (_l2(grad) + 1e-12))
+            cand = self._project(x0, x_adv + step_size * step)
             z = x_adv + a * (cand - x_adv) + (1.0 - a) * (x_adv - x_old)
             x_new = self._project(x0, z)
             loss, grad = loss_grad(x_new)

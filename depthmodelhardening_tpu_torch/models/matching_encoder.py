@@ -4,8 +4,8 @@ Counterpart of `depthmodelhardening_tpu/models/matching_encoder.py`
 (reference DepthNetworks/manydepth2/networks/resnet_encoder.py:112-331).
 ResNet stem and layer1 give 1/4-resolution features of the current and
 the lookup frames; a plane sweep over `num_depth_bins` depth hypotheses
-(linear binning) warps the lookup features through each
-hypothesis with the relative pose, takes the channel-mean L1 difference
+(linear or inverse binning, :133-155) warps the lookup features through
+each hypothesis with the relative pose, takes the channel-mean L1 difference
 to the current features, masks 2 pixels at the edges and averages over
 the frames that see a pixel (a frame with an all-zero pose is missing).
 The confidence-masked volume joins layer1's features, a 3x3 `reduce_conv`
@@ -29,14 +29,18 @@ As the JAX package computes it:
 * The depth bins round as XLA:CPU's jitted program rounds them:
   linspace(0, 1, D) is iota times the rounded reciprocal of D - 1 (the
   last exactly 1), and a + b t is fused (one rounding, computed here in
-  float64).
+  float64). Inverse binning spaces the inverse depths so, from 1 / max
+  to 1 / min, reversed, then inverts them; JAX's jitted forward fuses
+  that reciprocal with lowest_cost's, which then lies up to an ulp from
+  1 / bins here.
+* A missing bin (no frame sees it) takes the pixel's largest cost with
+  `set_missing_to_max` (the default), else it stays 0.
+* Fixed bins (`adaptive_bins=False`, or no endpoints given) run from the
+  constructor's `min_depth_bin` to `max_depth_bin` (the reference's
+  MIN_DEPTH_BIN .. MAX_DEPTH_BIN by default; a checkpoint's bins for
+  JAX's `ManyDepthTrainModel`, `models/wrappers.py:209-224`).
 * `prematching_conv` is declared and never applied, as in the
   reference, so checkpoints stay interchangeable.
-
-Not ported, since no caller in the port sets them: JAX's inverse depth
-binning (`depth_binning="inverse"`), `set_missing_to_max=False` (a
-missing bin here always takes the pixel's largest cost) and fixed bins
-other than MIN_DEPTH_BIN .. MAX_DEPTH_BIN (the reference's defaults).
 
 The sweep samples with zero padding (`ops/sampling.py:
 bilinear_sample_pixels`), one item's lookup features at every bin's
@@ -81,12 +85,21 @@ class ResnetEncoderMatching(nn.Module):
 
     def __init__(self, num_layers: int = 18, input_height: int = 192,
                  input_width: int = 640, num_depth_bins: int = 96,
-                 adaptive_bins: bool = False):
+                 adaptive_bins: bool = False,
+                 min_depth_bin: float = MIN_DEPTH_BIN,
+                 max_depth_bin: float = MAX_DEPTH_BIN,
+                 depth_binning: str = "linear",
+                 set_missing_to_max: bool = True):
         super().__init__()
+        if depth_binning not in ("linear", "inverse"):
+            raise NotImplementedError(depth_binning)
         self.num_layers = num_layers
         self.input_height, self.input_width = input_height, input_width
         self.num_depth_bins = num_depth_bins
         self.adaptive_bins = adaptive_bins
+        self.min_depth_bin, self.max_depth_bin = min_depth_bin, max_depth_bin
+        self.depth_binning = depth_binning
+        self.set_missing_to_max = set_missing_to_max
         ch = encoder_channels(num_layers)
         self.num_ch_enc = ch
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
@@ -108,17 +121,22 @@ class ResnetEncoderMatching(nn.Module):
         return f0, run_stage(self.layer1, maxpool3x3s2(f0), False)
 
     def depth_bins(self, min_bin=None, max_bin=None, device=None):
-        """The D hypotheses, linearly spaced (resnet_encoder.py:133-148):
-        from MIN_DEPTH_BIN to MAX_DEPTH_BIN unless `adaptive_bins` and
-        given."""
+        """The D hypotheses (resnet_encoder.py:133-155), linearly spaced
+        or with linearly spaced inverses: from the constructor's
+        endpoints unless `adaptive_bins` and given."""
         if min_bin is None or not self.adaptive_bins:
-            min_bin = MIN_DEPTH_BIN
+            min_bin = self.min_depth_bin
         if max_bin is None or not self.adaptive_bins:
-            max_bin = MAX_DEPTH_BIN
+            max_bin = self.max_depth_bin
         lo = torch.as_tensor(min_bin, dtype=torch.float32, device=device)
         hi = torch.as_tensor(max_bin, dtype=torch.float32, device=device)
+        if self.depth_binning == "inverse":
+            lo, hi = 1.0 / hi, 1.0 / lo
         t = linspace01(self.num_depth_bins, device).double()
-        return (lo.double() + (hi - lo).double() * t).float()
+        spaced = (lo.double() + (hi - lo).double() * t).float()
+        if self.depth_binning == "inverse":
+            return 1.0 / spaced.flip(0)
+        return spaced
 
     @torch.no_grad()
     def cost_volume(self, cur, lookup, poses, K, invK, bins):
@@ -160,7 +178,9 @@ class ResnetEncoderMatching(nn.Module):
                 seen[:, d0:d0 + n] += (diffs > 0).float()
         cost = total / (seen + 1e-7)
         missing = (cost == 0).float()
-        cost = cost * (1 - missing) + cost.amax(dim=1, keepdim=True) * missing
+        if self.set_missing_to_max:
+            cost = cost * (1 - missing) + cost.amax(dim=1,
+                                                    keepdim=True) * missing
         return cost, missing
 
     # -- forward ---------------------------------------------------------------

@@ -158,23 +158,25 @@ def _stack_nchw(frames):
 
 class ManyDepthModel(nn.Module):
     """ManyDepth's evaluation wrapper (JAX :127-189, depth_model.py:
-    22-58): the cost-volume encoder with adaptive bins and linear
-    binning, the decoder, the disparity divided by 8.6437. K / invK
-    (B, 4, 4) are the 1/4-resolution intrinsics (`quarter_intrinsics`).
-    `forward` feeds zero lookup frames and poses through the general
-    path, as the reference does; `multi_frame` real ones. The mode is the
-    module's (eval for evaluation)."""
+    22-58): the cost-volume encoder with adaptive bins (linear binning,
+    as JAX's, or a checkpoint's `depth_binning`), the decoder, the
+    disparity divided by 8.6437. K / invK (B, 4, 4) are the
+    1/4-resolution intrinsics (`quarter_intrinsics`). `forward` feeds
+    zero lookup frames and poses through the general path, as the
+    reference does; `multi_frame` real ones. The mode is the module's
+    (eval for evaluation)."""
 
     def __init__(self, num_layers: int = 18,
                  scales: Sequence[int] = (0, 1, 2, 3),
                  input_height: int = 192, input_width: int = 640,
-                 num_depth_bins: int = 96, dtype=torch.float32):
+                 num_depth_bins: int = 96, dtype=torch.float32,
+                 depth_binning: str = "linear"):
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.encoder = ResnetEncoderMatching(
             num_layers=num_layers, input_height=input_height,
             input_width=input_width, num_depth_bins=num_depth_bins,
-            adaptive_bins=True)
+            adaptive_bins=True, depth_binning=depth_binning)
         self.decoder = DepthDecoder(scales=scales,
                                     num_ch_enc=encoder_channels(num_layers))
 
@@ -205,7 +207,8 @@ class ManyDepthTrainModel(nn.Module):
     `MonodepthModel`'s calls): the cost-volume encoder with fixed bins in
     the reference's single-frame mode (zero lookups, through
     `skip_cost_volume`: manydepth2/trainer.py:345-386), the bins fixed at
-    MIN_DEPTH_BIN .. MAX_DEPTH_BIN, every disparity
+    min_depth_bin .. max_depth_bin (a checkpoint's; by default the
+    reference's MIN_DEPTH_BIN .. MAX_DEPTH_BIN), every disparity
     divided by 8.6437; `encode_multi` / `features_and_disps_multi` build
     the volume from real lookup frames and poses
     (`manydepth_real_lookup`). The intrinsics are Monodepth2's at a
@@ -215,13 +218,16 @@ class ManyDepthTrainModel(nn.Module):
     def __init__(self, num_layers: int = 18,
                  scales: Sequence[int] = (0, 1, 2, 3),
                  input_height: int = 320, input_width: int = 1024,
-                 num_depth_bins: int = 96, dtype=torch.float32):
+                 num_depth_bins: int = 96, dtype=torch.float32,
+                 min_depth_bin: float = MIN_DEPTH_BIN,
+                 max_depth_bin: float = MAX_DEPTH_BIN):
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.encoder = ResnetEncoderMatching(
             num_layers=num_layers, input_height=input_height,
             input_width=input_width, num_depth_bins=num_depth_bins,
-            adaptive_bins=False)
+            adaptive_bins=False, min_depth_bin=min_depth_bin,
+            max_depth_bin=max_depth_bin)
         self.decoder = DepthDecoder(scales=scales,
                                     num_ch_enc=encoder_channels(num_layers))
         K, invK = quarter_intrinsics(MONODEPTH2_K, input_height, input_width,

@@ -192,19 +192,18 @@ def load_manydepth_reference(weights_folder: str, height: int = 192,
     card, `resolve_device`); the metadata) (depth_model.py:108-134; JAX
     `load_manydepth_reference`). The depth bins go to the model's calls:
     `model(x, K, invK, meta["min_depth_bin"], meta["max_depth_bin"])`.
-    Linear binning only: a folder whose metadata says otherwise raises."""
+    The metadata's `depth_binning` ("linear" where absent, or "inverse")
+    is the model's; JAX's loader reads it and bins linearly whatever it
+    says."""
     from ..models.wrappers import ManyDepthModel
 
     load = lambda name: torch.load(os.path.join(weights_folder, name),
                                    map_location="cpu", weights_only=True)
     enc, dec = load("encoder.pth"), load("depth.pth")
     meta = {k: v for k, v in enc.items() if k in METADATA_KEYS}
-    if meta.get("depth_binning", "linear") != "linear":
-        raise NotImplementedError(
-            f"depth_binning {meta['depth_binning']!r}: the port's matching "
-            f"encoder bins linearly only")
     model = ManyDepthModel(input_height=int(meta.get("height", height)),
-                           input_width=int(meta.get("width", width)))
+                           input_width=int(meta.get("width", width)),
+                           depth_binning=meta.get("depth_binning", "linear"))
     model.load_state_dict(load_reference_state_dict(enc, dec,
                                                     kind="manydepth"))
     return model.to(resolve_device(device)).eval(), meta

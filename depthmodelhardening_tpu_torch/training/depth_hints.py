@@ -19,11 +19,12 @@ reference depth-hints trainer, DepthNetworks/depth-hints/trainer.py:
   and the proxy loss log(|depth - hint| + 1) over valid pixels the hint
   wins is normalised by the number of winners (:706-723);
 * contras_loss_wt is 0.1 in this family (trainer.py:617): the caller
-  sets it in HardeningConfig, as in JAX.
-
-Not ported, since no caller in the port sets it: JAX's
-`use_depth_hints=False` (the loss without the hint term is
-`training/selfsup.py`'s).
+  sets it in HardeningConfig, as in JAX;
+* `use_depth_hints=False` drops the hint: no warp through it, no third
+  candidate in the argmin, no proxy term, what is left being this
+  family's reprojection (per-frame minima, the automask's masked mean)
+  and smoothness (JAX :47-59). As in JAX, `HardeningConfig(
+  use_depth_hints=False)` takes `training/selfsup.py`'s loss instead.
 
 The batch is `training/selfsup.py`'s plus batch["depth_hint"] (B, H, W,
 1), the fused SGBM depth (0 where invalid), and batch["depth_hint_mask"]
@@ -56,7 +57,8 @@ def depth_hint_warp(batch) -> torch.Tensor:
 
 
 def compute_depth_hints_losses(disps, batch, poses, identity_noise,
-                               cfg: SelfSupConfig, mesh=None):
+                               cfg: SelfSupConfig, mesh=None,
+                               use_depth_hints: bool = True):
     """The self-supervised loss with the proxy hint, averaged over scales.
 
     disps: {scale: (B, h_s, w_s, 1)} sigmoid disparities; poses: {fid:
@@ -64,14 +66,19 @@ def compute_depth_hints_losses(disps, batch, poses, identity_noise,
     draw of `identity_noise_shape`, or None with disable_automasking.
     mesh: the data-parallel mesh, whose ranks each hold their rows: the
     masked means are then the global batch's (as under JAX's mesh).
-    Returns (total, aux) as `compute_selfsup_losses` does."""
+    use_depth_hints: False leaves the hint out (the batch then needs no
+    depth_hint keys). Returns (total, aux) as `compute_selfsup_losses`
+    does."""
     preds, depths = generate_images_pred(disps, batch, poses, cfg)
     target = batch["color"]["0"]
     use_ssim = not cfg.no_ssim
 
-    hint_reproj = reprojection_loss(depth_hint_warp(batch), target,
-                                    use_ssim=use_ssim)
-    hint_reproj = hint_reproj + 1000.0 * (1.0 - batch["depth_hint_mask"])
+    hint_reproj = None
+    if use_depth_hints:
+        hint_reproj = reprojection_loss(depth_hint_warp(batch), target,
+                                        use_ssim=use_ssim)
+        hint_reproj = hint_reproj + 1000.0 * (1.0
+                                              - batch["depth_hint_mask"])
 
     identity = None
     if not cfg.disable_automasking:
@@ -102,19 +109,23 @@ def compute_depth_hints_losses(disps, batch, poses, identity_noise,
              for fid in cfg.source_frame_ids], dim=-1), dim=-1, keepdim=True)
 
         # the 3-way argmin masks (compute_loss_masks, trainer.py:556-591):
-        # reprojection, identity (where automasking), hint
-        stack = [reproj] + ([identity] if identity is not None else []) \
-            + [hint_reproj]
-        idxs = torch.argmin(torch.cat(stack, dim=-1).detach(), dim=-1,
-                            keepdim=True)
-        hint_mask = (idxs == len(stack) - 1).to(reproj.dtype)
-        reproj_mask = ((idxs != 1).to(reproj.dtype) if identity is not None
-                       else torch.ones_like(reproj))
+        # reprojection, identity (where automasking), hint (where used)
+        stack = [reproj] + [t for t in (identity, hint_reproj)
+                            if t is not None]
+        reproj_mask = torch.ones_like(reproj)
+        if len(stack) > 1:
+            idxs = torch.argmin(torch.cat(stack, dim=-1).detach(), dim=-1,
+                                keepdim=True)
+            if identity is not None:
+                reproj_mask = (idxs != 1).to(reproj.dtype)
 
         loss = (reproj * reproj_mask).sum() / denominator(reproj_mask)
-        hint_loss = torch.log(abs_jax(batch["depth_hint"] - depths[scale])
-                              + 1.0) * batch["depth_hint_mask"] * hint_mask
-        loss = loss + hint_loss.sum() / denominator(hint_mask)
+        if hint_reproj is not None:
+            hint_mask = (idxs == len(stack) - 1).to(reproj.dtype)
+            hint_loss = torch.log(
+                abs_jax(batch["depth_hint"] - depths[scale]) + 1.0) \
+                * batch["depth_hint_mask"] * hint_mask
+            loss = loss + hint_loss.sum() / denominator(hint_mask)
 
         disp = disps[scale]
         color = (bilinear_resize(target, disp.shape[1], disp.shape[2])

@@ -51,6 +51,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
 )
 
 from golden_common import depth_decoder_state_dict, resnet18_encoder_state_dict
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, OBJ_H, OBJ_W, STEPS = 2, 40, 60, 2
 EVAL_KW = dict(norm_type="l_inf", epsilon=0.1, alpha=0.005, step=STEPS,

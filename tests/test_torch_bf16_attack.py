@@ -14,6 +14,7 @@ from bf16_common import (
     W, _draws, _f32, _jax_trainer, _port_trainer, _rl2, _ulp, scene,
     student_weights, weights,
 )
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 def test_bf16_view_matches_jax(weights, student_weights, scene):

@@ -18,6 +18,7 @@ from bf16_common import (
     B, BF16_F32_L2, BF16_FLOOR, BF16_L2, BF16_MAX, FOLD_ATOL, _interp,
     _jax_disps, _port_disps, _rl2, _ulp, images, jax_f32, weights,
 )
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 def test_fold_matches_unfolded_and_jax(weights, images, jax_f32):

@@ -241,15 +241,28 @@ def test_manydepth_reference_names_its_slice(tmp_path):
 
 
 def test_manydepth_reference_refuses_inverse_binning(tmp_path):
-    """The port bins linearly only: a folder whose metadata asks for
-    inverse binning raises instead of loading into linear bins."""
+    """A folder whose metadata asks for inverse binning is no longer
+    refused: it loads into a model that bins inversely (its bins the
+    reversed inverses of linearly spaced inverse depths; held against
+    JAX in tests/test_torch_manydepth.py), where the same weights without
+    the key bin linearly."""
     from depthmodelhardening_tpu_torch.models.wrappers import ManyDepthModel
 
     folder = checkpoints.export_manydepth_reference(
         str(tmp_path), 0, ManyDepthModel(input_height=64,
                                          input_width=96).state_dict())
+    linear, _ = checkpoints.load_manydepth_reference(folder, device="cpu")
     path = os.path.join(folder, "encoder.pth")
     enc = torch.load(path, weights_only=True)
     torch.save(dict(enc, depth_binning="inverse"), path)
-    with pytest.raises(NotImplementedError, match="depth_binning"):
-        checkpoints.load_manydepth_reference(folder, device="cpu")
+    model, meta = checkpoints.load_manydepth_reference(folder, device="cpu")
+    assert meta["depth_binning"] == "inverse"
+    bins = model.encoder.depth_bins(0.5, 30.0)
+    inv = 1.0 / bins.double()
+    steps = inv[:-1] - inv[1:]
+    assert torch.allclose(steps, steps[0].expand_as(steps), rtol=0, atol=2e-6)
+    assert float(bins[0]) == pytest.approx(0.5) and float(bins[-1]) == \
+        pytest.approx(30.0)
+    assert not torch.equal(bins, linear.encoder.depth_bins(0.5, 30.0))
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, linear.state_dict()[k]), k

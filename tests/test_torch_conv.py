@@ -27,6 +27,7 @@ from jax.experimental import pallas as pl
 import depthmodelhardening_tpu.ops.pallas_conv as pc
 from depthmodelhardening_tpu.ops.padding import conv3x3_reflect_same
 from depthmodelhardening_tpu_torch.ops import conv
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FWD_ATOL, DX_ATOL, DW_ATOL = 3e-6, 1e-5, 1e-4

@@ -45,6 +45,7 @@ from depthmodelhardening_tpu_torch.data import (
 from depthmodelhardening_tpu_torch.data.loader import PrefetchLoader
 from depthmodelhardening_tpu_torch.parallel.mesh import Mesh
 from depthmodelhardening_tpu_torch.physics import calibration
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 ORI_H, ORI_W = 96, 320
 NATIVE_H, NATIVE_W = 120, 400

@@ -16,7 +16,8 @@ Tolerances, measured on the CPU:
   the same reprojection, its 4x4 products summed in another order);
 * the loss and each scale's term: 1e-5 relative (measured 4.4e-6); the
   gradient over each scale's disparity: 1e-3 relative L2 (measured
-  3.4e-4 with the hint, 1.2e-5 without it);
+  3.4e-4 with the hint, 1.2e-5 without it, and 1.2e-5 with
+  `use_depth_hints=False`);
 * the fused hint equal to JAX's wherever the best two candidates' losses
   are not within 1e-5 relative of each other: the two losses differ by
   up to 2.5e-6 absolute on values about 0.3 (the SSIM's variances
@@ -166,8 +167,8 @@ def test_depth_hints_loss_and_gradient_match_jax(variant):
 def test_invalid_hints_never_win():
     """With the mask all 0 the +1000 penalty keeps the hint out of the
     argmin: the port's loss equals JAX's without hints
-    (`use_depth_hints=False`, which the port does not carry) on the same
-    automask noise, within LOSS_RTOL."""
+    (`use_depth_hints=False`) on the same automask noise, within
+    LOSS_RTOL."""
     batch = _batch()
     batch["depth_hint_mask"] = np.zeros_like(batch["depth_hint_mask"])
     key = jax.random.PRNGKey(6)
@@ -275,3 +276,48 @@ def test_missing_host_modules_raise_and_name_them(monkeypatch):
     monkeypatch.setitem(sys.modules, "PIL.Image", None)
     with pytest.raises(ImportError, match="'PIL.Image'"):
         data.precompute_for_split("nowhere", ["seq 1 l"])
+
+
+@pytest.mark.parametrize("automask", [True, False])
+def test_depth_hints_loss_without_hints_matches_jax(automask):
+    """`use_depth_hints=False` (JAX :47-59) on a batch without hint
+    planes: the loss, its per-scale terms and its gradient over every
+    scale's disparity, with and without the automask; it differs from
+    the loss with the hint. The automask noise is the loss test's key:
+    with some keys one pixel's reprojection and identity losses tie
+    within float32 rounding and the automask flips there (key 7 moves
+    scale 3's gradient by 3.7e-3, key 6 scale 2's by 4.3e-4; keys 5 and
+    8 leave every scale within 1.2e-5)."""
+    batch = _batch()
+    no_hint = {k: v for k, v in batch.items() if not k.startswith("depth")}
+    key = jax.random.PRNGKey(5)
+    kw = {} if automask else dict(disable_automasking=True)
+
+    def f(d, b):
+        loss, aux = j_hints.compute_depth_hints_losses(
+            d, b, {}, key, JSelfSupConfig(height=H, width=W, **kw),
+            use_depth_hints=False)
+        return loss, {k: v for k, v in aux.items() if k.startswith("loss/")}
+
+    (loss_j, aux_j), grad_j = jax.jit(jax.value_and_grad(f, has_aux=True))(
+        _map(_disps(), jnp.asarray), _map(no_hint, jnp.asarray))
+    cfg = SelfSupConfig(height=H, width=W, **kw)
+    noise = (torch.from_numpy(np.array(jax.random.normal(
+        key, hints.identity_noise_shape(cfg, B)))) if automask else None)
+    disps = _map(_disps(), lambda a: torch.from_numpy(a).requires_grad_(True))
+    loss, aux = hints.compute_depth_hints_losses(
+        disps, _map(no_hint, torch.from_numpy), {}, noise, cfg,
+        use_depth_hints=False)
+    loss.backward()
+    assert float(loss) == pytest.approx(float(loss_j), rel=LOSS_RTOL)
+    for k, v in aux_j.items():
+        assert float(aux[k]) == pytest.approx(float(v), rel=LOSS_RTOL), k
+    for s in range(4):
+        g, w = disps[s].grad.double(), torch.from_numpy(
+            np.array(grad_j[s])).double()
+        assert float((g - w).norm() / w.norm()) <= GRAD_L2, s
+    with torch.no_grad():
+        with_hint, _ = hints.compute_depth_hints_losses(
+            _map(_disps(), torch.from_numpy), _map(batch, torch.from_numpy),
+            {}, noise, cfg)
+    assert abs(float(with_hint) - float(loss)) > 1e-4

@@ -84,6 +84,7 @@ from depthmodelhardening_tpu_torch.training.distill import (
 from depthmodelhardening_tpu_torch.utils.logging import MetricsLogger
 
 from golden_common import depth_decoder_state_dict, resnet18_encoder_state_dict
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, OBJ_H, OBJ_W, STEPS = 2, 40, 60, 2
 H, W = 96, 320

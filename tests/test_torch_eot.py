@@ -34,6 +34,7 @@ from depthmodelhardening_tpu_torch.attacks.base import PhysObjAttackConfig
 from depthmodelhardening_tpu_torch.physics.eot import (
     EoTCompositor, EoTConfig, solve_homography,
 )
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 B, OH, OW = 4, 40, 60
 MH, MW = 96, 320

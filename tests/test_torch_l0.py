@@ -89,6 +89,7 @@ from depthmodelhardening_tpu_torch.training.adv_synth import (
 from depthmodelhardening_tpu_torch.training.config import DistillConfig
 
 from golden_common import depth_decoder_state_dict, resnet18_encoder_state_dict
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 H, W = 64, 192
 ORI_H, ORI_W = 96, 320

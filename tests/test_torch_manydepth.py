@@ -13,7 +13,11 @@ seeded stream, converted with `from_jax_encoder` / `from_jax_variables`.
 
 Tolerances, measured on the CPU:
 
-* the depth bins: equal (the port rounds linspace as XLA:CPU does);
+* the depth bins: equal (the port rounds linspace as XLA:CPU does),
+  linear and inverse, fixed and adaptive; under inverse binning the
+  encoder's lowest_cost within two float32 ulps (INVERSE_ULP, 1.1e-7
+  relative measured): JAX's jitted forward fuses the bins' reciprocal
+  with lowest_cost's own and rounds some an ulp apart;
 * the cost volume: 1e-5 relative + 1e-6 absolute, `missing` equal
   (measured: 2.4e-7 at most; the channel mean sums in another order);
 * the encoder's features: the rtol 5e-4 / floor 1e-6 of the map's max of
@@ -470,3 +474,167 @@ def test_load_manydepth_reference_matches_jax(tmp_path, enc):
         d = model(_t(x["cur"]), _t(x["K"]), _t(x["invK"]),
                   got_meta["min_depth_bin"], got_meta["max_depth_bin"])
     np.testing.assert_allclose(d.numpy(), d_j, rtol=0, atol=DISP_ATOL)
+
+
+# -- the options: inverse binning, missing bins at 0, fixed endpoints ---------
+INVERSE_ULP = 2.4e-7  # two float32 ulps, relative (1.1e-7 measured)
+
+@pytest.mark.parametrize("n", [8, 96])
+def test_inverse_and_fixed_bins_equal_jax(n):
+    """Inverse binning's fixed and adaptive bins, and linear bins between
+    fixed endpoints given to the constructor, as JAX's jitted
+    `_depth_bins` rounds them."""
+    def bins(**kw):
+        j = JMatching(num_depth_bins=n, **kw)
+        return jax.jit(lambda a, b: j._depth_bins(a, b))
+
+    inv = bins(depth_binning="inverse")
+    p = ResnetEncoderMatching(num_depth_bins=n, depth_binning="inverse")
+    want = np.asarray(inv(jnp.float32(0.1), jnp.float32(20.0)))
+    np.testing.assert_array_equal(p.depth_bins().numpy(), want)
+    assert np.all(np.diff(want) > 0) and want[0] == np.float32(0.1)
+    p = ResnetEncoderMatching(num_depth_bins=n, depth_binning="inverse",
+                              adaptive_bins=True)
+    want = np.asarray(inv(jnp.float32(0.7), jnp.float32(12.5)))
+    np.testing.assert_array_equal(p.depth_bins(0.7, 12.5).numpy(), want)
+    p = ResnetEncoderMatching(num_depth_bins=n, min_depth_bin=0.5,
+                              max_depth_bin=15.0)
+    want = np.asarray(bins()(jnp.float32(0.5), jnp.float32(15.0)))
+    np.testing.assert_array_equal(p.depth_bins(0.7, 12.5).numpy(), want)
+    with pytest.raises(NotImplementedError):
+        ResnetEncoderMatching(depth_binning="log")
+
+
+@pytest.mark.parametrize("binning,missing_max", [
+    ("inverse", True), ("linear", False), ("inverse", False)])
+def test_matching_encoder_options_match_jax(enc, binning, missing_max):
+    """The volume (its missing bins left at 0 without
+    `set_missing_to_max`) and the encoder's features, lowest_cost and
+    confidence on the real lookups, in eval mode, under each option."""
+    x = enc["x"]
+    kw = dict(depth_binning=binning, set_missing_to_max=missing_max)
+    j = JMatching(num_layers=18, input_height=H, input_width=W,
+                  num_depth_bins=D, **kw)
+    port = ResnetEncoderMatching(num_layers=18, input_height=H,
+                                 input_width=W, num_depth_bins=D, **kw)
+    port.load_state_dict(enc["port"].state_dict())
+    port.eval()
+    rng = np.random.RandomState(5)
+    cur = rng.rand(B, H // 4, W // 4, 16).astype(np.float32)
+    look = np.stack([np.roll(cur, 1, axis=2), rng.rand(*cur.shape)
+                     .astype(np.float32)], axis=1).astype(np.float32)
+    bins = j._depth_bins(jnp.float32(0.1), jnp.float32(20.0))
+    cost_j, miss_j = _np(jax.jit(j._cost_volume)(
+        *(jnp.asarray(a) for a in (cur, look, x["poses"], x["K"],
+                                   x["invK"])), bins))
+    cost, miss = port.cost_volume(_t(cur), _t(look), _t(x["poses"]),
+                                  _t(x["K"]), _t(x["invK"]),
+                                  port.depth_bins())
+    np.testing.assert_array_equal(miss.numpy(), miss_j)
+    np.testing.assert_allclose(cost.numpy(), cost_j, rtol=COST_RTOL,
+                               atol=COST_ATOL)
+    assert miss_j.any()
+    assert (cost_j[miss_j > 0] == 0).all() != missing_max
+    (feats_j, low_j, conf_j) = _np(jax.jit(lambda v, *a: j.apply(
+        v, *a, train=False))(enc["v"], *(jnp.asarray(x[k]) for k in (
+            "cur", "lookup", "poses", "K", "invK"))))
+    with torch.no_grad():
+        feats, low, conf = _port_call(port, x, False, False)
+    for f, fj in zip(feats, feats_j):
+        np.testing.assert_allclose(_nhwc(f), fj, rtol=RTOL,
+                                   atol=FLOOR * float(np.abs(fj).max()))
+    np.testing.assert_array_equal(conf.numpy(), conf_j)
+    _assert_lowest_cost(low, low_j, binning)
+
+
+def _assert_lowest_cost(low, low_j, binning):
+    """Equal under linear bins; under inverse bins within INVERSE_ULP
+    relative: JAX's jitted forward fuses the bins' reciprocal with
+    lowest_cost's 1 / bins[argmin], and rounds some of them an ulp
+    apart (the bins alone are equal, test_inverse_and_fixed_bins_equal_jax)."""
+    if binning == "linear":
+        np.testing.assert_array_equal(low.numpy(), low_j)
+    else:
+        np.testing.assert_allclose(low.numpy(), low_j, rtol=INVERSE_ULP,
+                                   atol=0)
+
+
+def test_train_model_fixed_bins_match_jax(enc, models):
+    """`ManyDepthTrainModel` with fixed bins 0.5 .. 15 (JAX's
+    `min_depth_bin` / `max_depth_bin` fields): the real lookups'
+    disparities, in eval mode."""
+    x = enc["x"]
+    jt = JManyDepthTrainModel(input_height=H, input_width=W,
+                              num_depth_bins=D, min_depth_bin=0.5,
+                              max_depth_bin=15.0)
+    look, poses = x["lookup"][:, :1], x["poses"][:, :1]
+    want = _np(jax.jit(lambda v, *a: jt.apply(
+        v, *a, method="features_and_disps_multi", train=False)[1])(
+        models["v"], *(jnp.asarray(a) for a in (x["cur"], look, poses))))
+    pt = ManyDepthTrainModel(input_height=H, input_width=W,
+                             num_depth_bins=D, min_depth_bin=0.5,
+                             max_depth_bin=15.0)
+    pt.load_state_dict(models["pt"].state_dict())
+    with torch.no_grad():
+        _, disps = pt.eval().features_and_disps_multi(_t(x["cur"]), _t(look),
+                                                      _t(poses))
+        _, base = copy.deepcopy(models["pt"]).eval().features_and_disps_multi(
+            _t(x["cur"]), _t(look), _t(poses))
+    for s in range(4):
+        np.testing.assert_allclose(_nhwc(disps[("disp", s)]),
+                                   want[("disp", s)], rtol=0, atol=DISP_ATOL)
+    assert float((disps[("disp", 0)] - base[("disp", 0)]).abs().max()) > 0
+
+
+class _JInverseManyDepth(JManyDepthModel):
+    """JAX's ManyDepthModel with inverse binning (its own bins linearly,
+    whatever a checkpoint says)."""
+
+    def setup(self):
+        from depthmodelhardening_tpu.models.depth_decoder import DepthDecoder
+
+        self.encoder = JMatching(
+            num_layers=self.num_layers, input_height=self.input_height,
+            input_width=self.input_width, num_depth_bins=self.num_depth_bins,
+            adaptive_bins=True, depth_binning="inverse", name="encoder")
+        self.decoder = DepthDecoder(scales=tuple(self.scales), name="decoder")
+
+
+def test_load_inverse_binned_manydepth_reference_matches_jax(tmp_path, enc):
+    """A folder whose metadata says `depth_binning: "inverse"` loads into
+    a ManyDepthModel that bins inversely: its multi-frame disparity,
+    lowest_cost and confidence against JAX's encoder with inverse bins
+    and the folder's weights (JAX's loader, which keeps linear bins)."""
+    seeded = flax_init_(ManyDepthModel(input_height=H, input_width=W),
+                        torch.Generator().manual_seed(4))
+    folder = checkpoints.export_manydepth_reference(
+        str(tmp_path), 0, seeded.state_dict(), height=H, width=W,
+        min_depth_bin=0.7, max_depth_bin=12.5)
+    path = os.path.join(folder, "encoder.pth")
+    torch.save(dict(torch.load(path, weights_only=True),
+                    depth_binning="inverse"), path)
+    model, meta = checkpoints.load_manydepth_reference(folder, device="cpu")
+    assert meta["depth_binning"] == "inverse"
+    assert model.encoder.depth_binning == "inverse"
+    _, j_vars, _ = j_checkpoints.load_manydepth_reference(folder)
+    j_model = _JInverseManyDepth(input_height=H, input_width=W)
+    x = enc["x"]
+    want = _np(jax.jit(lambda v: j_model.apply(
+        v, *(jnp.asarray(x[k]) for k in ("cur", "lookup", "poses", "K",
+                                         "invK")), 0.7, 12.5,
+        method="multi_frame"))(j_vars))
+    with torch.no_grad():
+        got = model.multi_frame(_t(x["cur"]), _t(x["lookup"]),
+                                _t(x["poses"]), _t(x["K"]), _t(x["invK"]),
+                                0.7, 12.5)
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=0,
+                               atol=DISP_ATOL)
+    _assert_lowest_cost(got[1], want[1], "inverse")
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    linear = ManyDepthModel(input_height=H, input_width=W)
+    linear.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        low = linear.eval().multi_frame(
+            _t(x["cur"]), _t(x["lookup"]), _t(x["poses"]), _t(x["K"]),
+            _t(x["invK"]), 0.7, 12.5)[1]
+    assert not torch.equal(low, got[1])

@@ -50,6 +50,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
 
 from families_common import _np, _perturbed
 from test_torch_l0 import jax_optimize_with_count, l0_draws
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 H, W = 64, 192
 ORI_H, ORI_W = 96, 320

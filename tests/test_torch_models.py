@@ -35,6 +35,7 @@ from golden_common import (
     FEAT_CROP, depth_decoder_state_dict, golden_input,
     resnet18_encoder_state_dict,
 )
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "monodepth2_rand.npz")

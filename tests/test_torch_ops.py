@@ -28,6 +28,7 @@ from depthmodelhardening_tpu_torch.ops.resize import (
     bilinear_resize, nearest_upsample2,
 )
 from depthmodelhardening_tpu_torch.ops.sampling import bilinear_sample_pixels
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("src,dst", [((375, 1242), (96, 320)),

@@ -49,6 +49,7 @@ from depthmodelhardening_tpu_torch.training.distill import DistillTrainer
 from depthmodelhardening_tpu_torch.training.hardening import HardeningTrainer
 from depthmodelhardening_tpu_torch.models.zoo import load_pretrained
 from depthmodelhardening_tpu_torch.parallel.mesh import make_mesh
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.dirname(port.__file__)
@@ -78,7 +79,8 @@ def test_every_module_imports_without_jax():
         "data.loader", "utils.logging", "utils.seeding",
         "utils.profiling", "utils.visualize", "cli.main",
         "cli.__main__", "parallel.mesh", "parallel.batchnorm",
-        "models.zoo")} <= set(mods)
+        "models.zoo", "attacks.classifier",
+        "attacks.classifier_auto")} <= set(mods)
     code = "\n".join(
         ["import sys"]
         + [f"sys.modules[{m!r}] = None" for m in BLOCKED]

@@ -31,6 +31,7 @@ from depthmodelhardening_tpu_torch.ops import pool
 from depthmodelhardening_tpu_torch.ops.pool import (
     maxpool3x3s2, maxpool3x3s2_backward_plain, maxpool3x3s2_plain,
 )
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 def _interp(fn, *args):

@@ -62,6 +62,7 @@ from depthmodelhardening_tpu_torch.models.simsiam import SimSiam
 from depthmodelhardening_tpu_torch.ops import geometry
 
 from torch_oracles import TorchPoseDecoder, TorchSimSiam
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 H, W, B = 64, 96, 2
 GEOM_ATOL = 1e-6

@@ -40,6 +40,7 @@ from depthmodelhardening_tpu_torch.ops.reproj import (
     reproj_loss_grad_from_q_plain, reproj_loss_plain,
 )
 from depthmodelhardening_tpu_torch.ops.ssim import ssim
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 FWD_ATOL = 2e-6
 BWD_ATOL = 5e-6

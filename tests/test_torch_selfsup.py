@@ -48,6 +48,7 @@ from depthmodelhardening_tpu_torch.training.adv_synth import (
     build_plain_batch, stereo_T_batch,
 )
 from depthmodelhardening_tpu_torch.training.config import SelfSupConfig
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 H, W, B = 64, 128, 2
 SIDE = np.array([True, False])

@@ -67,6 +67,7 @@ from depthmodelhardening_tpu_torch.training.config import (
     AdvSynthConfig, HardeningConfig, SelfSupConfig,
 )
 from depthmodelhardening_tpu_torch.training.hardening import HardeningTrainer
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 H, W, B = 64, 128, 2
 ORI_H, ORI_W = 96, 320

@@ -20,6 +20,7 @@ from depthmodelhardening_tpu.ops.pallas_warp import vertical_resample as j_vr
 from depthmodelhardening_tpu.physics.calibration import Calibration
 from depthmodelhardening_tpu.physics.eot import EoTCompositor, EoTConfig
 from depthmodelhardening_tpu_torch.ops.warp import vertical_resample
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 
 def _geometry(kind, rng, Bn, OH, TW):

@@ -32,6 +32,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
     make_monodepth2, predictor_from,
 )
 from depthmodelhardening_tpu_torch.training import checkpoints
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
 
 NAME = "mono+stereo_640x192"
 H, W = 64, 192

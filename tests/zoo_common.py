@@ -46,6 +46,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
 )
 
 from golden_common import depth_decoder_state_dict, resnet18_encoder_state_dict
+from torch_threads import few_torch_threads  # noqa: F401 (re-exported)
 
 B, OBJ_H, OBJ_W, H, W = 2, 40, 60, 96, 320
 BIG_H, BIG_W = 200, 300
@@ -53,17 +54,6 @@ EVAL_KW = dict(batch_size=B, eval_count=1, scene_h=H, scene_w=W)
 # evaluate_attacks' metrics: tests/test_torch_attack_eval.py's rule (a1..a3
 # are fractions of about a thousand mask pixels; one pixel is 8e-4)
 METRIC_RTOL, METRIC_ATOL = 1e-3, 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def few_torch_threads():
-    """Two intra-op threads for torch while a zoo module runs: the suite
-    runs six workers on one host, and torch's default of one thread a
-    core oversubscribes it (its OpenMP threads spin while they wait)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
