@@ -64,9 +64,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    frozen PyTorch-reference outputs in tests/golden/monodepth2_rand.npz.
 5. slice: the L-inf PGD object-texture attack evaluation at full width
    (Monodepth2-18, 1024x320, batch 12, 10 steps, 2 batches of synthetic
-   375x1242 scenes) through build_attack + evaluate_attacks, with every
-   launch counter reset before and read after; then a check that 10
-   steps lower the targeted cost below its value at the random start.
+   375x1242 scenes) through build_attack + evaluate_attacks, after its
+   first batch twice from a generator seeded alike (phase 18's pair, the
+   warm-up), with every launch counter reset before and read after; then
+   a check that 10 steps lower the targeted cost below its value at the
+   random start.
 6. breakdown: median CUDA-event ms of each layer of one PGD step, of the
    finals and of the metrics, at the slice's shapes.
 7. idle: the device idle share of one attack call, from a torch.profiler
@@ -77,8 +79,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    375x1242 synthetic frames whose "s" eye is a column-shifted copy,
    Adam at lr 1e-5, from a seeded from-scratch init): first one small
    step on the card against the same step on the CPU's plain versions;
-   then 2 warm-up steps and 5 timed steps, with every launch counter
-   reset before the timed steps and read after; checks that the loss is finite, the weights and BatchNorm
+   then 2 warm-up steps, each from a fresh state (phase 18's pair), and
+   3 timed steps, with every launch counter reset before the timed
+   steps and read after; checks that the loss is finite, the weights and BatchNorm
    statistics moved and the step count rose; then that steps on one
    fixed batch at lr 1e-4 lower the loss; then the median CUDA-event ms
    of batch building, model forward, losses, backward and optimizer
@@ -89,16 +92,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    0.005, full-frame objective, Adam lr 1e-4) at batch 32, teacher and
    student from the golden weights, synthetic 375x1242 scenes and the
    300x200 car: first one small step on the card against the same step
-   on the CPU's plain versions; then 2 warm-up and 5 timed steps with
-   every launch counter reset before the timed steps and read after
+   on the CPU's plain versions; then 2 warm-up steps from a fresh state
+   (phase 18's pair) and 3 timed steps with every launch counter reset
+   before the timed steps and read after
    (kernel D must launch 48 times forward and 44 times backward per
    step, and compute weight gradients for the student only); checks
    that the loss is finite, the weights and BatchNorm statistics moved
    and the unused disparity heads did not; that Adam steps on one fixed
    adversarial batch lower the MSE; one step with the cropped objective
    (320x256) launches D at the crop's shape; then the breakdown of a
-   step, its device ms by kernel, its idle share and its reflection-pad
-   kernels (ms and launches, as predicted: every decoder conv pads).
+   step, its device ms by kernel, its idle share and its reflection
+   pads (the forward kernel's ms and launches, the backward passes of
+   the port's fixed-order adjoint, as predicted: every decoder conv
+   pads; F.pad's own atomic backward never runs).
 10. bench: the distillation step in bench.py's configuration
    (bench.py:81-115): DistillConfig with compute_dtype bfloat16, the
    320x256 cropped objective, the bf16 attack view and fold_bn, PGD-10,
@@ -106,14 +112,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    weights (BatchNorm statistics calibrated on synthetic scenes), a
    student from a seeded init, one 375x1242 scene replicated and the
    300x200 car: first one small step on the card against the CPU's
-   plain versions (bf16 both); then 2 warm-up and 5 timed steps with
-   every launch counter reset before the timed steps and read after
+   plain versions (bf16 both); then 2 warm-up steps from a fresh state
+   (phase 18's pair) and 3 timed steps with every launch counter reset
+   before the timed steps and read after
    (kernel D's and B's bf16 instances must launch 48 + 44 and 12 + 11
    times per step, their float32 ones never; B-bf16 10 + 10 times on the
    crop's stem and 2 + 1 at full frame): seconds per step, peak
    memory, the idle share and device ms by kernel of one step, its
-   reflection-pad kernels (ms and launches: D's bf16 convs pad nothing
-   but the student's weight-gradient inputs); then one untimed step with
+   reflection pads (as phase 9's: D's bf16 convs pad nothing but the
+   student's weight-gradient inputs); then one untimed step with
    attack_scale 1 and one fine step, whose D launches fall by the convs
    its coarse passes skip.
 11. harden: the full hardening step (BASELINE config 4) through
@@ -126,7 +133,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    car: first one small step on the card against the CPU's plain
    versions (the L0 iteration count and first-iteration gradients, the
    synthesis, then the training half on the CPU's batch); then 2 warm-up
-   and 5 timed steps with every launch counter reset before the timed
+   steps from a fresh state (phase 18's pair) and 3 timed steps with
+   every launch counter reset before the timed
    steps and read after: seconds per step, peak memory, each step's L0
    iterations and early break, launches against the counts predicted
    from the code and the iterations (`harden_launches`; no bf16 launch),
@@ -149,7 +157,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    contrastive branches logged beside it with the CPU's step against
    itself one ulp away; and one small float32
    mono+stereo step under phase 11's, the pose networks' gradients
-   included; then for each of 12a and 12b 2 warm-up and 3 timed steps
+   included; then for each of 12a and 12b 2 warm-up steps from a fresh
+   state (phase 18's pair) and 2 timed steps
    with the counters reset before the timed ones and read after:
    seconds per step, peak memory, L0 iterations, launches against
    `harden_launches` (every kernel instance but float32 D's input gradient
@@ -175,7 +184,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ZOO_SQUARE_QUERIES queries and light to ZOO_LIGHT candidates, the
    counters reset before each and read after: s/batch, ms a query of the
    searches, the 8 mean metrics (finite), peak memory, launches against
-   `zoo_launches`; Square and light extrapolated to their presets'
+   `zoo_launches`; the image_eps001 and l0_thresh01 batches once more
+   (phase 18's pairs); Square and light extrapolated to their presets'
    lengths; the idle share of a shorter Square and light batch. 13c:
    evaluate_clean card against CPU (stereo or median scaling, with and
    without the flip post-process), crosscheck_matrix over the golden
@@ -199,7 +209,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    step under phase 12's, the decoder's gradients also held on their own
    to those overall bounds (on ResNet-50 the whole model's overall
    bounds are FAMILY_GRAD_L2_ALL's: fixed, 1.5 times the rounding its
-   step amplifies from one ulp); then 2 warm-up and 5 timed steps with
+   step amplifies from one ulp); then 2 warm-up steps from a fresh state
+   (phase 18's pair) and 3 timed steps with
    launches against `harden_launches`, finite loss terms, everything but
    the never-applied prematching conv moved, one profiled step. 14d:
    `load_manydepth_reference` from a weights folder written from 14b's
@@ -225,8 +236,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    one step under the profiler (idle share), peak memory, the JSONL keys,
    checkpoints and opt.json, and the first step against two direct
    `train_step`s of trainers built from the same seed on the same loader
-   batch and scenes (bit-equal where the direct runs agree, else within
-   CLI_STEP_SPREAD times their spread); train-distill --epochs 1
+   batch and scenes, bit for bit (the two direct steps are phase 18's
+   pair for 15a); train-distill --epochs 1
    --eval-count 1 on a list of two batches (JSONL, weights folders, the
    kernels it runs launched); infer where PIL imports (B 1, D 4);
    precompute-hints where cv2 and PIL import (two frames' SGBM hints
@@ -243,7 +254,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    L0 iterations the one process's, the share of texels where they
    differ from the one process's texture (a reading); the training half
    on the one process's texture with the float32 student within
-   CLI_STEP_SPREAD times the larger of one process's two-run spread and
+   DP_SPREAD_X times the larger of one process's two-run spread and
    its one-ulp spread (loss and running statistics with DP_LOSS_RTOL and
    DP_STATS_FLOOR), while each of DP_FAULTS planted on the ranks (the
    gradient mean skipped, BatchNorm over a rank's rows) must fail that
@@ -266,9 +277,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    seeded init with BatchNorm statistics calibrated on the batch, eval,
    float32, `CountingClassifier`), 224x224, batch 16 of synthetic
    scenes, the labels its own predictions. 17a: every attack of both
-   modules once at JAX's defaults but CLS_CUTS (SparseFool's and FAB's
-   iterations, OnePixel's generations and population, Square's queries,
-   APGD-T's steps and AutoAttack's inner budgets): seconds, the
+   modules once at JAX's defaults but CLS_CUTS (DeepFool's, SparseFool's
+   and FAB's iterations, OnePixel's generations and population, Square's
+   queries, APGD's and APGD-T's steps and AutoAttack's inner budgets),
+   PGD twice (phase 18's pair): seconds, the
    constraint (L-inf, L2 or L0 against eps), accuracy before and after,
    the goal class's mean probability, the model's forwards and input
    gradients against the predicted ones; fails on a broken constraint,
@@ -291,6 +303,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    their presets at full width, launches against `zoo_launches`; one
    14a step with use_depth_hints False, and the DepthHints loss with
    use_depth_hints=False on the card against the CPU (C launched).
+18. repeat: the port gives the same bits twice. Each path of
+   REPEAT_PATHS (phase 5's attack batch; one step of phases 8, 9, 10,
+   11, 12a, 12b, 14a, 14b and 14c; one batch of the image and l0
+   presets; the CLI's first train-hardening step from files; 17a's PGD)
+   ran twice where its phase drives it, from the same weights and inputs
+   and freshly seeded generators; the two runs' losses, metrics,
+   gradients of every tensor, updated parameters, BatchNorm statistics,
+   textures, adversarial images and L0 iteration counts must be
+   bit-equal. The reflect pad's and the bilinear resize's backward sum
+   in a fixed order for it (ops/padding.py, ops/resize.py), where
+   PyTorch's own CUDA backward adds with atomics.
 
 Each path's kernels must launch during its own run (counters set to 0
 just before it, read just after). Prints one JSON line of kernel
@@ -348,7 +371,9 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
     MONODEPTH2_K, ManyDepthModel, flax_init_, init_monodepth2,
     make_monodepth2, predictor_from, quarter_intrinsics,
 )
-from depthmodelhardening_tpu_torch.ops import _build, conv, pool, reproj, warp
+from depthmodelhardening_tpu_torch.ops import (
+    _build, conv, padding, pool, reproj, warp,
+)
 from depthmodelhardening_tpu_torch.parallel.mesh import Mesh
 from depthmodelhardening_tpu_torch.ops.padding import reflect_pad1
 from depthmodelhardening_tpu_torch.ops.resize import bilinear_resize
@@ -1319,10 +1344,9 @@ def phase_slice(dev):
     batches = [make_scene(CFG.batch_size, CFG.ori_h, CFG.ori_w,
                           seed=SEED + 1 + i) for i in range(CFG.eval_count)]
 
-    # one untimed batch first: cuDNN and allocator warm-up
-    warm = dataclasses.replace(CFG, eval_count=1)
-    evaluate_attacks(predictor, attack, batches[:1], warm,
-                     generator=torch.Generator().manual_seed(SEED))
+    # the first batch twice, untimed (allocator warm-up): phase 18's pair
+    first = torch.from_numpy(batches[0]).to(dev)
+    repeat_twice("5", lambda: eval_run(predictor, attack, first, CFG, SEED))
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1478,7 +1502,8 @@ def device_busy(fn):
 
 def reflect_pads(by_name, counts):
     """(forward ms, launches, backward ms, launches) of the reflection-pad
-    kernels (F.pad's reflect mode and its backward) in a profile."""
+    kernels (F.pad's reflect mode and its atomic backward, which the port
+    no longer runs) in a profile."""
     out = [0.0, 0, 0.0, 0]
     for k, ms in by_name.items():
         if "reflection_pad2d" in k:
@@ -1493,7 +1518,7 @@ TRAIN_CFG = HardeningConfig(
     selfsup=SelfSupConfig(height=320, width=1024, frame_ids=("0", "s")),
     supervised_adv=False, contrastive_learning=False, batch_size=32,
     learning_rate=1e-5)
-TRAIN_WARMUP, TRAIN_TIMED, CONVERGE_STEPS, CONVERGE_LR = 2, 5, 6, 1e-4
+TRAIN_TIMED, CONVERGE_STEPS, CONVERGE_LR = 3, 6, 1e-4
 
 
 def _train_inputs(dev):
@@ -1523,12 +1548,19 @@ def phase_train(dev):
     trainer = HardeningTrainer(TRAIN_CFG, torch.Generator().manual_seed(SEED),
                                *make_car_object(300, 200, seed=SEED),
                                device=dev)
-    state = trainer.make_state()
-    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    start = {k: v.clone() for k, v in
+             trainer.make_state().model.state_dict().items()}
     losses = []
-    for _ in range(TRAIN_WARMUP):
-        state, m = trainer.selfsup_frames_step(state, frames, side, flip)
+
+    def step():
+        _reseed(trainer, SEED + 21)
+        state, m = trainer.selfsup_frames_step(trainer.make_state(), frames,
+                                               side, flip)
         losses.append(m["loss"])
+        return outcome(_state_modules(state), m), state
+
+    # the warm-up: two steps from a fresh state, phase 18's pair
+    state = repeat_twice("8", step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
@@ -1547,7 +1579,7 @@ def phase_train(dev):
         f"{TRAIN_CFG.adv.ori_w}x{TRAIN_CFG.adv.ori_h} frames, Adam lr "
         f"{TRAIN_CFG.learning_rate}")
     log(f"  seconds per step {secs:.4f} (host clock around {TRAIN_TIMED} "
-        f"steps after {TRAIN_WARMUP} warm-up, synchronised)")
+        f"steps after 2 warm-up from a fresh state, synchronised)")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
     log(f"  losses {json.dumps(losses)}")
     log(f"  launches {json.dumps(launches)} (per step: reproj fwd "
@@ -1560,7 +1592,7 @@ def phase_train(dev):
         raise AssertionError(f"kernels never launched in training: {bad}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    if state.step != TRAIN_WARMUP + TRAIN_TIMED:
+    if state.step != 1 + TRAIN_TIMED:
         raise AssertionError(f"step count {state.step}")
     moved = _moved(start, state.model.state_dict())
     params = [n for n, _ in state.model.named_parameters()]
@@ -1704,7 +1736,7 @@ def phase_converge(dev, frames, side, flip) -> None:
 
 # -- phase 9 -----------------------------------------------------------------
 DISTILL_CFG = DistillConfig(batch_size=32)
-DISTILL_WARMUP, DISTILL_TIMED, DISTILL_FIT_STEPS = 2, 5, 6
+DISTILL_TIMED, DISTILL_FIT_STEPS = 3, 6
 # kernel D per step: the 4 convs of the scale-0 path forward in the 10
 # attack passes, the teacher's and the student's; their input gradients
 # in the attack's passes and the student's; weight gradients only in the
@@ -1712,7 +1744,7 @@ DISTILL_WARMUP, DISTILL_TIMED, DISTILL_FIT_STEPS = 2, 5, 6
 D_FWD_PER_STEP = 4 * (DISTILL_CFG.steps + 2)
 D_DGRAD_PER_STEP = 4 * (DISTILL_CFG.steps + 1)
 D_WGRAD_PER_STEP = 4
-# reflection-pad launches per step (F.pad's reflect kernel, its backward):
+# reflection pads per step (F.pad's reflect kernel, the port's adjoint):
 # every decoder conv of the scale-0 path reflect-pads its input in each
 # forward pass, and the pad's backward runs in each input gradient pass;
 # 7 of its 11 convs have more than 64 channels in or out and take
@@ -1773,6 +1805,17 @@ def _distill_trainer(dev, cfg, sd, obj, mask, seed):
                           init_state_dict=sd)
 
 
+def distill_run(trainer, scenes, seed, losses):
+    """One distillation `train_step` from a fresh state, the trainer's
+    generator seeded with `seed`, its loss appended to `losses`: (its
+    outcome with the attack's texture, the state)."""
+    _reseed(trainer, seed)
+    with _keeping(trainer.attack, "_optimize", []) as tex:
+        state, m = trainer.train_step(trainer.make_state(), scenes)
+    losses.append(m["loss"])
+    return outcome(_state_modules(state), m, texture=tex[0]), state
+
+
 def phase_distill(dev):
     """The distillation step at config 3; returns the launch counts of
     the timed steps."""
@@ -1784,12 +1827,12 @@ def phase_distill(dev):
     scenes = torch.from_numpy(make_scene(B, cfg.ori_h, cfg.ori_w,
                                          seed=SEED + 40)).to(dev)
     trainer = _distill_trainer(dev, cfg, sd, obj, mask, SEED)
-    state = trainer.make_state()
-    start = {k: v.clone() for k, v in state.model.state_dict().items()}
+    start = {k: v.clone() for k, v in
+             trainer.make_state().model.state_dict().items()}
     losses = []
-    for _ in range(DISTILL_WARMUP):
-        state, m = trainer.train_step(state, scenes)
-        losses.append(m["loss"])
+    # the warm-up: two steps from a fresh state, phase 18's pair
+    state = repeat_twice("9", lambda: distill_run(trainer, scenes, SEED + 41,
+                                                  losses))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
@@ -1810,7 +1853,7 @@ def phase_distill(dev):
         f"{cfg.ori_w}x{cfg.ori_h} scenes, car 300x200, Adam lr "
         f"{cfg.learning_rate}")
     log(f"  seconds per step {secs:.4f} (host clock around {DISTILL_TIMED} "
-        f"steps after {DISTILL_WARMUP} warm-up, synchronised)")
+        f"steps after 2 warm-up from a fresh state, synchronised)")
     log(f"  max_memory_allocated {torch.cuda.max_memory_allocated(dev)} B")
     log(f"  losses {json.dumps(losses)}")
     per_step = {n: launches[n] / DISTILL_TIMED for n in CONV_KERNELS}
@@ -1930,30 +1973,49 @@ def phase_distill_breakdown(trainer, state, scenes) -> None:
         f"{DISTILL_CFG.scene_h} (median CUDA-event ms of 3):")
     for n in names:
         log(f"  {n}: {float(np.median(times[n])):.3f}")
-    busy_ms, wall_ms, n, by_name, counts = device_busy(
-        lambda: trainer.train_step(state, scenes))
+    with counting_pad_adjoints() as adjoints:
+        busy_ms, wall_ms, n, by_name, counts = device_busy(
+            lambda: trainer.train_step(state, scenes))
     d_ms = sum(ms for k, ms in by_name.items() if "conv3x3_" in k)
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
         f"ms of {wall_ms:.3f} ms host wall, idle share "
         f"{1.0 - busy_ms / wall_ms:.4f}, {n} device activities")
     log(f"  kernel D: {d_ms:.3f} device ms of the step, "
         f"{d_ms / busy_ms:.4f} of its busy time")
-    check_reflect_pads("distill", by_name, counts, DISTILL_PADS)
+    check_reflect_pads("distill", by_name, counts, adjoints, DISTILL_PADS)
     log("  device ms of the step by kernel (top 12):")
     for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"    {ms:9.3f}  {k[:110]}")
 
 
-def check_reflect_pads(label, by_name, counts, predicted) -> None:
-    """Logs a profiled step's reflection-pad kernels (ms and launches);
-    their launches must be `predicted` (forward, backward)."""
+@contextlib.contextmanager
+def counting_pad_adjoints():
+    """Counts the reflect pad's backward passes (`padding.
+    reflect_pad1_adjoint`, its fixed-order adjoint) while active."""
+    calls = []
+    orig = padding.reflect_pad1_adjoint
+    padding.reflect_pad1_adjoint = lambda g: calls.append(1) or orig(g)
+    try:
+        yield calls
+    finally:
+        padding.reflect_pad1_adjoint = orig
+
+
+def check_reflect_pads(label, by_name, counts, adjoints,
+                       predicted) -> None:
+    """Logs a profiled step's reflection pads: the forward kernel's ms
+    and launches, the backward passes (`adjoints`: the calls of the
+    port's adjoint); they must be `predicted` (forward, backward), and
+    F.pad's own atomic backward must not launch."""
     f_ms, f_n, b_ms, b_n = reflect_pads(by_name, counts)
     log(f"  reflection pad: forward {f_ms:.3f} device ms in {f_n} "
-        f"launches, backward {b_ms:.3f} ms in {b_n} (predicted "
-        f"{predicted[0]} + {predicted[1]})")
-    if (f_n, b_n) != predicted:
-        raise AssertionError(f"{label}: reflection pads launched {f_n} + "
-                             f"{b_n} times, predicted {predicted}")
+        f"launches, backward {len(adjoints)} passes of the fixed-order "
+        f"adjoint (predicted {predicted[0]} + {predicted[1]}); F.pad's own "
+        f"backward {b_n} launches ({b_ms:.3f} ms)")
+    if (f_n, len(adjoints)) != predicted or b_n:
+        raise AssertionError(f"{label}: reflection pads ran {f_n} + "
+                             f"{len(adjoints)} times, predicted {predicted}"
+                             f", F.pad's backward {b_n} times")
 
 
 def phase_distill_fit(trainer, scenes) -> None:
@@ -2002,7 +2064,7 @@ BENCH_CFG = DistillConfig(
 BENCH_KERNELS = ("vertical_resample_fwd", "vertical_resample_bwd",
                  "maxpool3x3s2_fwd_bf16", "maxpool3x3s2_bwd_bf16"
                  ) + CONV_BF16_KERNELS
-BENCH_WARMUP, BENCH_TIMED = 2, 5
+BENCH_TIMED = 3
 # per step, all in bf16: D as phase 9 (the crop changes its shapes, not
 # its count); the stem pool once per forward and per input gradient
 BENCH_PER_STEP = {"conv3x3_fwd_bf16": D_FWD_PER_STEP,
@@ -2081,11 +2143,10 @@ def phase_bench(dev):
     scenes = torch.from_numpy(make_scene(1, cfg.ori_h, cfg.ori_w,
                                          seed=SEED + 60)).to(dev)
     trainer = _bench_trainer(dev, cfg, teacher_sd, obj, mask, SEED + 61)
-    state = trainer.make_state()
     losses = []
-    for _ in range(BENCH_WARMUP):
-        state, m = trainer.train_step(state, scenes)
-        losses.append(m["loss"])
+    # the warm-up: two steps from a fresh state, phase 18's pair
+    state = repeat_twice("10", lambda: distill_run(trainer, scenes,
+                                                   SEED + 62, losses))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
@@ -2110,7 +2171,7 @@ def phase_bench(dev):
         f"{cfg.ori_w}x{cfg.ori_h} scene, car 300x200, Adam lr "
         f"{cfg.learning_rate}")
     log(f"  seconds per step {secs:.4f} (host clock around {BENCH_TIMED} "
-        f"steps after {BENCH_WARMUP} warm-up, synchronised)")
+        f"steps after 2 warm-up from a fresh state, synchronised)")
     log(f"  max_memory_allocated {peak} B")
     log(f"  losses {json.dumps(losses)}")
     log(f"  launches {json.dumps(launches)}")
@@ -2133,8 +2194,9 @@ def phase_bench(dev):
         raise AssertionError("B-bf16 did not launch at the predicted shapes")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite distillation loss: {losses}")
-    busy_ms, wall_ms, n, by_name, counts = device_busy(
-        lambda: trainer.train_step(state, scenes))
+    with counting_pad_adjoints() as adjoints:
+        busy_ms, wall_ms, n, by_name, counts = device_busy(
+            lambda: trainer.train_step(state, scenes))
     d_ms = sum(ms for k, ms in by_name.items() if "conv3x3_" in k)
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
         f"ms of {wall_ms:.3f} ms host wall, idle share "
@@ -2145,7 +2207,7 @@ def phase_bench(dev):
         k_ms = sum(ms for n, ms in by_name.items() if k in n)
         k_n = sum(c for n, c in counts.items() if k in n)
         log(f"  {k}: {k_ms:.3f} device ms of the step in {k_n} launches")
-    check_reflect_pads("bench", by_name, counts, BENCH_PADS)
+    check_reflect_pads("bench", by_name, counts, adjoints, BENCH_PADS)
     log("  device ms of the step by kernel (top 20):")
     for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
         log(f"    {ms:9.3f}  {k[:110]}")
@@ -2228,7 +2290,7 @@ HARDEN_CFG = HardeningConfig(
     selfsup=SelfSupConfig(height=320, width=1024, frame_ids=("0", "s")),
     adv=AdvSynthConfig(norm_type="l_0", steps=10, attack_batch_size=12),
     batch_size=32, learning_rate=1e-5)
-HARDEN_WARMUP, HARDEN_TIMED = 2, 5
+HARDEN_TIMED = 3
 # each kernel instance's functions as the profiler names them
 KERNEL_NAMES = {
     "A (warp)": ("::vert_fwd", "::vert_bwd"),
@@ -2284,11 +2346,13 @@ def harden_launches(iterations: int, temporal: int = 0,
     return out
 
 
-def run_hardening_steps(label, trainer, inputs, warmup, timed):
-    """`warmup` + `timed` `train_step`s of `trainer` on `inputs` (frames,
-    sides, flips, scene) with every launch counter reset before the timed
-    ones and read after: logs seconds per step, peak memory, each step's
-    L0 iterations and early break, the loss terms and the launches beside
+def run_hardening_steps(label, trainer, inputs, timed, repeat=True):
+    """`timed` `train_step`s of `trainer` on `inputs` (frames, sides,
+    flips, scene), after, with `repeat`, a warm-up of two steps from a
+    fresh state (`hardening_run`: phase 18's pair, recorded under
+    `label`), with every launch counter reset before the timed ones and
+    read after: logs seconds per step, peak memory, each step's L0
+    iterations and early break, the loss terms and the launches beside
     `harden_launches` of the iterations; fails unless the launches are
     the predicted ones, the loss terms finite and complete, and every
     parameter and running statistic of the state's modules moved. Returns
@@ -2299,16 +2363,23 @@ def run_hardening_steps(label, trainer, inputs, warmup, timed):
     state = trainer.make_state()
     start = {k: v.clone() for k, v in _state_tensors(state).items()}
     metrics, iters = [], []
-    for n in range(warmup + timed):
-        if n == warmup:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats(dev)
-            _build.reset_launches()
-            t0 = time.perf_counter()
-        state, m = trainer.train_step(state, frames, side, flip, scene)
+
+    def seen(m):
         metrics.append(m)
         iters.append((trainer.attack.last_iterations,
                       trainer.attack.last_early_break))
+
+    warmup = 2 if repeat else 0
+    if repeat:
+        state = repeat_twice(label, lambda: hardening_run(
+            trainer, inputs, SEED + 80, seen))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, m = trainer.train_step(state, frames, side, flip, scene)
+        seen(m)
     torch.cuda.synchronize()
     secs = (time.perf_counter() - t0) / timed
     launches = {k.name: k.launches for k in _build.KERNELS}
@@ -2322,7 +2393,7 @@ def run_hardening_steps(label, trainer, inputs, warmup, timed):
             predicted[k] += v
     losses = [{k: float(v) for k, v in m.items()} for m in metrics]
     log(f"  seconds per step {secs:.4f} (host clock around {timed} steps "
-        f"after {warmup} warm-up, synchronised)")
+        f"after {warmup} warm-up from a fresh state, synchronised)")
     log(f"  max_memory_allocated {peak} B")
     log(f"  L0 iterations and early break per step {json.dumps(iters)}")
     log(f"  losses {json.dumps(losses)}")
@@ -2341,7 +2412,7 @@ def run_hardening_steps(label, trainer, inputs, warmup, timed):
               if not n.startswith(NEVER_APPLIED)]
     stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
     still = (set(params) | set(stats)) - moved
-    if still or state.step != warmup + timed:
+    if still or state.step != min(warmup, 1) + timed:
         raise AssertionError(f"not moved: {sorted(still)[:5]}; step "
                              f"{state.step}")
     log(f"  moved: all {len(params)} parameters of "
@@ -2427,8 +2498,7 @@ def phase_harden(dev):
         f"contrastive + photometric, batch {B} of {cfg.adv.ori_w}x"
         f"{cfg.adv.ori_h} frames, car 300x200, Adam lr {cfg.learning_rate}")
     state, launches = run_hardening_steps(
-        "11", trainer, (frames, side, flip, scene), HARDEN_WARMUP,
-        HARDEN_TIMED)
+        "11", trainer, (frames, side, flip, scene), HARDEN_TIMED)
     phase_harden_breakdown(trainer, state, frames, side, flip, scene)
     del state, trainer
     torch.cuda.empty_cache()
@@ -2692,7 +2762,7 @@ def phase_harden_distill(dev, sd, obj, mask) -> None:
 CLI_CFG = dataclasses.replace(HARDEN_CFG, compute_dtype="bfloat16")
 MONO_FRAMES = ("0", "-1", "1", "s")
 CLI_RUNS = (("12a", ("0", "s")), ("12b", MONO_FRAMES))
-CLI_WARMUP, CLI_TIMED = 2, 3
+CLI_TIMED = 2
 # the small bf16 step on the card against the CPU's is held to phase 10's
 # rule (BENCH_LOSS_RTOL, BENCH_GRAD_L2_ALL) on phase 10's kind of step:
 # the teacher's MSE through the bf16 student, seeded as phase 10's (a
@@ -2738,11 +2808,11 @@ def phase_cli(dev):
     return total
 
 
-def phase_cli_run(label, trainer, inputs, warmup=CLI_WARMUP,
-                  timed=CLI_TIMED, weights="the golden weights"):
-    """`warmup` + `timed` steps (`run_hardening_steps`), then one
-    profiled step: idle share and device ms by kernel instance. Returns
-    (state, launches)."""
+def phase_cli_run(label, trainer, inputs, timed=CLI_TIMED,
+                  weights="the golden weights"):
+    """Phase 18's pair as the warm-up and `timed` steps
+    (`run_hardening_steps`), then one profiled step: idle share and
+    device ms by kernel instance. Returns (state, launches)."""
     cfg = trainer.cfg
     log(f"cli {label}: HardeningTrainer.train_step at the CLI's "
         f"train-hardening --fine-tune defaults: {_family_name(cfg)}, "
@@ -2753,8 +2823,7 @@ def phase_cli_run(label, trainer, inputs, warmup=CLI_WARMUP,
         f"{cfg.adv.attack_batch_size}, supervised + contrastive + "
         f"photometric, batch {cfg.batch_size} of {cfg.adv.ori_w}x"
         f"{cfg.adv.ori_h} frames, car 300x200, Adam lr {cfg.learning_rate}")
-    state, launches = run_hardening_steps(label, trainer, inputs, warmup,
-                                          timed)
+    state, launches = run_hardening_steps(label, trainer, inputs, timed)
     busy_ms, wall_ms, n, by_name, counts = device_busy(
         lambda: trainer.train_step(state, *inputs))
     log(f"  idle: one step under the profiler: device busy {busy_ms:.3f} "
@@ -2991,11 +3060,13 @@ ZOO_METRIC_TOL = 1e-3
 # 13b: the presets at full width, one batch each; Square and light cut to
 # these lengths (the p schedule rescales to n_queries, so a cut run walks
 # it whole), the idle share from a shorter run of each
-ZOO_SQUARE_QUERIES = 400
-ZOO_LIGHT = (20, 10)  # n_inits x n_neighbors x 2 = 400 candidates
-ZOO_PROFILE = dict(Square=dict(n_queries=100),
+ZOO_SQUARE_QUERIES = 200
+ZOO_LIGHT = (10, 10)  # n_inits x n_neighbors x 2 = 200 candidates
+ZOO_PROFILE = dict(Square=dict(n_queries=50),
                    light=dict(n_inits=5, n_neighbors=10))
 ZOO_KERNELS = SLICE1_KERNELS
+# the presets whose batch runs twice (phase 18's paths)
+ZOO_REPEAT = {"image_eps001": "13b image", "l0_thresh01": "13b l0"}
 
 
 def zoo_launches(cfg, iterations: int = 0) -> dict:
@@ -3262,9 +3333,7 @@ def phase_zoo_presets(dev, sd) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         _build.reset_launches()
         t0 = time.perf_counter()
-        res = evaluate_attacks(predictor, attack, [scenes], cfg,
-                               generator=torch.Generator().manual_seed(
-                                   SEED + 150 + i))
+        first, res = eval_run(predictor, attack, scenes, cfg, SEED + 150 + i)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {k.name: k.launches for k in _build.KERNELS}
@@ -3294,6 +3363,9 @@ def phase_zoo_presets(dev, sd) -> dict:
         vals = list(res["mean"].values()) + list(res["max"].values())
         if not all(math.isfinite(v) for v in vals):
             raise AssertionError(f"zoo preset {name}: non-finite {res}")
+        if name in ZOO_REPEAT:  # phase 18's pair: the same batch again
+            record_repeat(ZOO_REPEAT[name], first, eval_run(
+                predictor, attack, scenes, cfg, SEED + 150 + i)[0])
     bad = [n for n in ZOO_KERNELS if total[n] <= 0]
     if bad:
         raise AssertionError(f"kernels never launched in the zoo: {bad}")
@@ -3445,7 +3517,8 @@ FAMILY_RUNS = (
     ("14c", dict(model_family="manydepth", manydepth_real_lookup=True),
      MONO_FRAMES),
 )
-FAMILY_WARMUP, FAMILY_TIMED = 2, 5
+FAMILY_TIMED = 3
+EVAL_WARMUP, EVAL_TIMED = 2, 5  # 14d's forwards
 # the small steps' gradients on the card against the CPU: phases 11 and
 # 12's rules (float32 worst tensor HARDEN_GRAD_L2, overall
 # HARDEN_GRAD_L2_ALL; bf16 supervised overall BENCH_GRAD_L2_ALL), and the
@@ -3616,9 +3689,9 @@ def phase_families(dev):
         inputs = _harden_inputs(dev, cfg, SEED + 135)
         if cfg.use_depth_hints:
             inputs = phase_family_hints(dev, cfg, inputs)
-        state, launches = phase_cli_run(
-            label, trainer, inputs, FAMILY_WARMUP, FAMILY_TIMED,
-            "the same seeded weights")
+        state, launches = phase_cli_run(label, trainer, inputs,
+                                        FAMILY_TIMED,
+                                        "the same seeded weights")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         if cfg.model_family == "manydepth" and not cfg.manydepth_real_lookup:
@@ -3674,27 +3747,27 @@ def phase_manydepth_eval(dev, sd):
         splits = [float((g != c).float().mean()) for g, c in
                   zip(got[1:], cpu[1:])]
         with torch.no_grad():
-            for n in range(FAMILY_WARMUP + FAMILY_TIMED):
-                if n == FAMILY_WARMUP:
+            for n in range(EVAL_WARMUP + EVAL_TIMED):
+                if n == EVAL_WARMUP:
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats(dev)
                     _build.reset_launches()
                     t0 = time.perf_counter()
                 run(model, dev, B)
             torch.cuda.synchronize()
-        secs = (time.perf_counter() - t0) / FAMILY_TIMED
+        secs = (time.perf_counter() - t0) / EVAL_TIMED
         counted = {k.name: k.launches for k in _build.KERNELS}
         predicted = {k.name: 0 for k in _build.KERNELS}
-        predicted.update(maxpool3x3s2_fwd=FAMILY_TIMED,
-                         conv3x3_fwd=4 * FAMILY_TIMED)
+        predicted.update(maxpool3x3s2_fwd=EVAL_TIMED,
+                         conv3x3_fwd=4 * EVAL_TIMED)
         log(f"family 14d {mode}: load_manydepth_reference (metadata "
             f"{json.dumps({k: v for k, v in meta.items()})}) + "
             f"ManyDepthModel at {W}x{H} batch {B}, 96 bins: card vs CPU on "
             f"2 items: disp0 max |difference| {disp_err:.3e} (max "
             f"{EVAL_DISP_ATOL}), lowest_cost and confidence differ on "
             f"{json.dumps(splits)} of their pixels (max {EVAL_SPLIT_MAX}); "
-            f"{secs:.4f} s per forward (host clock around {FAMILY_TIMED} "
-            f"after {FAMILY_WARMUP} warm-up, synchronised), "
+            f"{secs:.4f} s per forward (host clock around {EVAL_TIMED} "
+            f"after {EVAL_WARMUP} warm-up, synchronised), "
             f"max_memory_allocated {torch.cuda.max_memory_allocated(dev)} "
             f"B; launches {json.dumps(counted)}")
         if counted != predicted or not disp_err <= EVAL_DISP_ATOL or \
@@ -3727,15 +3800,6 @@ CLI_FRAMES, CLI_TEST_FRAMES, CLI_SCENES = 32, 8, 24
 CLI_PRESETS = ("l0_thresh01", "linf_eps01")
 CLI_EVAL_COUNT = 2
 CLI_DISTILL_SCENES = 32  # two batches of train-distill's default batch 16
-# the CLI's first step against direct `train_step`s of trainers built from
-# the same seed on the same batch: bit for bit where two direct runs agree;
-# where they do not (atomic adds in the bilinear resize's backward make
-# the card's gradients differ in the last bits, and the L0 loop's Adam at
-# lr 0.5 can part the textures from there), the CLI's step must lie within
-# CLI_STEP_SPREAD times their spread in the step's gradients (Adam's first
-# moment) and running statistics, relative L2 over all of them (sums over
-# millions of values: a wrong batch, seed or draw moves them by O(1))
-CLI_STEP_SPREAD = 2.0
 CLI_PROFILED_STEP = 3  # the resumed run's second step
 
 
@@ -4067,8 +4131,9 @@ def phase_cli_train(runs, f, dev) -> None:
 def phase_cli_first_step(first, f, dev) -> None:
     """The CLI's first step against two direct `train_step`s, each of a
     trainer built from the same seed (17, the CLI's) on the loader batch
-    and the scene batch the CLI passed; that loader batch against the
-    first batch of a loader built here on the same split and seed."""
+    and the scene batch the CLI passed, bit for bit (the two direct steps
+    are phase 18's pair); that loader batch against the first batch of a
+    loader built here on the same split and seed."""
     from depthmodelhardening_tpu_torch.data.kitti_raw import (
         KittiRawDataset, collate, load_split,
     )
@@ -4084,16 +4149,22 @@ def phase_cli_first_step(first, f, dev) -> None:
     same = all(torch.equal(batch["frames"][k], frames[k]) for k in frames) \
         and torch.equal(batch["side_is_l"], side) and \
         torch.equal(batch["do_flip"], flip)
-    direct = []
+    direct, runs = [], []
     for _ in range(2):
         tr = HardeningTrainer(
             t.cfg, torch.Generator().manual_seed(17), t.obj_img, t.obj_mask,
             t.teacher, device=dev,
             steps_per_epoch=t.transition_steps // t.cfg.scheduler_step_size,
             init_state_dict=t._init_state_dict)
-        state, m = tr.train_step(tr.make_state(), frames, side, flip, scenes)
+        with _keeping(tr, "refresh_texture", []) as tex:
+            state, m = tr.train_step(tr.make_state(), frames, side, flip,
+                                     scenes)
         direct.append(_step_outcome(tr, state, m))
+        runs.append(outcome(_state_modules(state), m, texture=tex[0],
+                            l0_iterations=[tr.attack.last_iterations]))
         del tr, state
+    record_repeat("15a", *runs)  # phase 18's pair
+    del runs
     cli = first["outcome"]
     spread = _outcome_distance(direct[1], direct[0])
     dist = _outcome_distance(cli, direct[0])
@@ -4105,14 +4176,11 @@ def phase_cli_first_step(first, f, dev) -> None:
         f" / {direct[1]['loss']:.9e}; L0 iterations {cli['iterations']} / "
         f"{direct[0]['iterations']} / {direct[1]['iterations']}; CLI vs "
         f"direct {json.dumps(dist)}; direct vs direct {json.dumps(spread)}")
-    bit_equal = all(v == 0 for v in dist.values())
-    within = all(dist[k] <= CLI_STEP_SPREAD * spread[k]
-                 for k in ("grads", "stats"))
-    if not (same and gens and (bit_equal or within)):
+    if not (same and gens and all(v == 0 for v in dist.values())):
         raise AssertionError("cli train-hardening: the first step is not "
-                             "the direct step")
+                             "the direct step bit for bit")
     f.first, f.spread = first, spread
-    log(f"  held: {'bit for bit' if bit_equal else f'within {CLI_STEP_SPREAD} x the direct spread'}")
+    log("  held: bit for bit")
 
 
 def phase_cli_distill(runs, f) -> None:
@@ -4226,7 +4294,7 @@ DP_SEED = SEED + 300
 DP_WORK = os.path.join(REPO, "build", "dp_smoke")
 # The training half under a mesh is held against one process's on the
 # same inputs in float32 (phase 11's student; the teacher is float32
-# either way): within CLI_STEP_SPREAD times the larger of the one
+# either way): within DP_SPREAD_X times the larger of the one
 # process's two-run spread and its spread with every weight one ulp away
 # (phase 11's rule), with floors for what two runs keep bit-equal (the
 # loss, the running statistics: the global BatchNorm sums in another
@@ -4238,16 +4306,16 @@ DP_WORK = os.path.join(REPO, "build", "dp_smoke")
 # relative L2, so no spread there tells a fault from rounding: the bf16
 # gradients are printed, and only the loss and the running statistics
 # are held, by the same rule.
-DP_LOSS_RTOL, DP_STATS_FLOOR = 1e-5, 1e-4
+DP_SPREAD_X, DP_LOSS_RTOL, DP_STATS_FLOOR = 2.0, 1e-5, 1e-4
 DP_FAULTS = ("gradient mean skipped", "BatchNorm over the rank's rows")
 CONVERGE_H, CONVERGE_W, CONVERGE_ORI = 64, 192, (96, 320)
 
 
 def _within_spread(dist, spread, loss,
                    keys=("grads", "stats", "loss")) -> bool:
-    bound = {"grads": CLI_STEP_SPREAD * spread["grads"],
-             "stats": max(CLI_STEP_SPREAD * spread["stats"], DP_STATS_FLOOR),
-             "loss": max(CLI_STEP_SPREAD * spread["loss"],
+    bound = {"grads": DP_SPREAD_X * spread["grads"],
+             "stats": max(DP_SPREAD_X * spread["stats"], DP_STATS_FLOOR),
+             "loss": max(DP_SPREAD_X * spread["loss"],
                          DP_LOSS_RTOL * abs(loss))}
     return all(dist[k] <= bound[k] for k in keys)
 
@@ -4461,7 +4529,7 @@ def phase_dp_ranks(dev, cal, obj, mask, spread15):
     log(f"  the float32 training half on that texture (held): ranks vs one "
         f"process {json.dumps(dists32)}, one process vs itself "
         f"{json.dumps(two32)}, vs itself with every weight one ulp away "
-        f"{json.dumps(ulp32)}; the bound {CLI_STEP_SPREAD} x the larger; "
+        f"{json.dumps(ulp32)}; the bound {DP_SPREAD_X} x the larger; "
         f"planted faults (each must fail it) {json.dumps(faults32)}")
     for r, res in enumerate(ranks):
         log(f"  rank {r}: {res['secs']:.4f} s for one train_step (host "
@@ -4555,7 +4623,7 @@ def phase_dp_cli(runs, f, dev, dp) -> None:
     dist32 = _outcome_distance(one32, dp["solo32"])
     log(f"  the float32 training half over this group against 16a's one "
         f"process {json.dumps(dist32)} (16a's spread "
-        f"{json.dumps(dp['spread32'])}, the bound {CLI_STEP_SPREAD} x it)")
+        f"{json.dumps(dp['spread32'])}, the bound {DP_SPREAD_X} x it)")
     for i, r in enumerate(records):
         _expect_launches(f"train-hardening --data-parallel step {i}",
                          r["launches"], harden_launches(r["iterations"],
@@ -4866,11 +4934,13 @@ CLS_BATCH, CLS_HW, CLS_CLASSES = 16, 224, 10
 CLS_EPS = 8 / 255
 # what phase 17's budget cuts from JAX's defaults (the rest run at them)
 CLS_CUTS = {
+    "deepfool": dict(steps=20),
     "sparsefool": dict(steps=3, deepfool_steps=10),
     "onepixel": dict(steps=3, popsize=50),
-    "apgdt": dict(steps=20),
-    "fab": dict(steps=10),
-    "square": dict(n_queries=300),
+    "apgd": dict(steps=50),
+    "apgdt": dict(steps=10),
+    "fab": dict(steps=5),
+    "square": dict(n_queries=150),
     "autoattack": dict(steps=20, square_queries=300),
 }
 # 17b: the card against the CPU at batch 2: a value differs when by more
@@ -4948,6 +5018,7 @@ def _cls_suite(B, n_targets):
     op_fwd = (op["steps"] + 1) * -(-B * n_pop // c.ONEPIXEL_CHUNK)
     tgt = lambda y: (y + 1) % CLS_CLASSES
     at, fb = CLS_CUTS["apgdt"]["steps"], CLS_CUTS["fab"]["steps"]
+    ap = CLS_CUTS["apgd"]["steps"]
     return [
         ("fgsm", lambda m, x, y, g: c.fgsm(m, x, y), ("Linf", E), False,
          (1, 1)),
@@ -4978,8 +5049,8 @@ def _cls_suite(B, n_targets):
          (51, 50)),
         ("cw targeted", lambda m, x, y, g: c.cw(m, x, tgt(y), targeted=True),
          ("box", None), True, (51, 50)),
-        ("deepfool", lambda m, x, y, g: c.deepfool(m, x, y), ("box", None),
-         False, None),
+        ("deepfool", lambda m, x, y, g: c.deepfool(
+            m, x, y, **CLS_CUTS["deepfool"]), ("box", None), False, None),
         ("difgsm", lambda m, x, y, g: c.difgsm(m, x, y, generator=g),
          ("Linf", E), False, (10, 10)),
         ("jitter", lambda m, x, y, g: c.jitter(m, x, y, generator=g),
@@ -4993,11 +5064,11 @@ def _cls_suite(B, n_targets):
         ("onepixel", lambda m, x, y, g: c.onepixel(m, x, y, generator=g,
                                                    **op), ("L0", 1), False,
          (op_fwd, 0)),
-        ("apgd", lambda m, x, y, g: a.apgd(m, x, y, generator=g),
-         ("Linf", E), False, (101, 101)),
+        ("apgd", lambda m, x, y, g: a.apgd(m, x, y, generator=g, steps=ap),
+         ("Linf", E), False, (ap + 1, ap + 1)),
         ("apgd L2", lambda m, x, y, g: a.apgd(m, x, y, norm="L2", eps=1.0,
-                                              generator=g), ("L2", 1.0),
-         False, (101, 101)),
+                                              generator=g, steps=ap),
+         ("L2", 1.0), False, (ap + 1, ap + 1)),
         ("apgdt", lambda m, x, y, g: a.apgdt(m, x, y, generator=g, steps=at),
          ("Linf", E), False,
          (1 + n_targets * (at + 1), n_targets * (at + 1))),
@@ -5086,6 +5157,10 @@ def phase_classifier_attacks(dev, model, x, y) -> dict:
         if want is not None and counted != want:
             raise AssertionError(f"classifier {name}: {counted} model "
                                  f"passes, predicted {want}")
+        if name == "pgd":  # phase 18's pair: the same call again
+            again = run(model, x, y, torch.Generator().manual_seed(
+                SEED + 300 + i))
+            record_repeat("17a PGD", outcome(adv=adv), outcome(adv=again))
 
 
 def phase_classifier_parity(dev, model, x, y) -> None:
@@ -5262,27 +5337,6 @@ def phase_options_manydepth(dev) -> dict:
 L2_EPS = 8.0
 
 
-class _KeptImages(PGDImageAttack):
-    """Whole-image PGD that keeps its last (adv, ben) in `kept`."""
-
-    def __call__(self, *a, **k):
-        self.kept = super().__call__(*a, **k)
-        return self.kept
-
-
-def _keeping_textures(attack):
-    """`attack` with each `_optimize`'s texture kept in `attack.textures`."""
-    attack.textures = []
-    orig = attack._optimize
-
-    def run(*a):
-        attack.textures.append(orig(*a))
-        return attack.textures[-1]
-
-    attack._optimize = run
-    return attack
-
-
 def phase_options_zoo(dev) -> dict:
     """17d: one batch of the object APGD under the L2 norm (the apgd
     preset's steps and batch, eps 8 over the 300x200 car's texture as
@@ -5301,13 +5355,13 @@ def phase_options_zoo(dev) -> dict:
         cfg = _preset_cfg(name, EVAL_PRESETS[name])
         attack = build_attack(cfg, predictor, obj, mask)
         if cfg.norm_type == "APGD":
-            attack = _keeping_textures(APGDObjectAttack(
+            attack = _KeptCalls(APGDObjectAttack(
                 predictor, obj, mask, attack.cfg, norm="L2", eps=L2_EPS,
                 steps=cfg.step, n_restarts=2))
         else:
-            attack = _KeptImages(predictor, eps=cfg.epsilon, alpha=cfg.alpha,
-                                 steps=cfg.step, targeted=False,
-                                 scene_hw=(cfg.scene_h, cfg.scene_w))
+            attack = _KeptCalls(PGDImageAttack(
+                predictor, eps=cfg.epsilon, alpha=cfg.alpha, steps=cfg.step,
+                targeted=False, scene_hw=(cfg.scene_h, cfg.scene_w)))
         scenes = make_scene(cfg.batch_size, cfg.ori_h, cfg.ori_w,
                             seed=SEED + 390 + i)
         torch.cuda.synchronize()
@@ -5323,13 +5377,14 @@ def phase_options_zoo(dev) -> dict:
         if cfg.norm_type == "image":
             want["maxpool3x3s2_fwd"] += 1
             want["conv3x3_fwd"] += 4
-            adv, ben = attack.kept
+            adv, ben = attack.outputs[-1]
             size = float((adv - ben).abs().max())
             if not size <= cfg.epsilon + 1e-6:
                 raise AssertionError(f"17d {label}: L-inf {size}")
             size = f"L-inf {size:.6g} (bound {cfg.epsilon})"
         else:
-            size = float((attack.textures[-1] - attack.obj_img).norm())
+            size = float((attack.outputs[-1][3] - attack.attack.obj_img)
+                         .norm())
             if not size <= L2_EPS + 1e-4:
                 raise AssertionError(f"17d {label}: L2 {size} > {L2_EPS}")
             size = f"L2 {size:.6f} (bound {L2_EPS})"
@@ -5361,7 +5416,8 @@ def phase_options_hints(dev) -> dict:
     obj, mask = make_car_object(300, 200, seed=SEED)
     trainer = _harden_trainer(dev, cfg, sd, obj, mask, SEED + 134)
     inputs = _harden_inputs(dev, cfg, SEED + 135)
-    _, launches = run_hardening_steps("17d hints off", trainer, inputs, 0, 1)
+    _, launches = run_hardening_steps("17d hints off", trainer, inputs, 1,
+                                      repeat=False)
     del trainer, inputs
     torch.cuda.empty_cache()
     H, W, B = 320, 1024, 2
@@ -5453,6 +5509,175 @@ def phase_classifier(dev) -> dict:
     return launches
 
 
+# -- phase 18 ----------------------------------------------------------------
+# The paths that must give the same bits twice in one process. Each runs
+# twice where its phase drives it (`repeat_twice`), from the same weights
+# and inputs, its generators seeded afresh before each run: in phases 5
+# and 8-14 the pair is the path's warm-up (the timed steps go on from the
+# second run's state), 13b's presets and 17a's PGD run once more, and
+# 15a's are phase 15's two direct steps of the CLI's first one. Phase 18
+# holds the two runs of each bit for bit: losses, metrics, the gradient
+# of every tensor, the updated parameters, the BatchNorm statistics,
+# textures, adversarial images and L0 iteration counts.
+REPEAT_PATHS = {
+    "5": "the L-inf PGD-10 attack batch",
+    "8": "the self-supervised step",
+    "9": "the float32 distillation step",
+    "10": "bench.py's bf16 distillation step",
+    "11": "the float32 hardening step",
+    "12a": "the CLI's bf16 hardening step, frames 0,s",
+    "12b": "the CLI's bf16 hardening step, mono+stereo",
+    "13b image": "the image_eps001 preset's batch",
+    "13b l0": "the l0_thresh01 preset's batch",
+    "14a": "DepthHints on ResNet-50, bf16 step",
+    "14b": "ManyDepth, bf16 step",
+    "14c": "ManyDepth with the real lookup, bf16 step",
+    "15a": "the CLI's first train-hardening --fine-tune step from files "
+           "(two direct train_steps of it)",
+    "17a PGD": "PGD on the ResNet-18 classifier",
+}
+REPEATED = {}
+
+
+def outcome(modules=None, metrics=None, **extra) -> dict:
+    """What one run gave, each tensor cloned by name: its metrics (loss
+    terms or attack metrics), each module's parameters, their gradients
+    and its buffers (the BatchNorm statistics), and `extra` (textures,
+    adversarial images, L0 iterations)."""
+    out = {f"metric {k}": torch.as_tensor(v).detach().reshape(1).clone()
+           for k, v in (metrics or {}).items()}
+    for key, m in (modules or {}).items():
+        for n, p in m.named_parameters():
+            out[f"{key}.{n}"] = p.detach().clone()
+            if p.grad is not None:
+                out[f"{key}.{n} grad"] = p.grad.detach().clone()
+        for n, b in m.named_buffers():
+            out[f"{key}.{n}"] = b.detach().clone()
+    for k, v in extra.items():
+        out[k] = torch.as_tensor(v).detach().clone()
+    return out
+
+
+def _state_modules(state) -> dict:
+    return (state.modules() if hasattr(state, "modules")
+            else {"model": state.model})
+
+
+def repeat_distance(a: dict, b: dict) -> dict:
+    """Of two runs' outcomes: the tensors in all, and those that differ
+    with their relative L2 distance."""
+    differ = {}
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            x, y = a[k].double(), b[k].double()
+            differ[k] = float((x - y).norm() / y.norm().clamp_min(1e-300))
+    return {"tensors": len(a), "differ": differ}
+
+
+def record_repeat(path, a: dict, b: dict) -> None:
+    REPEATED[path] = rec = repeat_distance(a, b)
+    worst = sorted(rec["differ"].items(), key=lambda kv: -kv[1])[:4]
+    log(f"  repeat {path}: two runs " + (
+        f"bit-equal in all {rec['tensors']} tensors" if not worst else
+        f"differ in {len(rec['differ'])} of {rec['tensors']} tensors, the "
+        f"largest relative L2 {json.dumps(worst)}"))
+
+
+def repeat_twice(path, run):
+    """run() -> (outcome, kept), twice; records the two outcomes'
+    distance under `path` and returns the second run's kept value."""
+    a, _ = run()
+    b, kept = run()
+    record_repeat(path, a, b)
+    return kept
+
+
+def _reseed(trainer, seed) -> None:
+    """The trainer's generators seeded afresh: the same draws each run."""
+    trainer.generator.manual_seed(seed)
+    if hasattr(trainer, "noise_generator"):
+        trainer.noise_generator.manual_seed(seed + 1)
+
+
+@contextlib.contextmanager
+def _keeping(obj, name, kept):
+    """obj.name's results appended to `kept` while active (an instance
+    attribute over the class's method)."""
+    orig = getattr(obj, name)
+
+    def call(*a, **k):
+        kept.append(orig(*a, **k))
+        return kept[-1]
+
+    setattr(obj, name, call)
+    try:
+        yield kept
+    finally:
+        delattr(obj, name)
+
+
+def hardening_run(trainer, inputs, seed, seen=None):
+    """One `train_step` of `trainer` on inputs (frames, sides, flips,
+    scene) from a fresh state, its generators seeded with `seed`, its
+    metrics handed to `seen`: (its outcome with the texture and the L0
+    iterations, the state)."""
+    _reseed(trainer, seed)
+    with _keeping(trainer, "refresh_texture", []) as tex:
+        state, m = trainer.train_step(trainer.make_state(), *inputs)
+    if seen is not None:
+        seen(m)
+    return outcome(_state_modules(state), m, texture=tex[0], l0_iterations=[
+        trainer.attack.last_iterations]), state
+
+
+class _KeptCalls:
+    """An attack whose outputs are kept (evaluate_attacks only calls it)."""
+
+    def __init__(self, attack):
+        self.attack, self.outputs = attack, []
+
+    def __call__(self, *a, **k):
+        self.outputs.append(self.attack(*a, **k))
+        return self.outputs[-1]
+
+
+def eval_run(predictor, attack, scenes, cfg, seed):
+    """One evaluate_attacks batch of `scenes`, its generator seeded with
+    `seed`: (its outcome: the 8 mean metrics, the attack's outputs (the
+    adversarial images, and an object attack's masks and texture) and the
+    L0 iterations; evaluate_attacks' result)."""
+    kept = _KeptCalls(attack)
+    res = evaluate_attacks(predictor, kept, [scenes],
+                           dataclasses.replace(cfg, eval_count=1),
+                           generator=torch.Generator().manual_seed(seed))
+    extra = {f"output {i}": t for i, t in enumerate(kept.outputs[0])}
+    if hasattr(attack, "last_iterations"):
+        extra["l0_iterations"] = [attack.last_iterations]
+    return outcome(metrics=res["mean"], **extra), res
+
+
+def phase_repeat() -> None:
+    """Phase 18: each path of REPEAT_PATHS ran twice with the same bits."""
+    log("repeat: each path twice in this process, from the same weights, "
+        "inputs and freshly seeded generators:")
+    bad = []
+    for path, what in REPEAT_PATHS.items():
+        rec = REPEATED.get(path)
+        if rec is None:
+            bad.append(f"{path} not run")
+            log(f"  {path} ({what}): not run")
+            continue
+        worst = sorted(rec["differ"].items(), key=lambda kv: -kv[1])[:4]
+        log(f"  {path} ({what}): " + (
+            f"bit-equal, {rec['tensors']} tensors" if not worst else
+            f"{len(rec['differ'])} of {rec['tensors']} tensors differ, the "
+            f"largest relative L2 {json.dumps(worst)}"))
+        if worst:
+            bad.append(path)
+    if bad:
+        raise AssertionError(f"phase 18: these paths do not repeat: {bad}")
+
+
 def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -5491,6 +5716,7 @@ def main() -> int:
         data_parallel = timed("phase 16", phase_parallel, dev, files)
     torch.cuda.empty_cache()
     classifier_launches = timed("phase 17", phase_classifier, dev)
+    timed("phase 18", phase_repeat)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
                          + distill_launches[name] + bench_launches[name]

@@ -146,12 +146,13 @@ def conv3x3_dgrad_reflect_plain(g, w):
     decomposes it: the conv of g zero-padded by 1 with the flipped,
     transposed weights wt (the interior of d xp), then the halo of d xp
     added onto the rows and columns it reflects to, in the order of the
-    pad's adjoint (`ops/reproj.py:_pad_adjoint`): top and bottom rows,
-    left and right columns, then the four corners. Each halo line meets g
-    through one tap row or column: d xp[0, j + 1] = sum_b g[0, j + b - 1]
-    wt[2, b], d xp[H + 1, .] through wt[0, .] on g's last row, d xp[i + 1,
-    0] through wt[., 2] on g's column 0, d xp[., W + 1] through wt[., 0]
-    on its last column, the corners through one tap each. In bf16:
+    pad's adjoint (`ops/padding.py:reflect_pad1_adjoint`): top and bottom
+    rows, left and right columns, then the four corners. Each halo line
+    meets g through one tap row or column: d xp[0, j + 1] = sum_b g[0, j
+    + b - 1] wt[2, b], d xp[H + 1, .] through wt[0, .] on g's last row,
+    d xp[i + 1, 0] through wt[., 2] on g's column 0, d xp[., W + 1]
+    through wt[., 0] on its last column, the corners through one tap
+    each. In bf16:
     computed in float32, rounded once."""
     if g.dtype == torch.bfloat16:
         return conv3x3_dgrad_reflect_plain(g.float(), w.float()).to(

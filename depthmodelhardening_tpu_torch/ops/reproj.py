@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from ._build import (
     INT, POINTER, check_cuda_tensor, on_cuda, register, stream_handle,
 )
-from .padding import reflect_pad1
+from .padding import reflect_pad1, reflect_pad1_adjoint
 from .ssim import C1, C2, moments, ssim_planar, sum_taps
 
 FWD = register(
@@ -63,25 +63,6 @@ def reproj_loss_plain(x, y):
     """(B, C, H, W), (B, C, H, W) -> (B, H, W) loss map."""
     return (0.85 * _channel_mean(ssim_planar(x, y))
             + 0.15 * _channel_mean((x - y).abs()))
-
-
-def _pad_adjoint(g):
-    """Adjoint of `reflect_pad1`: (B, C, H+2, W+2) -> (B, C, H, W), the
-    interior plus the reflected edges and corners, added in the order of
-    `depthmodelhardening_tpu/ops/padding.py:_bwd`."""
-    H, W = g.shape[2] - 2, g.shape[3] - 2
-    r1, rm = min(1, H - 1), max(H - 2, 0)
-    c1, cm = min(1, W - 1), max(W - 2, 0)
-    d = g[:, :, 1:-1, 1:-1].clone()
-    d[:, :, r1, :] += g[:, :, 0, 1:-1]
-    d[:, :, rm, :] += g[:, :, -1, 1:-1]
-    d[:, :, :, c1] += g[:, :, 1:-1, 0]
-    d[:, :, :, cm] += g[:, :, 1:-1, -1]
-    d[:, :, r1, c1] += g[:, :, 0, 0]
-    d[:, :, r1, cm] += g[:, :, 0, -1]
-    d[:, :, rm, c1] += g[:, :, -1, 0]
-    d[:, :, rm, cm] += g[:, :, -1, -1]
-    return d
 
 
 def reproj_loss_bwd_q_plain(x, y, g):
@@ -123,10 +104,10 @@ def reproj_loss_grad_from_q_plain(x, y, g, q, need_dy: bool = True):
     xp, yp = reflect_pad1(x), reflect_pad1(y)
     # |.|' = +1 at 0 (JAX's convention)
     l1 = (0.15 / C) * g[:, None] * torch.where(x >= y, 1.0, -1.0)
-    dx = _pad_adjoint(u0 + 2 * xp * u2 + yp * u4) + l1
+    dx = reflect_pad1_adjoint(u0 + 2 * xp * u2 + yp * u4) + l1
     if not need_dy:
         return dx, None
-    dy = _pad_adjoint(u1 + 2 * yp * u2 + xp * u4) - l1
+    dy = reflect_pad1_adjoint(u1 + 2 * yp * u2 + xp * u4) - l1
     return dx, dy
 
 

@@ -1,18 +1,24 @@
-"""Compare `chip_smoke.py`'s phase-12b step across checkouts on one card.
+"""Compare a step of `chip_smoke.py` across checkouts on one card.
 
-    python3 tools/cli_step_ab.py [--log-dir DIR] TREE [TREE ...]
+    python3 tools/cli_step_ab.py [--phase 12b|12a|10|15a] [--log-dir DIR]
+        TREE [TREE ...]
 
 For each TREE, in the order given, one process runs, with TREE as its
 working directory and that checkout's own `chip_smoke.py` and package:
-the device check and the kernels' build (under TREE/build/), the golden
-teacher with its BatchNorm statistics calibrated, then 12b: the CLI's
-bf16 `train-hardening --fine-tune` step with frames 0,-1,1,s at
-1024x320, batch 32 (`phase_cli_run`: 2 warm-up and 3 timed steps, then
-one step under the profiler), and one more profiled step. List a tree
-twice, in the order parent, change, change, parent, to see the drift of
-the card across the call. Prints one summary line a run: s/step, peak
-memory, and each profiled step's device busy ms, host wall ms and idle
-share; `--log-dir` keeps each run's whole log there.
+the device check and the kernels' build (under TREE/build/), then the
+phase's step (PHASES):
+12b (the default) and 12a: the CLI's bf16 `train-hardening --fine-tune`
+step with frames 0,-1,1,s or 0,s at 1024x320, batch 32, the golden
+teacher with its BatchNorm statistics calibrated (`phase_cli_run`: its
+warm-up and timed steps, then one step under the profiler), and one more
+profiled step; 10: bench.py's bf16 distillation step (3 steps, then 3
+under the profiler); 15a: phase 15's `train-hardening --fine-tune` from
+KITTI-layout files after `fetch-splits` (`phase_cli_train`: one of its
+four steps under the profiler). List a tree twice, in the order parent, change, change,
+parent, to see the drift of the card across the call. Prints one
+summary line a run: s/step, peak memory, and each profiled step's device
+busy ms, host wall ms and idle share; `--log-dir` keeps each run's
+whole log there.
 """
 
 from __future__ import annotations
@@ -24,22 +30,51 @@ import re
 import subprocess
 import sys
 
-CHILD = r"""
-import json, torch
+SETUP = r"""
+import json, tempfile, torch
 import chip_smoke as cs
 dev = cs.phase_device()
 cs.phase_build()
 _, sd = cs._golden_weights()
-cal = cs.calibrated_teacher(dev, sd)
 obj, mask = cs.make_car_object(300, 200, seed=cs.SEED)
-cfg = cs._cli_cfg(cs.MONO_FRAMES)
+
+def repeat(step, n):
+    for _ in range(n):
+        busy, wall, k, _, _ = cs.device_busy(step)
+        print("AB repeat " + json.dumps({"busy_ms": busy, "wall_ms": wall,
+                                         "activities": k}), flush=True)
+"""
+CLI = r"""
+cal = cs.calibrated_teacher(dev, sd)
+cfg = cs._cli_cfg({frames})
 trainer = cs._harden_trainer(dev, cfg, cal, obj, mask, cs.SEED + 90)
 inputs = cs._harden_inputs(dev, cfg, cs.SEED + 91)
-state, _ = cs.phase_cli_run("12b", trainer, inputs)
-busy, wall, n, _, _ = cs.device_busy(lambda: trainer.train_step(state, *inputs))
-print("AB repeat " + json.dumps({"busy_ms": busy, "wall_ms": wall,
-                                 "activities": n}), flush=True)
+state, _ = cs.phase_cli_run("{label}", trainer, inputs)
+repeat(lambda: trainer.train_step(state, *inputs), 1)
 """
+PHASES = {
+    "12b": CLI.format(frames="cs.MONO_FRAMES", label="12b"),
+    "12a": CLI.format(frames="('0', 's')", label="12a"),
+    "10": r"""
+cfg = cs.BENCH_CFG
+scenes = torch.from_numpy(cs.make_scene(1, cfg.ori_h, cfg.ori_w,
+                                        seed=cs.SEED + 60)).to(dev)
+trainer = cs._bench_trainer(dev, cfg, cs.calibrated_teacher(dev, sd), obj,
+                            mask, cs.SEED + 61)
+state = trainer.make_state()
+for _ in range(3):
+    state, _ = trainer.train_step(state, scenes)
+repeat(lambda: trainer.train_step(state, scenes), 3)
+""",
+    "15a": r"""
+with tempfile.TemporaryDirectory(prefix="dmh_ab_") as root:
+    f = cs.phase_cli_files(dev, root)
+    runs = cs._CliRuns()
+    runs("fetch-splits", ["fetch-splits", "--dest", f.splits, "--from-dir",
+                          f.src])
+    cs.phase_cli_train(runs, f, dev)
+""",
+}
 
 
 def summary(log: str) -> dict:
@@ -67,6 +102,7 @@ def summary(log: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("trees", nargs="+")
+    ap.add_argument("--phase", default="12b", choices=list(PHASES))
     ap.add_argument("--log-dir")
     args = ap.parse_args()
     if args.log_dir:
@@ -74,7 +110,8 @@ def main() -> int:
     rc = 0
     for i, tree in enumerate(args.trees):
         tree = os.path.abspath(tree)
-        p = subprocess.run([sys.executable, "-c", CHILD], cwd=tree,
+        p = subprocess.run([sys.executable, "-c",
+                            SETUP + PHASES[args.phase]], cwd=tree,
                            capture_output=True, text=True)
         log = p.stdout + p.stderr
         if args.log_dir:

@@ -1,227 +1,416 @@
-"""Which op keeps the CLI's first hardening step from repeating on the card.
+"""Which ops keep a path of the port from repeating on the card.
 
-    python3 tools/cli_step_determinism.py
+    python3 tools/cli_step_determinism.py [--native OP] [PATH ...]
 
-Two direct `train_step`s built as the CLI's first step was (bf16
-student, L0, frames 0,s, batch 32 at 1024x320) differ by about 1e-2
-relative L2 in their gradients, while their forward, loss and running
-statistics are bit-equal. From the repo root and with `chip_smoke.py`'s
-helpers, this runs the device check, the kernels' build and phase 15
-(the port's command line on a KITTI tree written to a temporary
-directory, which gives the CLI's first step and the spread of two direct
-steps), then prints one line a reading: two more direct steps under
-`torch.use_deterministic_algorithms(True, warn_only=True)` (the ops that
-warn and the spread), the same with uninitialised memory left unfilled,
-and, with the flag off, two direct steps with one op held deterministic:
-the bilinear resize's backward as matrix products, each op of
-HELD_BACKWARD (its backward recomputed under the flag) and HELD_CALL
-(each call under the flag), and all of them at once. Readings, no check.
-Needs one card.
+PATH is one of PATHS (default: all of them), each a run of a path that
+`chip_smoke.py` drives, from a fresh state and injected draws: "12a" one
+`train_step` of phase 12a's trainer (the CLI's bf16 `train-hardening
+--fine-tune` step, frames 0,s, batch 32 at 1024x320: the step phase 15a
+runs from files), "16a" its training half alone (`synth_batch` +
+`_update` on a fixed texture), "11" the same half with phase 11's
+float32 student, "12b" phase 12b's step (mono+stereo), "9" phase 9's
+float32 distillation step, "10" phase 10's (bench.py's bf16), "image"
+and "l0" one batch of the `image_eps001` and `l0_thresh01` presets (13b)
+and "5" one batch of phase 5's L-inf PGD-10 attack. For each, four
+readings, no check:
+
+1. the kernel-name diff: the path once under the profiler as it is, and
+   once under `torch.use_deterministic_algorithms(True, warn_only=True)`;
+   the device kernels that only one of the two ran, and those whose
+   launches differ (what the flag switched), and the warnings the flagged
+   run raised;
+2. the op finder: the path twice under `OpHashes`, a TorchDispatchMode
+   that sums the bits of every tensor an aten op takes and gives; the ops
+   whose inputs were bit-equal in both runs and whose outputs were not
+   (the sources of a spread: name, dtypes and shapes, how often), and the
+   first op whose inputs differ before any such op (a value made outside
+   the dispatcher: a kernel of `csrc/` or the host). A sum can miss a
+   difference whose ulps cancel, so an op downstream of a source may be
+   named too: the first source in the run is the one to trust;
+3. the spread of two plain runs: each tensor of the outcome (loss terms,
+   gradients, parameters, running statistics, textures, adversarial
+   images) bit-equal or its relative L2 distance;
+4. the cost of each op the port replaced to repeat itself (REPLACED):
+   the shapes its backward took in one run, and at each, the device ms
+   (`chip_smoke.cuda_ms`) of PyTorch's own backward and of the port's,
+   with their sums over the run.
+
+`--native OP` (repeatable) runs the paths with OP's backward PyTorch's
+own again, the other replacements kept: the spread OP causes alone.
+From the repo root, with `chip_smoke.py`'s helpers; needs one card.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import contextlib
+import dataclasses
 import json
 import os
 import sys
-import tempfile
+import warnings
 
 import torch
-import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke as cs  # noqa: E402
-from depthmodelhardening_tpu_torch.ops import conv  # noqa: E402
+from depthmodelhardening_tpu_torch.ops import padding, resize  # noqa: E402
+
+# ops whose outputs hold uninitialised memory until a later op fills them
+UNINITIALISED = ("empty", "empty_like", "empty_strided", "new_empty",
+                 "new_empty_strided")
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+         torch.float16: torch.int16, torch.float64: torch.int64,
+         torch.bool: torch.uint8}
 
 
-class _DeterministicResize(torch.autograd.Function):
-    """F.interpolate's bilinear resize (no antialias, half-pixel) whose
-    backward is Ry^T g Rx with the interpolation matrices: matrix
-    products instead of the CUDA kernel's atomic adds."""
-
-    @staticmethod
-    def forward(ctx, x, size, interpolate):
-        eye = lambda n, dim: interpolate(
-            torch.eye(n, device=x.device)[:, None, :, None], size=(
-                size[dim], 1), mode="bilinear", align_corners=False)[:, 0, :, 0]
-        ctx.ry, ctx.rx = eye(x.shape[2], 0).T, eye(x.shape[3], 1).T
-        return interpolate(x, size=size, mode="bilinear", align_corners=False)
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.ry.T @ g @ ctx.rx, None, None
+def bit_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of t's elements read as integers of their width (int64):
+    a value one ulp away moves it."""
+    v = t.detach()
+    if v.dtype in _BITS:
+        v = v.view(_BITS[v.dtype])
+    elif v.is_complex() or v.is_sparse:
+        return torch.zeros((), dtype=torch.int64)
+    return torch.sum(v, dtype=torch.int64)
 
 
-def _resize_patch(interpolate):
-    """F.interpolate with its float32 bilinear resizes through
-    `_DeterministicResize`."""
-    def resize(x, size=None, scale_factor=None, mode="nearest",
-               align_corners=None, antialias=False, **kw):
-        if mode == "bilinear" and not antialias and size is not None \
-                and x.dtype == torch.float32 and torch.is_grad_enabled() \
-                and x.requires_grad:
-            return _DeterministicResize.apply(x, tuple(size), interpolate)
-        return interpolate(x, size=size, scale_factor=scale_factor,
-                           mode=mode, align_corners=align_corners,
-                           antialias=antialias, **kw)
-    return resize
+def _tensors(tree):
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
-class _FlagBackward(torch.autograd.Function):
-    """fn(*tensors) whose backward recomputes fn under
-    torch.use_deterministic_algorithms and differentiates that: one op's
-    gradient held deterministic, the rest of the step as it is."""
+class OpHashes(TorchDispatchMode):
+    """Records, for every aten op, (name, the dtypes and shapes of its
+    tensor inputs, the bit sums of its inputs, those of its outputs)."""
 
-    @staticmethod
-    def forward(ctx, fn, *tensors):
-        ctx.fn = fn
-        ctx.save_for_backward(*tensors)
-        return fn(*tensors)
+    def __init__(self):
+        super().__init__()
+        self.records = []
 
-    @staticmethod
-    def backward(ctx, g):
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad(), _deterministic():
-            grads = iter(torch.autograd.grad(ctx.fn(*inputs), wanted, g))
-        return (None,) + tuple(next(grads) if t.requires_grad else None
-                               for t in inputs)
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        ins = _tensors((args, kwargs))
+        hin = [bit_sum(t) for t in ins]
+        out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        hout = [] if name in UNINITIALISED else [bit_sum(t) for t in
+                                                 _tensors(out)]
+        meta = tuple((str(t.dtype).split(".")[-1], tuple(t.shape))
+                     for t in ins)
+        self.records.append((str(func), meta, hin, hout))
+        return out
+
+    def settled(self):
+        """The records with their sums on the host."""
+        flat = [h for r in self.records for h in r[2] + r[3]]
+        host = [int(v) for v in torch.stack([h.cpu() for h in flat])] \
+            if flat else []
+        it = iter(host)
+        return [(f, m, [next(it) for _ in hi], [next(it) for _ in ho])
+                for f, m, hi, ho in self.records]
 
 
-# what each reading of `print_readings` holds deterministic, and
-# where: the op's backward recomputed under the flag (`_FlagBackward`),
-# or each call under it (the in-place scatter_add_ of the stereo row
-# warp's backward, kernel D's weight gradient)
-HELD_BACKWARD = {"interpolate": F, "linear": F, "batch_norm": F,
-                 "conv2d": F, "index_select": torch.Tensor}
-HELD_CALL = {"scatter_add_": torch.Tensor, "weight_grad": conv}
+def sources(ra, rb) -> dict:
+    """The ops of two runs' records whose inputs were bit-equal and whose
+    outputs were not, counted by (op, dtypes and shapes); the first op
+    whose inputs differ before any of those; where the two runs' op
+    sequences part."""
+    found = collections.Counter()
+    first_in, parted = None, None
+    for i, (a, b) in enumerate(zip(ra, rb)):
+        if a[0] != b[0] or a[1] != b[1]:
+            parted = (i, a[0], b[0])
+            break
+        if a[2] == b[2] and a[3] != b[3]:
+            found[(a[0], a[1])] += 1
+        elif a[2] != b[2] and first_in is None and not found:
+            first_in = (i, a[0], a[1])
+    if parted is None and len(ra) != len(rb):
+        parted = (min(len(ra), len(rb)), "end", "end")
+    return {"ops": len(ra), "sources": [
+        {"op": op, "inputs": meta, "times": n}
+        for (op, meta), n in found.most_common()],
+        "first_input_differing_before_a_source": first_in,
+        "sequences_part_at": parted}
 
 
-def _flag_backward_patch(name: str):
-    """HELD_BACKWARD's op `name` with its backward under the flag."""
-    orig = getattr(HELD_BACKWARD[name], name)
-    if name == "batch_norm":
-        def patched(x, running_mean, running_var, weight=None, bias=None,
-                    training=False, momentum=0.1, eps=1e-5):
-            if not (training and x.requires_grad):
-                return orig(x, running_mean, running_var, weight, bias,
-                            training, momentum, eps)
-            calls = []
+# -- the paths ----------------------------------------------------------------
+def _cli_trainer(dev, frame_ids=("0", "s"), cfg=None):
+    _, sd = cs._golden_weights()
+    obj, mask = cs.make_car_object(300, 200, seed=cs.SEED)
+    if cfg is None:
+        cfg = cs._cli_cfg(frame_ids)
+        sd = cs.calibrated_teacher(dev, sd)
+    trainer = cs._harden_trainer(dev, cfg, sd, obj, mask, cs.SEED + 90)
+    frames, side, flip, scene = cs._harden_inputs(dev, cfg, cs.SEED + 91)
+    draws = dataclasses.replace(
+        trainer.draw(cfg.batch_size),
+        identity_noise=trainer.draw_identity_noise(cfg.batch_size))
+    return trainer, (frames, side, flip, scene), draws
 
-            def fn(x, *wb):
-                # the forward updates the running statistics, the
-                # backward's recomputation copies of them
-                stats = [s if not calls or s is None else s.clone()
-                         for s in (running_mean, running_var)]
-                calls.append(1)
-                w, b = (wb + (None, None))[:2] if weight is not None \
-                    else (None, None)
-                return orig(x, *stats, w, b, training, momentum, eps)
 
-            return _FlagBackward.apply(
-                fn, x, *[t for t in (weight, bias) if t is not None])
-    elif name in ("linear", "conv2d"):
-        def patched(x, w, b=None, *args, **kw):
-            if b is None:
-                return _FlagBackward.apply(
-                    lambda x, w: orig(x, w, None, *args, **kw), x, w)
-            return _FlagBackward.apply(
-                lambda x, w, b: orig(x, w, b, *args, **kw), x, w, b)
+def path_step(dev, frame_ids=("0", "s")):
+    """Phase 12a's `train_step` from a fresh state on injected draws."""
+    trainer, (frames, side, flip, scene), draws = _cli_trainer(dev,
+                                                               frame_ids)
+
+    def run():
+        state, m = trainer.train_step(trainer.make_state(), frames, side,
+                                      flip, scene, draws=draws)
+        return cs.outcome(cs._state_modules(state), m, l0_iterations=[
+            trainer.attack.last_iterations])
+    return run
+
+
+def _path_half(dev, cfg=None):
+    trainer, (frames, side, flip, scene), draws = _cli_trainer(dev, cfg=cfg)
+    texture = trainer.refresh_texture(trainer.make_state(), scene,
+                                      draws).detach().clone()
+
+    def run():
+        batch = trainer.synth_batch(frames, side, flip, texture, draws)
+        state, m = trainer._update(trainer.make_state(), batch,
+                                   draws.identity_noise)
+        return cs.outcome(cs._state_modules(state), m)
+    return run
+
+
+def path_half_bf16(dev):
+    """Phase 16a's bf16 training half on a fixed texture."""
+    return _path_half(dev)
+
+
+def path_half_f32(dev):
+    """The same half with phase 11's float32 student and golden weights."""
+    return _path_half(dev, cfg=cs.HARDEN_CFG)
+
+
+def _distill_path(dev, bench: bool):
+    """One `train_step` of phase 9's (float32) or phase 10's (bench.py's
+    bf16) distillation trainer from a fresh state, its generator seeded
+    afresh each run."""
+    _, sd = cs._golden_weights()
+    obj, mask = cs.make_car_object(300, 200, seed=cs.SEED)
+    if bench:
+        cfg, n, seed = cs.BENCH_CFG, 1, cs.SEED + 61
+        trainer = cs._bench_trainer(dev, cfg, cs.calibrated_teacher(dev, sd),
+                                    obj, mask, seed)
     else:
-        def patched(x, *args, **kw):
-            if not x.requires_grad:
-                return orig(x, *args, **kw)
-            return _FlagBackward.apply(lambda t: orig(t, *args, **kw), x)
-    return patched
+        cfg, seed = cs.DISTILL_CFG, cs.SEED
+        n = cfg.batch_size
+        trainer = cs._distill_trainer(dev, cfg, sd, obj, mask, seed)
+    scenes = torch.from_numpy(cs.make_scene(n, cfg.ori_h, cfg.ori_w,
+                                            seed=seed + 1)).to(dev)
+
+    def run():
+        trainer.generator.manual_seed(seed)
+        state, m = trainer.train_step(trainer.make_state(), scenes)
+        return cs.outcome(cs._state_modules(state), m)
+    return run
 
 
-def _flag_call_patch(name: str):
-    """HELD_CALL's op `name` with each call under the flag."""
-    orig = getattr(HELD_CALL[name], name)
+def _attack_path(dev, cfg, seed):
+    """One `evaluate_attacks` batch of cfg's attack, its generator seeded
+    afresh each run (`chip_smoke.eval_run`: the adversarial images, the
+    attack's other outputs and the 8 metrics)."""
+    from depthmodelhardening_tpu_torch.evaluation.attack_eval import (
+        build_attack,
+    )
 
-    def patched(*args, **kw):
-        with _deterministic():
-            return orig(*args, **kw)
-    return patched
+    _, sd = cs._golden_weights()
+    predictor = cs._golden_predictor(dev, sd)
+    obj, mask = cs.make_car_object(300, 200, seed=cs.SEED)
+    attack = build_attack(cfg, predictor, obj, mask)
+    scenes = cs.make_scene(cfg.batch_size, cfg.ori_h, cfg.ori_w, seed=seed)
+    return lambda: cs.eval_run(predictor, attack, scenes, cfg, seed + 1)[0]
+
+
+def path_image(dev):
+    """One batch of the image_eps001 preset (13b's cut: one batch)."""
+    return _attack_path(dev, cs.EVAL_PRESETS["image_eps001"], cs.SEED + 130)
+
+
+def path_linf(dev):
+    """One batch of phase 5's L-inf PGD-10 attack."""
+    return _attack_path(dev, cs.CFG, cs.SEED + 5)
+
+
+# -- the replaced ops -----------------------------------------------------------
+def _pad_native(g):
+    """F.pad(mode="reflect")'s own backward (atomic adds on the card)."""
+    B, C, Hp, Wp = g.shape
+    return torch.ops.aten.reflection_pad2d_backward(
+        g, g.new_empty(B, C, Hp - 2, Wp - 2), [1, 1, 1, 1])
+
+
+def _resize_native(ctx, g):
+    """F.interpolate's own bilinear backward (atomic adds on the card)."""
+    (H, W), (B, C, oh, ow) = ctx.in_hw, g.shape
+    return torch.ops.aten.upsample_bilinear2d_backward(
+        g, [oh, ow], [B, C, H, W], False), None, None
+
+
+def _resize_port(g, in_hw):
+    ctx = type("Ctx", (), {"in_hw": in_hw})()
+    return resize.BilinearResize.backward(ctx, g)[0]
+
+
+# op: (owner, attribute, PyTorch's own backward, the port's backward at a
+# recorded (shape, dtype, extra), PyTorch's own at it)
+REPLACED = {
+    "reflect_pad": (padding, "reflect_pad1_adjoint", _pad_native,
+                    lambda g, _: padding.reflect_pad1_adjoint(g),
+                    lambda g, _: _pad_native(g)),
+    "bilinear_resize": (resize.BilinearResize, "backward",
+                        staticmethod(_resize_native), _resize_port,
+                        lambda g, hw: _resize_native(type("Ctx", (), {
+                            "in_hw": hw})(), g)[0]),
+}
 
 
 @contextlib.contextmanager
-def _deterministic(enabled=True):
-    torch.use_deterministic_algorithms(enabled)
+def native(ops):
+    """The named REPLACED ops with PyTorch's own backward."""
+    saved = [(REPLACED[o][0], REPLACED[o][1],
+              REPLACED[o][0].__dict__[REPLACED[o][1]]) for o in ops]
+    try:
+        for o in ops:
+            owner, attr, orig, *_ = REPLACED[o]
+            setattr(owner, attr, orig)
+        yield
+    finally:
+        for owner, attr, value in saved:
+            setattr(owner, attr, value)
+
+
+@contextlib.contextmanager
+def recording(calls):
+    """Counts each REPLACED op's backward calls by (shape, dtype, extra)
+    into `calls[op]` while the port's backward runs."""
+    pad, bwd = padding.reflect_pad1_adjoint, resize.BilinearResize.__dict__[
+        "backward"]
+
+    def pad_rec(g):
+        calls["reflect_pad"][(tuple(g.shape), g.dtype, None)] += 1
+        return pad(g)
+
+    def resize_rec(ctx, g):
+        calls["bilinear_resize"][(tuple(g.shape), g.dtype,
+                                  tuple(ctx.in_hw))] += 1
+        return bwd.__func__(ctx, g)
+
+    padding.reflect_pad1_adjoint = pad_rec
+    resize.BilinearResize.backward = staticmethod(resize_rec)
+    try:
+        yield
+    finally:
+        padding.reflect_pad1_adjoint = pad
+        resize.BilinearResize.backward = bwd
+
+
+def op_costs(run, dev) -> dict:
+    """Each REPLACED op's backward shapes in one run and, at each, the
+    device ms of PyTorch's own backward and of the port's."""
+    calls = {o: collections.Counter() for o in REPLACED}
+    with recording(calls):
+        run()
+    out = {}
+    for o, seen in calls.items():
+        *_, port, own = REPLACED[o]
+        rows, total = [], [0.0, 0.0]
+        for (shape, dtype, extra), n in seen.items():
+            g = torch.randn(shape, device=dev).to(dtype)
+            ms = [cs.cuda_ms(lambda f=f: f(g, extra), reps=10)
+                  for f in (own, port)]
+            rows.append({"shape": shape, "dtype": str(dtype), "in": extra,
+                         "calls": n, "pytorch_ms": ms[0], "port_ms": ms[1]})
+            total = [t + n * m for t, m in zip(total, ms)]
+        out[o] = {"per_run_ms": {"pytorch": total[0], "port": total[1]},
+                  "shapes": rows}
+    return out
+
+
+PATHS = {"12a": path_step, "16a": path_half_bf16, "11": path_half_f32,
+         "image": path_image, "5": path_linf,
+         "12b": lambda dev: path_step(dev, cs.MONO_FRAMES),
+         "9": lambda dev: _distill_path(dev, bench=False),
+         "10": lambda dev: _distill_path(dev, bench=True),
+         "l0": lambda dev: _attack_path(dev, cs.EVAL_PRESETS["l0_thresh01"],
+                                        cs.SEED + 131)}
+
+
+@contextlib.contextmanager
+def deterministic_flag():
+    torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         yield
     finally:
         torch.use_deterministic_algorithms(False)
 
 
-def print_readings(f, dev) -> None:
-    """Which op keeps the CLI's first step from repeating on the card: two
-    direct steps (as phase 15's) under torch.use_deterministic_algorithms
-    (True, warn_only=True), the ops that warn and the spread; the same
-    with uninitialised memory left unfilled; then, without the flag, two
-    more with one op held deterministic: the bilinear resize's backward
-    as matrix products (`_DeterministicResize`), each op of HELD_BACKWARD
-    (its backward recomputed under the flag: F.interpolate, F.linear,
-    F.batch_norm, F.conv2d, the reflect pad's `index_select`) and of
-    HELD_CALL (each call under the flag: the stereo row warp's
-    `scatter_add_`, kernel D's weight gradient), and all of them at once.
-    Readings, no check."""
-    import warnings
-
-    import torch.utils.deterministic as det
-
-    held = tuple(HELD_BACKWARD) + tuple(HELD_CALL)
-    readings = [("deterministic algorithms (warn_only)", True, ()),
-                ("deterministic algorithms, uninitialised memory not "
-                 "filled", True, ("no fill",)),
-                ("the resize's backward as matrix products", False,
-                 ("resize",))]
-    readings += [(f"{name} held deterministic", False, (name,))
-                 for name in held]
-    readings.append(("all of these at once", False, ("resize",) + held))
-    for label, flag, swaps in readings:
-        with warnings.catch_warnings(record=True) as caught, \
-                contextlib.ExitStack() as stack:
-            warnings.simplefilter("always")
-            torch.use_deterministic_algorithms(flag, warn_only=True)
-            stack.callback(torch.use_deterministic_algorithms, False)
-            fill = det.fill_uninitialized_memory
-            stack.callback(setattr, det, "fill_uninitialized_memory", fill)
-            if "no fill" in swaps:
-                det.fill_uninitialized_memory = False
-            for name in swaps:
-                if name in ("resize", "no fill"):
-                    continue
-                owner = HELD_BACKWARD.get(name) or HELD_CALL[name]
-                stack.callback(setattr, owner, name, getattr(owner, name))
-                setattr(owner, name, _flag_backward_patch(name)
-                        if name in HELD_BACKWARD else _flag_call_patch(name))
-            if "resize" in swaps:
-                # on top of interpolate's hold when both are asked for
-                stack.callback(setattr, F, "interpolate", F.interpolate)
-                F.interpolate = _resize_patch(F.interpolate)
-            a, b = cs._direct_steps(f.first, dev)
-        ops = sorted({str(w.message)[:200] for w in caught
-                      if "determinis" in str(w.message)})
-        cs.log(f"  determinism, {label}: {len(caught)} warnings, those on "
-            f"determinism {json.dumps(ops)}; two direct steps apart by "
-            f"{json.dumps(cs._outcome_distance(b, a))}")
-    cs.log(f"  determinism: phase 15's direct spread without the flag "
-        f"{json.dumps(f.spread)}")
+def kernel_diff(run) -> dict:
+    """The device kernels of one run as it is against one run under the
+    flag: names only one ran, launches that differ, the flag's warnings."""
+    *_, plain = cs.device_busy(run)
+    with warnings.catch_warnings(record=True) as caught, \
+            deterministic_flag():
+        warnings.simplefilter("always")
+        *_, flagged = cs.device_busy(run)
+    short = lambda n: n[:160]
+    return {
+        "only_as_it_is": {short(n): c for n, c in plain.items()
+                          if n not in flagged},
+        "only_under_the_flag": {short(n): c for n, c in flagged.items()
+                                if n not in plain},
+        "launches_differ": {short(n): [c, flagged[n]]
+                            for n, c in plain.items()
+                            if n in flagged and flagged[n] != c},
+        "warnings": sorted({str(w.message)[:240] for w in caught})}
 
 
-def main() -> int:
+def probe(name, dev, costs: bool) -> None:
+    run = PATHS[name](dev)
+    run()  # warm-up: kernels built, allocator settled
+    cs.log(f"determinism {name}: kernel diff, as it is against "
+           f"use_deterministic_algorithms(True, warn_only=True): "
+           f"{json.dumps(kernel_diff(run))}")
+    traces = []
+    for _ in range(2):
+        with OpHashes() as mode:
+            run()
+        torch.cuda.synchronize()
+        traces.append(mode.settled())
+    cs.log(f"determinism {name}: op finder {json.dumps(sources(*traces))}")
+    a, b = run(), run()
+    cs.log(f"determinism {name}: two plain runs "
+           f"{json.dumps(cs.repeat_distance(a, b))}")
+    if costs:
+        cs.log(f"determinism {name}: the replaced ops' backward, device ms "
+               f"{json.dumps(op_costs(run, dev))}")
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("paths", nargs="*", help=f"of {list(PATHS)}")
+    ap.add_argument("--native", action="append", default=[],
+                    choices=list(REPLACED))
+    args = ap.parse_args(argv)
+    if unknown := set(args.paths) - set(PATHS):
+        ap.error(f"unknown paths {sorted(unknown)}")
     dev = cs.phase_device()
     cs.phase_build()
-    with tempfile.TemporaryDirectory(prefix="dmh_det_") as root:
-        _, f = cs.phase_cli_commands(dev, root)
-        print_readings(f, dev)
+    cs.log(f"determinism: PyTorch's own backward for {args.native or 'no op'}")
+    with native(args.native):
+        for name in args.paths or list(PATHS):
+            probe(name, dev, costs=not args.native)
+            torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
