@@ -38,6 +38,7 @@ from ..physics.calibration import Calibration
 from ..physics.eot import (
     ANGLE_RANGE, EVAL_DIST_RANGE, ORI_H, ORI_W, EoTCompositor, EoTConfig,
 )
+from ..utils import profiling as prof
 
 SCENE_H, SCENE_W = 320, 1024  # model input (phy_obj_atk.py:50)
 
@@ -296,10 +297,13 @@ class PhysObjAttack:
             mass = m.sum(dim=(1, 2)).to(dt).float()
             tys = torch.arange(th, dtype=torch.float32, device=m.device)
             txs = torch.arange(tw, dtype=torch.float32, device=m.device)
-            cy = torch.tensor(y0s, dtype=torch.float32, device=m.device) + (
-                m * tys[:, None]).sum(dim=(1, 2)) / mass.clamp(min=1e-6)
-            cx = torch.tensor(x0s, dtype=torch.float32, device=m.device) + (
-                m * txs).sum(dim=(1, 2)) / mass.clamp(min=1e-6)
+            with prof.host_copy(y0s, "crop.offsets"):
+                y0t = torch.tensor(y0s, dtype=torch.float32, device=m.device)
+            with prof.host_copy(x0s, "crop.offsets"):
+                x0t = torch.tensor(x0s, dtype=torch.float32, device=m.device)
+            cy = y0t + (m * tys[:, None]).sum(dim=(1, 2)) / mass.clamp(
+                min=1e-6)
+            cx = x0t + (m * txs).sum(dim=(1, 2)) / mass.clamp(min=1e-6)
         return self._cut(adv, masks, cx, cy, mass > 0, cw, ch)
 
     def _cost_tail(self, adv_scenes, masks, scale: float,
@@ -368,7 +372,11 @@ class PhysObjAttack:
             cy = torch.where(has, cy, torch.full_like(cy, H / 2.0))
             x0 = torch.round(cx - cw / 2).to(torch.int64).clamp(0, W - cw)
             y0 = torch.round(cy - ch / 2).to(torch.int64).clamp(0, H - ch)
-        offsets = list(zip(y0.tolist(), x0.tolist()))
+        with prof.span(prof.SYNC_READ, {"site": "crop.cut"}):
+            y0 = y0.tolist()
+        with prof.span(prof.SYNC_READ, {"site": "crop.cut"}):
+            x0 = x0.tolist()
+        offsets = list(zip(y0, x0))
         crop = lambda t: torch.stack([t[b, oy:oy + ch, ox:ox + cw]
                                       for b, (oy, ox) in enumerate(offsets)])
         return crop(adv_scenes), crop(masks), (ch * cw) / (H * W)
@@ -441,7 +449,8 @@ class PhysObjAttack:
             draws = self.draw(generator, batch_size)
         scenes_full = self._replicate(scenes, batch_size)
         obj_adv = self._optimize(scenes_full, draws)
-        adv, ben, masks = self._final_outputs(
-            scenes_full, obj_adv, draws.final_z0s, draws.final_alphas,
-            eval_mode)
+        with prof.span(prof.ATTACK_FINALS):
+            adv, ben, masks = self._final_outputs(
+                scenes_full, obj_adv, draws.final_z0s, draws.final_alphas,
+                eval_mode)
         return adv, ben, masks, obj_adv

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.color import apply_color_jitter, sample_color_jitter
+from ..utils import profiling as prof
 from .base import PhysObjAttack, PhysObjAttackConfig
 
 L0_EVAL_PIN_Z0 = 6.1  # phy_obj_atk_l0.py:162
@@ -165,8 +166,10 @@ class L0ObjectAttack(PhysObjAttack):
 
     def _optimize(self, scenes_full, draws: L0Draws):
         dev = self.obj_img.device
-        pos_t = draws.pos.to(device=dev, dtype=torch.float32).clone()
-        neg_t = draws.neg.to(device=dev, dtype=torch.float32).clone()
+        with prof.host_copy(draws.pos, "l0.start"):
+            pos_t = draws.pos.to(device=dev, dtype=torch.float32).clone()
+        with prof.host_copy(draws.neg, "l0.start"):
+            neg_t = draws.neg.to(device=dev, dtype=torch.float32).clone()
         jitter = draws.jitter
         transform = (None if jitter is None else
                      (lambda s: apply_color_jitter(s, *jitter)))
@@ -174,21 +177,27 @@ class L0ObjectAttack(PhysObjAttack):
         moments = [(torch.zeros_like(pos_t), torch.zeros_like(pos_t)),
                    (torch.zeros_like(neg_t), torch.zeros_like(neg_t))]
         thresh = np.float32(self.l0_thresh)
-        l0_init = np.float32(self._cal_l0(pos_t, neg_t).item())
+        with prof.span(prof.SYNC_READ, {"site": "l0.init"}):
+            l0_init = np.float32(self._cal_l0(pos_t, neg_t).item())
         step = 0
         early_break = False
         while step < 2 * self.steps:
             # the one host read of the iteration (phy_obj_atk_l0.py:92-98)
-            ratio = np.float32(self._cal_l0(pos_t, neg_t).item()) / l0_init
+            with prof.span(prof.SYNC_READ, {"site": "l0.ratio"}):
+                ratio = np.float32(
+                    self._cal_l0(pos_t, neg_t).item()) / l0_init
             if ratio <= thresh and step >= self.steps:
                 early_break = True
                 break
             mask_weight = 0.0 if ratio <= thresh else self.mask_wt
-            _, grads = self.cost_and_grads(
-                scenes_full, pos_t, neg_t, draws.z0s[step],
-                draws.alphas[step], mask_weight, transform, scenes_model)
-            with torch.no_grad():
-                self._adam((pos_t, neg_t), grads, moments, step + 1)
+            with prof.span(prof.ATTACK_ITER, {"attack": "l0", "iter": step}):
+                with prof.span(prof.ATTACK_GRAD):
+                    _, grads = self.cost_and_grads(
+                        scenes_full, pos_t, neg_t, draws.z0s[step],
+                        draws.alphas[step], mask_weight, transform,
+                        scenes_model)
+                with prof.span(prof.ATTACK_UPDATE), torch.no_grad():
+                    self._adam((pos_t, neg_t), grads, moments, step + 1)
             step += 1
         self.last_iterations = step
         self.last_early_break = early_break

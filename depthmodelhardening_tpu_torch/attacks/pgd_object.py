@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling as prof
 from .base import PhysObjAttack, PhysObjAttackConfig
 
 
@@ -74,19 +75,25 @@ class PGDObjectAttack(PhysObjAttack):
         obj_clean = self.obj_img
         obj_adv = obj_clean
         if self.random_start:
-            noise = draws.noise.to(device=obj_clean.device,
-                                   dtype=torch.float32)
+            with prof.host_copy(draws.noise, "pgd.start"):
+                noise = draws.noise.to(device=obj_clean.device,
+                                       dtype=torch.float32)
             obj_adv = torch.clamp(obj_clean + noise, 0.0, 1.0)
         scenes_model = self._resize_scenes(scenes_full)
         fine_steps = (min(self.cfg.attack_scale_fine_steps, self.steps)
                       if self.cfg.attack_scale else 0)
         for step in range(self.steps):
-            _, g = self.objective_and_grad(
-                scenes_full, obj_adv, draws.z0s[step], draws.alphas[step],
-                scenes_model, fine=step >= self.steps - fine_steps)
-            # the reference ascends -MSE (phy_obj_atk.py:94-99):
-            # equivalently descend the MSE by the gradient sign
-            obj_adv = obj_adv - self.alpha * torch.sign(g)
-            delta = torch.clamp(obj_adv - obj_clean, -self.eps, self.eps)
-            obj_adv = torch.clamp(obj_clean + delta, 0.0, 1.0)
+            with prof.span(prof.ATTACK_ITER, {"attack": "pgd", "iter": step}):
+                with prof.span(prof.ATTACK_GRAD):
+                    _, g = self.objective_and_grad(
+                        scenes_full, obj_adv, draws.z0s[step],
+                        draws.alphas[step], scenes_model,
+                        fine=step >= self.steps - fine_steps)
+                with prof.span(prof.ATTACK_UPDATE):
+                    # the reference ascends -MSE (phy_obj_atk.py:94-99):
+                    # equivalently descend the MSE by the gradient sign
+                    obj_adv = obj_adv - self.alpha * torch.sign(g)
+                    delta = torch.clamp(obj_adv - obj_clean, -self.eps,
+                                        self.eps)
+                    obj_adv = torch.clamp(obj_clean + delta, 0.0, 1.0)
         return obj_adv

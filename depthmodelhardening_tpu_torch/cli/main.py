@@ -58,6 +58,9 @@ import sys
 import numpy as np
 import torch
 
+from ..utils import profiling
+
+
 def _device(device) -> torch.device:
     from ..device import resolve_device, use_f32_numerics
 
@@ -168,9 +171,14 @@ def cmd_eval_attacks(args, device):
                                 size=(cfg.ori_w, cfg.ori_h),
                                 train_list=args.train_list,
                                 val_list=args.val_list)
-    res = evaluate_attacks(predictor, attack,
-                           iter_eval_scenes(dataset, cfg), cfg,
-                           generator=torch.Generator().manual_seed(17))
+    window = profiling.TraceWindow(args.trace_dir)
+    try:
+        res = evaluate_attacks(
+            predictor, attack,
+            profiling.stepped(iter_eval_scenes(dataset, cfg), window), cfg,
+            generator=torch.Generator().manual_seed(17))
+    finally:
+        window.close()
     print(json.dumps(res, indent=2))
     return res
 
@@ -426,16 +434,19 @@ def cmd_train_hardening(args, device):
             eval_count=args.val_eval_count)
 
     logger = MetricsLogger(args.log_dir) if lead else None
+    # rank 0 alone traces (every rank runs the same step)
+    window = profiling.TraceWindow(args.trace_dir if lead else None)
     try:
         for epoch in range(args.epochs):
-            for batch in loader:
+            for batch in profiling.stepped(loader, window):
                 if adv_train:
-                    try:
-                        scenes, _ = next(scene_iter)
-                    except StopIteration:
-                        scene_iter = iter(scene_set.batches(
-                            cfg.adv.attack_batch_size, seed=epoch))
-                        scenes, _ = next(scene_iter)
+                    with profiling.span(profiling.DATA_WAIT):
+                        try:
+                            scenes, _ = next(scene_iter)
+                        except StopIteration:
+                            scene_iter = iter(scene_set.batches(
+                                cfg.adv.attack_batch_size, seed=epoch))
+                            scenes, _ = next(scene_iter)
                     if mesh is not None:
                         scenes = shard_batch(scenes, mesh)
                     state, metrics = trainer.train_step(
@@ -462,6 +473,7 @@ def cmd_train_hardening(args, device):
                 save_state(ckpt_dir, step, state, trainer=trainer)
             barrier()
     finally:
+        window.close()
         if logger is not None:
             logger.close()
     return state
@@ -566,6 +578,11 @@ def build_parser():
     pe.add_argument("--ori-w", type=int, default=1242)
     pe.add_argument("--train-list", default="trainval.txt")
     pe.add_argument("--val-list", default="test.txt")
+    pe.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="trace batches 1 and 2 (after the first, which "
+                         "builds the shapes) into DIR/trace.json, a Chrome "
+                         "trace with the port's spans, and DIR/counters.json"
+                         ", the model's FLOPs and the kernels' launches")
     pe.set_defaults(fn=cmd_eval_attacks, on_device=True)
 
     pc = sub.add_parser("eval-clean")
@@ -678,6 +695,11 @@ def build_parser():
     ph.add_argument("--compute-dtype", default="bfloat16")
     ph.add_argument("--train-list", default="trainval.txt")
     ph.add_argument("--val-list", default="test.txt")
+    ph.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="trace steps 1 and 2 (after the first, which "
+                         "builds the shapes) into DIR/trace.json, a Chrome "
+                         "trace with the port's spans, and DIR/counters.json"
+                         ", the model's FLOPs and the kernels' launches")
     ph.set_defaults(fn=cmd_train_hardening, on_device=True)
 
     pp = sub.add_parser("precompute-hints")

@@ -38,6 +38,7 @@ from ..attacks.random_object import (
 from ..attacks.square_object import SquareObjectAttack
 from ..ops.metrics import compute_errors_masked, scaled_clamped_depth
 from ..physics.eot import VEHICLE_SIZES
+from ..utils import profiling as prof
 
 METRIC_NAMES = ("abs_err", "abs_rel", "sq_rel", "rmse", "rmse_log",
                 "a1", "a2", "a3")
@@ -160,21 +161,28 @@ def evaluate_attacks(predictor, attack, scenes_iter: Iterable,
             break
         if not isinstance(scenes, torch.Tensor):
             scenes = torch.from_numpy(np.asarray(scenes))
-        scenes = scenes.to(device=predictor.device, dtype=torch.float32)
+        with prof.host_copy(scenes, "eval.scenes"):
+            scenes = scenes.to(device=predictor.device, dtype=torch.float32)
         d = None if draws is None else draws[i]
-        if cfg.norm_type == "image":
-            adv, ben = attack(scenes, generator, draws=d)
-            masks = torch.ones(adv.shape[:3] + (1,), dtype=adv.dtype,
-                               device=adv.device)
-        elif cfg.norm_type == "vanila":
-            adv, ben, masks, _ = attack(scenes, vanila_obj, cfg.batch_size,
-                                        generator, eval_mode=True, draws=d)
-        else:
-            adv, ben, masks, _ = attack(scenes, cfg.batch_size, generator,
-                                        eval_mode=True, draws=d)
-        with torch.no_grad():
-            errs = _batch_metrics(metric_predictor, adv, ben, masks)
-        rows.append(torch.stack(errs).cpu().numpy())
+        with prof.span(prof.EVAL_ATTACK,
+                       {"batch": i, "attack": cfg.norm_type}):
+            if cfg.norm_type == "image":
+                adv, ben = attack(scenes, generator, draws=d)
+                masks = torch.ones(adv.shape[:3] + (1,), dtype=adv.dtype,
+                                   device=adv.device)
+            elif cfg.norm_type == "vanila":
+                adv, ben, masks, _ = attack(scenes, vanila_obj,
+                                            cfg.batch_size, generator,
+                                            eval_mode=True, draws=d)
+            else:
+                adv, ben, masks, _ = attack(scenes, cfg.batch_size,
+                                            generator, eval_mode=True,
+                                            draws=d)
+        with prof.span(prof.EVAL_METRICS, {"batch": i}):
+            with torch.no_grad():
+                errs = _batch_metrics(metric_predictor, adv, ben, masks)
+            with prof.span(prof.SYNC_READ, {"site": "eval.metrics"}):
+                rows.append(torch.stack(errs).cpu().numpy())
         if cfg.dump_dir:
             _dump(cfg.dump_dir, i, adv, ben, metric_predictor)
     if not rows:

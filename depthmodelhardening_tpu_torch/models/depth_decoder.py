@@ -35,6 +35,7 @@ import torch.nn as nn
 
 from ..ops.conv import conv3x3_reflect
 from ..ops.resize import nearest_upsample2
+from ..utils.profiling import count_conv
 from .resnet import ENCODER_CHANNELS
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
@@ -48,8 +49,10 @@ class Conv3x3(nn.Module):
         self.conv = nn.Conv2d(cin, cout, 3)
 
     def forward(self, x, elu: bool = False):
-        return conv3x3_reflect(x, self.conv.weight.to(x.dtype),
-                               self.conv.bias.to(x.dtype), elu)
+        w = self.conv.weight.to(x.dtype)
+        out = conv3x3_reflect(x, w, self.conv.bias.to(x.dtype), elu)
+        count_conv(x, w, out, "conv3x3")
+        return out
 
 
 class ConvBlock(nn.Module):

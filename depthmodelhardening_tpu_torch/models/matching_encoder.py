@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from ..ops.geometry import reproject_coords
 from ..ops.pool import maxpool3x3s2
 from ..ops.sampling import bilinear_sample_pixels
+from ..utils.profiling import count_conv
 from .resnet import _bn, _conv, encoder_channels, make_stage, run_stage
 
 # sampled values (items x bins x pixels x channels) per chunk of the sweep
@@ -217,8 +218,10 @@ class ResnetEncoderMatching(nn.Module):
                 lowest_cost = 1.0 / bins[viz.argmin(dim=1)]
         masked = (cost * confidence[:, None]).to(dtype)
         fused = torch.cat([f1, masked], dim=1)
-        post = F.relu(F.conv2d(fused, self.reduce_conv.weight.to(dtype),
-                               self.reduce_conv.bias.to(dtype), padding=1))
+        w = self.reduce_conv.weight.to(dtype)
+        post = F.conv2d(fused, w, self.reduce_conv.bias.to(dtype), padding=1)
+        count_conv(fused, w, post)
+        post = F.relu(post)
         f2 = run_stage(self.layer2, post, False)
         f3 = run_stage(self.layer3, f2, False)
         f4 = run_stage(self.layer4, f3, False)

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import counted
 from .resnet import ENCODER_CHANNELS, ResnetEncoder
 from .wrappers import flax_init_
 
@@ -49,11 +50,11 @@ class PoseDecoder(nn.Module):
     def forward(self, input_features):
         """input_features: a list of encoder feature lists (NCHW); only
         the last feature of each is read."""
-        cat = torch.cat([F.relu(self.squeeze(f[-1]))
+        cat = torch.cat([F.relu(counted(self.squeeze, f[-1]))
                          for f in input_features], dim=1)
-        out = F.relu(self.pose_0(cat))
-        out = F.relu(self.pose_1(out))
-        out = self.pose_2(out).mean(dim=(2, 3))
+        out = F.relu(counted(self.pose_0, cat))
+        out = F.relu(counted(self.pose_1, out))
+        out = counted(self.pose_2, out).mean(dim=(2, 3))
         out = 0.01 * out.reshape(-1, self.n_pred, 1, 6)
         return out[..., :3], out[..., 3:]
 
@@ -73,8 +74,8 @@ class PoseCNN(nn.Module):
 
     def forward(self, x):
         for i in range(len(POSE_CNN_SPECS)):
-            x = F.relu(getattr(self, f"convs_{i}")(x))
-        x = self.pose_conv(x).mean(dim=(2, 3))
+            x = F.relu(counted(getattr(self, f"convs_{i}"), x))
+        x = counted(self.pose_conv, x).mean(dim=(2, 3))
         x = 0.01 * x.reshape(-1, self.num_input_frames - 1, 1, 6)
         return x[..., :3], x[..., 3:]
 

@@ -38,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pool import maxpool3x3s2
+from ..utils.profiling import count_conv
 
 ENCODER_CHANNELS = (64, 64, 128, 256, 512)
 
@@ -49,8 +50,10 @@ def _bn(c: int) -> nn.BatchNorm2d:
 
 def _conv(conv: nn.Conv2d, x):
     """`conv` (no bias) in x's dtype: its float32 weights cast to it."""
-    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
-                    conv.padding)
+    w = conv.weight.to(x.dtype)
+    y = F.conv2d(x, w, None, conv.stride, conv.padding)
+    count_conv(x, w, y)
+    return y
 
 
 def _folded_conv(conv: nn.Conv2d, bn: nn.BatchNorm2d, x):
@@ -60,6 +63,7 @@ def _folded_conv(conv: nn.Conv2d, bn: nn.BatchNorm2d, x):
     add = bn.bias - bn.running_mean * mul
     w = (conv.weight * mul[:, None, None, None]).to(x.dtype)
     y = F.conv2d(x, w, None, conv.stride, conv.padding)
+    count_conv(x, w, y)
     return y + add.to(x.dtype)[:, None, None]
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..utils.profiling import counted
 from .wrappers import flax_init_
 
 
@@ -51,13 +52,13 @@ class SimSiam(nn.Module):
         self.predictor_3 = nn.Linear(pred_dim, dim)
 
     def projector(self, z):
-        z = torch.relu(self.projector_1(self.projector_0(z)))
-        z = torch.relu(self.projector_4(self.projector_3(z)))
-        return self.projector_7(self.projector_6(z))
+        z = torch.relu(self.projector_1(counted(self.projector_0, z)))
+        z = torch.relu(self.projector_4(counted(self.projector_3, z)))
+        return self.projector_7(counted(self.projector_6, z))
 
     def predictor(self, z):
-        z = torch.relu(self.predictor_1(self.predictor_0(z)))
-        return self.predictor_3(z)
+        z = torch.relu(self.predictor_1(counted(self.predictor_0, z)))
+        return counted(self.predictor_3, z)
 
     def forward(self, features_aug, features_ben):
         """The two encoder feature lists (NCHW; adversarial view, benign

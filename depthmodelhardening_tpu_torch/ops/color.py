@@ -15,6 +15,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling as prof
+
 _GRAY_W = (0.2989, 0.587, 0.114)  # torchvision rgb_to_grayscale weights
 
 
@@ -23,7 +25,8 @@ def _blend(img1, img2, ratio):
 
 
 def rgb_to_grayscale(img):
-    w = torch.tensor(_GRAY_W, dtype=img.dtype, device=img.device)
+    with prof.host_copy(_GRAY_W, "color.gray"):
+        w = torch.tensor(_GRAY_W, dtype=img.dtype, device=img.device)
     return torch.sum(img * w, dim=-1, keepdim=True)
 
 

@@ -55,6 +55,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import op_span
 from ._build import (
     INT, POINTER, check_cuda_tensor, check_dtype, on_cuda, register,
     stream_handle,
@@ -185,6 +186,7 @@ def _check_weight(w, cin: int, like):
         raise ValueError(f"w must be (Co, {cin}, 3, 3), got {tuple(w.shape)}")
 
 
+@op_span("op:conv3x3.fwd")
 def conv3x3_valid_cuda(xp, w, bias=None, elu: bool = False):
     check_cuda_tensor("xp", xp, 4, dtypes=DTYPES)
     B, Cin, Hp, Wp = xp.shape
@@ -213,6 +215,7 @@ def _check_cotangent(g, w):
                          f"{tuple(w.shape)}")
 
 
+@op_span("op:conv3x3.dgrad")
 def conv3x3_dgrad_cuda(g, w):
     """d xp (B, Cin, H + 2, W + 2) of the VALID conv. float32 hands the
     kernel `dgrad_weights(w)`; bf16 reads w flipped in its staging."""
@@ -230,6 +233,7 @@ def conv3x3_dgrad_cuda(g, w):
     return dxp
 
 
+@op_span("op:conv3x3.fwd_reflect")
 def conv3x3_reflect_cuda(x, w, bias=None, elu: bool = False):
     """bf16 only: reflect-pad(1) + 3x3 conv (+ bias, + ELU) of x (B, Cin,
     H, W) -> (B, Co, H, W) in one launch, the pad read in the staging."""
@@ -249,6 +253,7 @@ def conv3x3_reflect_cuda(x, w, bias=None, elu: bool = False):
     return out
 
 
+@op_span("op:conv3x3.dgrad_reflect")
 def conv3x3_dgrad_reflect_cuda(g, w):
     """bf16 only: dx (B, Cin, H, W) of `conv3x3_reflect_cuda` for the
     cotangent g, the pad's adjoint folded in (one launch)."""

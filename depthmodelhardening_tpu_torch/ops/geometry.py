@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling as prof
+
 
 def disp_to_depth(disp, min_depth: float, max_depth: float):
     """Sigmoid disparity -> (scaled_disp, depth), layers.py:16-25:
@@ -44,8 +46,9 @@ def project_3d(points, K, T, height: int, width: int, eps: float = 1e-7):
     cam = torch.matmul(P, points)
     pix = cam[:, :2, :] / (cam[:, 2:3, :] + eps)
     pix = pix.reshape(B, 2, height, width).permute(0, 2, 3, 1)
-    scale = torch.tensor([width - 1, height - 1], dtype=pix.dtype,
-                         device=pix.device)
+    with prof.host_copy(None, "geometry.scale"):
+        scale = torch.tensor([width - 1, height - 1], dtype=pix.dtype,
+                             device=pix.device)
     return (pix / scale - 0.5) * 2.0
 
 

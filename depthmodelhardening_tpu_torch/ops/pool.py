@@ -40,6 +40,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import op_span
 from ._build import (
     INT, POINTER, check_cuda_tensor, check_dtype, on_cuda, register,
     stream_handle,
@@ -178,6 +179,7 @@ def maxpool3x3s2_backward_strips_plain(x, g, strip=POOL_BWD_STRIP):
 
 
 # -- CUDA kernels ------------------------------------------------------------
+@op_span("op:pool.fwd")
 def maxpool3x3s2_fwd_cuda(x):
     check_cuda_tensor("x", x, 4, dtypes=DTYPES)
     B, C, H, W = x.shape
@@ -188,6 +190,7 @@ def maxpool3x3s2_fwd_cuda(x):
     return y
 
 
+@op_span("op:pool.bwd")
 def maxpool3x3s2_bwd_cuda(x, g):
     check_cuda_tensor("x", x, 4, dtypes=DTYPES)
     check_cuda_tensor("g", g, 4, x.device, (x.dtype,))

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import op_span
 from ._build import (
     INT, POINTER, check_cuda_tensor, on_cuda, register, stream_handle,
 )
@@ -127,6 +128,7 @@ def _check_pair(x, y):
                          "differ in shape")
 
 
+@op_span("op:reproj.fwd")
 def reproj_loss_fwd_cuda(x, y):
     _check_pair(x, y)
     B, C, H, W = x.shape
@@ -136,6 +138,7 @@ def reproj_loss_fwd_cuda(x, y):
     return out
 
 
+@op_span("op:reproj.bwd")
 def reproj_loss_bwd_cuda(x, y, g, need_dy: bool = True):
     _check_pair(x, y)
     check_cuda_tensor("g", g, 3, x.device)

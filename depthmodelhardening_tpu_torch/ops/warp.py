@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import op_span
 from ._build import (
     INT, POINTER, check_cuda_tensor, on_cuda, register, stream_handle,
 )
@@ -88,6 +89,7 @@ def _check_args(t, A, B, what: str):
                          f"{MAX_CHANNELS}")
 
 
+@op_span("op:warp.fwd")
 def vertical_resample_fwd_cuda(inter, A, B, th: int):
     """Kernel forward: (B, C, OH, TW) -> (B, C, th, TW)."""
     _check_args(inter, A, B, "inter")
@@ -99,6 +101,7 @@ def vertical_resample_fwd_cuda(inter, A, B, th: int):
     return out
 
 
+@op_span("op:warp.bwd")
 def vertical_resample_bwd_cuda(g, A, B, oh: int):
     """Kernel adjoint: (B, C, th, TW) -> (B, C, oh, TW)."""
     _check_args(g, A, B, "g")

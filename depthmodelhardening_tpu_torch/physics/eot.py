@@ -35,6 +35,7 @@ import torch
 
 from ..ops.sampling import bilinear_sample_pixels
 from ..ops.warp import vertical_resample
+from ..utils import profiling as prof
 
 ORI_H = 375
 ORI_W = 1242
@@ -298,11 +299,16 @@ class EoTCompositor:
         (light, Gaussian: one sample set each, N sets at once), computes
         it once a call and passes it in, so no query copies to the card
         (a pageable host-to-device copy waits for the stream)."""
-        sx, A, B, y0, x0 = self._separable_geometry(
-            z0s, alphas, model_h, model_w, tile_h, tile_w, T)
-        return SeparableGeometry(
-            sx.to(device), A.to(device), B.to(device),
-            [int(v) for v in y0.tolist()], [int(v) for v in x0.tolist()])
+        with prof.span(prof.EOT_GEOMETRY):
+            sx, A, B, y0, x0 = self._separable_geometry(
+                z0s, alphas, model_h, model_w, tile_h, tile_w, T)
+            on = []
+            for t in (sx, A, B):
+                with prof.span(prof.SYNC_COPY, {"site": "eot.geometry"}):
+                    on.append(t.to(device))
+            return SeparableGeometry(
+                *on, [int(v) for v in y0.tolist()],
+                [int(v) for v in x0.tolist()])
 
     # -- warps ----------------------------------------------------------------
     def warp_obj_mask(self, obj, mask, z0s, alphas):
@@ -314,7 +320,9 @@ class EoTCompositor:
         stacked = torch.cat([obj.expand((Bn,) + obj.shape[1:]),
                              mask.expand((Bn,) + mask.shape[1:])], -1)
         coeffs = solve_homography(self.corners(z0s, alphas),
-                                  self.startpoints).to(obj.device)
+                                  self.startpoints)
+        with prof.span(prof.SYNC_COPY, {"site": "eot.homography"}):
+            coeffs = coeffs.to(obj.device)
         sx, sy = perspective_src_coords(coeffs, self.cfg.scene_h,
                                         self.cfg.scene_w)
         # the unpadded object sampled with zero fill == the padded one

@@ -46,6 +46,7 @@ from ..physics.eot import (
     ANGLE_RANGE, ORI_H, ORI_W, TRAIN_DIST_RANGE, EoTCompositor, EoTConfig,
     monodepth2_K, stereo_T,
 )
+from ..utils import profiling as prof
 from .config import AdvSynthConfig, SelfSupConfig
 
 JITTER_RANGES = ((0.8, 1.2), (0.8, 1.2), (0.8, 1.2), (-0.1, 0.1))
@@ -161,7 +162,8 @@ def synthesize_adv_batch(eot: EoTCompositor, frames: Dict[str, torch.Tensor],
     z0s, alphas = draws.z0s, draws.alphas
 
     T_st = torch.from_numpy(stereo_T(adv_cfg.baseline, side="l"))
-    sel = side_is_l.cpu()[:, None, None]
+    with prof.span(prof.SYNC_READ, {"site": "synth.sides"}):
+        sel = side_is_l.cpu()[:, None, None]
     T_id = torch.eye(4).expand(B, 4, 4)
     T_cur = torch.where(sel, T_id, T_st)
     T_oth = torch.where(sel, T_st, T_id)
@@ -177,7 +179,8 @@ def synthesize_adv_batch(eot: EoTCompositor, frames: Dict[str, torch.Tensor],
         frames["s"], obj_ben, obj_mask, z0s, alphas, T=T_oth, **kw)
 
     if adv_cfg.half_no_synthesis:
-        synth = draws.half.to(dev)
+        with prof.host_copy(draws.half, "synth.draws"):
+            synth = draws.half.to(dev)
         cur_adv = _item_where(synth, cur_adv, frames["0"])
         cur_ben = _item_where(synth, cur_ben, frames["0"])
         oth_ben = _item_where(synth, oth_ben, frames["s"])
@@ -188,8 +191,9 @@ def synthesize_adv_batch(eot: EoTCompositor, frames: Dict[str, torch.Tensor],
         "color": {"0": resize(cur_ben), "s": resize(oth_ben)},
         "color_aug": {"0": resize(cur_adv)},
         "objmask": resize(mask_cur),
-        "objdepth": z0s.to(device=dev, dtype=torch.float32),
     }
+    with prof.host_copy(z0s, "synth.draws"):
+        out["objdepth"] = z0s.to(device=dev, dtype=torch.float32)
     out["color_ben"] = out["color"]["0"]
     out["color_aug"]["s"] = out["color"]["s"]
     for fid in selfsup_cfg.temporal_source_ids:
@@ -209,8 +213,10 @@ def _jitter_aug_planes(out, jitter: JitterDraws):
     package's on-device variant (the reference permutes the order per
     item)."""
     dev = out["color_ben"].device
-    enabled = jitter.enabled.to(dev)
-    f = jitter.factors.to(device=dev, dtype=torch.float32)
+    with prof.host_copy(jitter.enabled, "synth.draws"):
+        enabled = jitter.enabled.to(dev)
+    with prof.host_copy(jitter.factors, "synth.draws"):
+        f = jitter.factors.to(device=dev, dtype=torch.float32)
     fb, fc, fs = (f[:, i, None, None, None] for i in range(3))
     fh = f[:, 3, None, None]
 

@@ -102,6 +102,7 @@ from ..ops.geometry import disp_to_depth, transformation_from_parameters
 from ..parallel.batchnorm import global_batchnorm
 from ..parallel.mesh import Mesh, replicate
 from ..physics.eot import TRAIN_DIST_RANGE, monodepth2_K
+from ..utils import profiling as prof
 from .adv_synth import (
     SynthDraws, build_plain_batch, draw_jitter, draw_synth,
     make_synth_compositor, stereo_T_batch, synthesize_adv_batch,
@@ -408,14 +409,15 @@ class HardeningTrainer:
         cfg.adv.color_aug the jitter draws are `jitter`, else drawn from
         the trainer's generator (the global batch's under a mesh, as given
         `jitter` is: this rank keeps its rows)."""
-        B = frames["0"].shape[0]
-        if self.cfg.adv.color_aug and jitter is None:
-            jitter = draw_jitter(self.generator, self._global(B))
-        if jitter is not None:
-            jitter = jitter.rows(self._rows(B))
-        batch = build_plain_batch(frames, side_is_l, do_flip,
-                                  self.cfg.selfsup, jitter=jitter)
-        return self._K_batch(batch, B)
+        with prof.span(prof.TRAIN_BATCH):
+            B = frames["0"].shape[0]
+            if self.cfg.adv.color_aug and jitter is None:
+                jitter = draw_jitter(self.generator, self._global(B))
+            if jitter is not None:
+                jitter = jitter.rows(self._rows(B))
+            batch = build_plain_batch(frames, side_is_l, do_flip,
+                                      self.cfg.selfsup, jitter=jitter)
+            return self._K_batch(batch, B)
 
     def refresh_texture(self, state: TrainState, scene_imgs,
                         draws: StepDraws) -> torch.Tensor:
@@ -424,12 +426,14 @@ class HardeningTrainer:
         replicated scenes (under a mesh this rank's share: one scene or
         attack_batch_size / world_size of them; the texture gradient is
         the global batch's)."""
-        atk = self.attack_student(state)
-        n = self.cfg.adv.attack_batch_size // self._global(1)
-        scenes = atk._replicate(
-            torch.as_tensor(scene_imgs, dtype=torch.float32,
-                            device=self.device), n)
-        return atk._optimize(scenes, draws.attack.rows(self._rows(n)))
+        with prof.span(prof.TRAIN_ATTACK):
+            atk = self.attack_student(state)
+            n = self.cfg.adv.attack_batch_size // self._global(1)
+            with prof.host_copy(scene_imgs, "train.scenes"):
+                scenes = torch.as_tensor(scene_imgs, dtype=torch.float32,
+                                         device=self.device)
+            scenes = atk._replicate(scenes, n)
+            return atk._optimize(scenes, draws.attack.rows(self._rows(n)))
 
     def synth_batch(self, frames, side_is_l, do_flip, obj_adv,
                     draws: StepDraws):
@@ -437,15 +441,17 @@ class HardeningTrainer:
         `obj_adv`, with K, inv_K and stereo_T, and the DepthHints planes
         where the frames carry them (JAX hardening.py:414-418). Under a
         mesh, this rank's rows of the global `draws`."""
-        synth = draws.synth.rows(self._rows(frames["0"].shape[0]))
-        batch = synthesize_adv_batch(
-            self.synth_eot, frames, obj_adv, self.obj_img, self.obj_mask,
-            side_is_l, do_flip, synth, self.cfg.selfsup, self.cfg.adv)
-        batch["stereo_T"] = stereo_T_batch(side_is_l, do_flip)
-        for k in ("depth_hint", "depth_hint_mask"):
-            if k in frames:
-                batch[k] = frames[k]
-        return self._K_batch(batch, frames["0"].shape[0])
+        with prof.span(prof.TRAIN_SYNTHESIS):
+            synth = draws.synth.rows(self._rows(frames["0"].shape[0]))
+            batch = synthesize_adv_batch(
+                self.synth_eot, frames, obj_adv, self.obj_img,
+                self.obj_mask, side_is_l, do_flip, synth, self.cfg.selfsup,
+                self.cfg.adv)
+            batch["stereo_T"] = stereo_T_batch(side_is_l, do_flip)
+            for k in ("depth_hint", "depth_hint_mask"):
+                if k in frames:
+                    batch[k] = frames[k]
+            return self._K_batch(batch, frames["0"].shape[0])
 
     def disparities(self, model, batch) -> Dict[int, torch.Tensor]:
         """The student's sigmoid disparities {scale: (B, h_s, w_s, 1)} of
@@ -552,24 +558,31 @@ class HardeningTrainer:
         metrics). `identity_noise`: the global batch's draw (this rank
         keeps its rows). Under a mesh the gradients that exist (the same
         set on every rank) and the metrics are averaged over the ranks."""
-        B = batch["color"]["0"].shape[0]
-        if identity_noise is None:
-            identity_noise = self.draw_identity_noise(self._global(B))
-        identity_noise = identity_noise[self._rows(B)].to(self.device)
-        for module in state.modules().values():
-            module.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        total, metrics = self._losses(state, batch, identity_noise)
-        total.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if self.mesh is not None:
-            self.mesh.all_mean([p.grad for group in state.optimizer
-                                .param_groups for p in group["params"]
-                                if p.grad is not None])
-            metrics = dict(zip(metrics, self.mesh.all_mean(
-                [v.float().reshape(()) for v in metrics.values()])))
-        self._apply_grads(state)
-        return state, metrics
+        with prof.span(prof.TRAIN_UPDATE):
+            B = batch["color"]["0"].shape[0]
+            if identity_noise is None:
+                identity_noise = self.draw_identity_noise(self._global(B))
+            identity_noise = identity_noise[self._rows(B)]
+            with prof.host_copy(identity_noise, "train.identity_noise"):
+                identity_noise = identity_noise.to(self.device)
+            for module in state.modules().values():
+                module.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            with prof.span(prof.TRAIN_LOSSES):
+                total, metrics = self._losses(state, batch, identity_noise)
+            with prof.span(prof.TRAIN_BACKWARD):
+                total.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if self.mesh is not None:
+                with prof.span(prof.TRAIN_ALLREDUCE):
+                    self.mesh.all_mean([p.grad for group in state.optimizer
+                                        .param_groups for p in group["params"]
+                                        if p.grad is not None])
+                    metrics = dict(zip(metrics, self.mesh.all_mean(
+                        [v.float().reshape(()) for v in metrics.values()])))
+            with prof.span(prof.TRAIN_OPTIMIZER):
+                self._apply_grads(state)
+            return state, metrics
 
     def _apply_grads(self, state: TrainState) -> None:
         """Adam at the step's learning rate, and the step count."""
@@ -594,9 +607,10 @@ class HardeningTrainer:
         {fid: (B, ori_h, ori_w, 3)} with per-item side_is_l / do_flip
         (B,) bool (this rank's rows under a mesh): batch building on the
         device, then `selfsup_step`."""
-        return self.selfsup_step(
-            state, self.plain_batch(frames, side_is_l, do_flip),
-            identity_noise)
+        with prof.span(prof.TRAIN_STEP, {"step": state.step}):
+            return self.selfsup_step(
+                state, self.plain_batch(frames, side_is_l, do_flip),
+                identity_noise)
 
     def train_step(self, state: TrainState, frames, side_is_l, do_flip,
                    scene_imgs, draws: Optional[StepDraws] = None):
@@ -609,16 +623,18 @@ class HardeningTrainer:
         this rank's rows, the scenes one scene or this rank's share, and
         the draws the global batch's. Returns (state, metrics: "loss" and
         each branch's)."""
-        frames = {k: torch.as_tensor(v, dtype=torch.float32,
-                                     device=self.device)
-                  for k, v in frames.items()}
-        side_is_l = torch.as_tensor(side_is_l, device=self.device)
-        do_flip = torch.as_tensor(do_flip, device=self.device)
-        if draws is None:
-            draws = self.draw(self._global(frames["0"].shape[0]))
-        obj_adv = self.refresh_texture(state, scene_imgs, draws)
-        batch = self.synth_batch(frames, side_is_l, do_flip, obj_adv, draws)
-        return self._update(state, batch, draws.identity_noise)
+        with prof.span(prof.TRAIN_STEP, {"step": state.step}):
+            frames = {k: _on_device(v, self.device, "train.frames",
+                                    dtype=torch.float32)
+                      for k, v in frames.items()}
+            side_is_l = _on_device(side_is_l, self.device, "train.sides")
+            do_flip = _on_device(do_flip, self.device, "train.flips")
+            if draws is None:
+                draws = self.draw(self._global(frames["0"].shape[0]))
+            obj_adv = self.refresh_texture(state, scene_imgs, draws)
+            batch = self.synth_batch(frames, side_is_l, do_flip, obj_adv,
+                                     draws)
+            return self._update(state, batch, draws.identity_noise)
 
     # -- robustness eval ------------------------------------------------------
     def default_eval_cfg(self, **overrides):
@@ -653,6 +669,13 @@ class HardeningTrainer:
         view.model = state.model
         return evaluate_attacks(view, attack, scenes_iter, eval_cfg,
                                 generator=generator, draws=draws)
+
+
+def _on_device(v, device, site: str, **kw) -> torch.Tensor:
+    """torch.as_tensor(v, device=device, **kw), a copy from the host in
+    a sync span."""
+    with prof.host_copy(v, site):
+        return torch.as_tensor(v, device=device, **kw)
 
 
 def _cpu_copy(sd: Mapping) -> Dict[str, torch.Tensor]:

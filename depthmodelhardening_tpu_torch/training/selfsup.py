@@ -28,6 +28,7 @@ from ..ops.geometry import disp_to_depth, reproject_coords
 from ..ops.losses import reprojection_loss, smooth_loss
 from ..ops.resize import bilinear_resize
 from ..ops.sampling import bilinear_sample_rows, grid_sample
+from ..utils import profiling as prof
 from .config import SelfSupConfig
 
 
@@ -36,7 +37,8 @@ def _stereo_is_pure_x(T) -> bool:
     (identity rotation, zero y/z translation), the condition under which
     the row-resample warp is exact. Eager tensors are always concrete, so
     the check always runs (it reads T back to the host)."""
-    Tn = T.detach().to("cpu", torch.float64).reshape(-1, 4, 4)
+    with prof.span(prof.SYNC_READ, {"site": "selfsup.stereo_T"}):
+        Tn = T.detach().to("cpu", torch.float64).reshape(-1, 4, 4)
     eye = torch.eye(3, dtype=torch.float64)
     return bool(torch.allclose(Tn[:, :3, :3], eye.expand_as(Tn[:, :3, :3]),
                                rtol=1e-5, atol=1e-6)

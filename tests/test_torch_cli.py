@@ -22,7 +22,10 @@ package's, on KITTI-layout trees the tests write (tests/kitti_trees.py).
   to JAX's, and without cv2 raising, naming it (--data-parallel runs in
   tests/test_torch_parallel.py).
 * utils: MetricsLogger's rows, the PNG and .npy images; setup_seed;
-  StepTimer; trace; the visualize helpers against JAX's.
+  trace; the visualize helpers against JAX's.
+* --trace-dir, the port's own option (eval-attacks and train-hardening):
+  batches 1 and 2 of an eval-attacks run traced, with the port's spans
+  and the FLOP counter.
 """
 
 import argparse
@@ -61,6 +64,9 @@ H, W = 64, 192
 NATIVE_H, NATIVE_W = 120, 400
 LAYOUT_FLAGS = ("--s2d-stem", "--wpack-stem", "--fuse-upconv",
                 "--packed-decoder", "--wpack-decoder")
+# the port's options that the JAX CLI lacks, by subcommand
+PORT_ONLY = {"eval-attacks": {"--trace-dir"},
+             "train-hardening": {"--trace-dir"}}
 # JAX config fields the port does not have: the TPU layouts, and
 # DistillConfig's epochs and obj_name, which the CLI's loop reads
 JAX_ONLY = {"s2d_stem", "wpack_stem", "wpack_stem8", "fuse_upconv",
@@ -138,7 +144,11 @@ def test_parsers_equal_jax_less_the_layout_flags(cmd):
     assert {o for v in dropped.values() for o in v[0]} == (
         set(LAYOUT_FLAGS) if cmd in ("train-distill", "train-hardening")
         else set())
-    assert g == {k: v for k, v in w.items() if k in g}
+    added = {k: v for k, v in g.items() if k not in w}
+    assert {o for v in added.values() for o in v[0]} == \
+        PORT_ONLY.get(cmd, set())
+    assert {k: v for k, v in g.items() if k in w} == \
+        {k: v for k, v in w.items() if k in g}
 
 
 @pytest.mark.parametrize("flag", LAYOUT_FLAGS)
@@ -486,6 +496,27 @@ def test_eval_attacks_writes_its_dumps(tree, tmp_path):
                                         "panel_000.png"]
 
 
+def test_eval_attacks_traces_batches_one_and_two(tree, tmp_path):
+    trace_dir = str(tmp_path / "trace")
+    cli.main(["eval-attacks", "--object-data-root", tree.obj,
+              "--object-image", tree.car, "--weights-folder", tree.weights,
+              "--height", str(H), "--width", str(W), "--ori-h", str(ORI_H),
+              "--ori-w", str(ORI_W), "--norm-type", "l_inf", "--step", "1",
+              "--batch-size", "1", "--eval-count", "3",
+              "--trace-dir", trace_dir], device="cpu")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    batches = [e["args"]["batch"] for e in events
+               if e.get("name") == "layer:eval.attack"]
+    assert batches == [1, 2]
+    names = {e.get("name") for e in events}
+    assert {"layer:data.wait", "layer:attack.iter", "layer:eval.metrics",
+            "layer:sync.read", "layer:eot.geometry"} <= names
+    with open(os.path.join(trace_dir, "counters.json")) as f:
+        counters = json.load(f)
+    assert counters["flops_by_dtype"]["float32"] > 0
+
+
 def _hint_files(tree, *lines):
     names = str(tree.root / "hint_files.txt")
     with open(names, "w") as f:
@@ -580,14 +611,11 @@ def test_setup_seed_step_timer_and_trace(tmp_path):
     assert a[0] == b[0] and torch.equal(a[1], b[1]) and \
         torch.equal(a[2], b[2])
     assert isinstance(gen, torch.Generator)
-    timer = profiling.StepTimer()
-    timer.start(sync_on=torch.zeros(1))
-    timer.stop(torch.ones(1) * 2)
-    assert len(timer.durations) == 1 and timer.imgs_per_sec(4) > 0
     with profiling.trace(str(tmp_path / "tr")) as prof:
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert prof.key_averages()
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
+    assert os.path.getsize(tmp_path / "tr" / "counters.json") > 0
 
 
 def test_visualize_equals_jax(tmp_path, monkeypatch):
