@@ -323,6 +323,7 @@ network and no jax.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import datetime
@@ -372,7 +373,7 @@ from depthmodelhardening_tpu_torch.models.wrappers import (
     make_monodepth2, predictor_from, quarter_intrinsics,
 )
 from depthmodelhardening_tpu_torch.ops import (
-    _build, conv, padding, pool, reproj, warp,
+    _build, conv, conv_route, padding, pool, reproj, warp,
 )
 from depthmodelhardening_tpu_torch.parallel.mesh import Mesh
 from depthmodelhardening_tpu_torch.ops.padding import reflect_pad1
@@ -5678,6 +5679,162 @@ def phase_repeat() -> None:
         raise AssertionError(f"phase 18: these paths do not repeat: {bad}")
 
 
+# -- phase 19 ----------------------------------------------------------------
+ROUTE_LAYERS = (18, 50)  # the bf16 hardening cells' encoders
+# the batches the cells run them at, with the gradients each computes: the
+# L0 attack's (detached weights) and the student's
+ROUTE_BATCHES = ((12, False), (32, True))
+
+
+def route_shapes(dev) -> list:
+    """Each distinct bf16 convolution of a hardening cell, as ("conv", x's
+    (Cin, H, W), w's shape, stride, padding) for every `F.conv2d` that
+    `conv_route` runs and ("D", (Cin, H, W), w's shape) for every layer of
+    kernel D (its weight gradient is routed): recorded from one forward
+    of the bf16 Monodepth2 student on ResNet-18 and ResNet-50 at 1024x320,
+    batch 1."""
+    seen = {}
+    conv2d, reflect = F.conv2d, conv.conv3x3_reflect_cuda
+
+    def conv2d_rec(x, w, bias=None, stride=1, padding=0, *a, **k):
+        if x.dtype == torch.bfloat16:
+            seen[("conv", tuple(x.shape[1:]), tuple(w.shape),
+                  conv_route._pair(stride), conv_route._pair(padding))] = 1
+        return conv2d(x, w, bias, stride, padding, *a, **k)
+
+    def reflect_rec(x, w, *a, **k):
+        seen[("D", tuple(x.shape[1:]), tuple(w.shape))] = 1
+        return reflect(x, w, *a, **k)
+    F.conv2d, conv.conv3x3_reflect_cuda = conv2d_rec, reflect_rec
+    try:
+        for layers in ROUTE_LAYERS:
+            model = make_monodepth2(layers, dtype="bfloat16").to(dev)
+            with torch.no_grad():
+                model.features_and_disps(torch.rand(1, 320, 1024, 3,
+                                                    device=dev))
+            del model
+    finally:
+        F.conv2d, conv.conv3x3_reflect_cuda = conv2d, reflect
+    return list(seen)
+
+
+def _route_errors(got, want, terms: int) -> dict:
+    """A bf16 result against the float32 one of the same operands: the
+    elements beyond one bf16 ulp of that result rounded once plus
+    CONV_RTOL of its largest magnitude (`check_conv`'s bf16 rule, set for
+    float32 sums of up to 576 products), the same with that slack grown
+    as a float32 sum's rounding grows, by sqrt(terms / 576), and the
+    largest difference over the largest magnitude."""
+    want = want.detach()
+    r = want.to(torch.bfloat16).float()
+    d = (got.float() - r).abs()
+    ulp, top = bf16_ulp(r), float(want.abs().max())
+    grown = CONV_RTOL * top * max(1.0, (terms / 576) ** 0.5)
+    return {"over": int((d > ulp + CONV_RTOL * top).sum()),
+            "over_grown": int((d > ulp + grown).sum()),
+            "max_rel": float(d.max()) / max(top, 1e-30)}
+
+
+def phase_conv_route(dev) -> dict:
+    """Each routed bf16 convolution pass at the cells' shapes (batch 12
+    with the input gradient, as the attack runs it; batch 32 with both
+    gradients in one backward, as the student's step does) through
+    `conv_route` against the float32 result of the same bf16 operands
+    (cuDNN off, TF32 off), beside today's im2col path on the same inputs:
+    the forward and the input gradient within `check_conv`'s bf16 rule on
+    every element; the weight gradient (a float32 sum of N * H * W
+    products, up to 2.6M) on no more elements beyond that rule than the
+    im2col path's, and within the rule with its slack grown by sqrt(terms
+    / 576) on every element. Kernel D's weight gradient the same, through
+    `conv.weight_grad`. `conv_route.passes()` must count each pass on the
+    backend `conv_route.route` gives it. Returns the routes' pass counts."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = route_shapes(dev)
+    conv_route.reset_passes()
+    want_passes = collections.Counter()
+    worst = {}
+    for key in shapes:
+        kind, (cin, h, w_), wshape = key[:3]
+        stride, pad = key[3:] if kind == "conv" else (1, 0)
+        for B, student in ROUTE_BATCHES:
+            x = torch.rand((B, cin, h, w_), generator=gen, device=dev)
+            if kind == "D":
+                x = reflect_pad1(x)
+            wt = torch.randn(wshape, generator=gen, device=dev) / (
+                wshape[1] * wshape[2] * wshape[3]) ** 0.5
+            xb, wb = x.bfloat16(), wt.bfloat16()
+            ho = (x.shape[2] + 2 * pad - wshape[2]) // stride + 1
+            wo = (x.shape[3] + 2 * pad - wshape[3]) // stride + 1
+            g = torch.randn((B, wshape[0], ho, wo), generator=gen,
+                            device=dev).bfloat16()
+            x32 = xb.float().requires_grad_(True)
+            w32 = wb.float().requires_grad_(student)
+            y32 = F.conv2d(x32, w32, None, stride, pad)
+            want = [y32] + list(torch.autograd.grad(
+                y32, [x32, w32] if student else [x32], g.float()))
+            runs = {}
+            for name in ("route", "im2col"):
+                xr = xb.clone().requires_grad_(kind == "conv")
+                wr = wb.clone().requires_grad_(student)
+                if kind == "D":  # D's weight gradient alone
+                    fn = conv.weight_grad if name == "route" else (
+                        lambda a, b, c: torch.nn.grad.conv2d_weight(
+                            a, b.shape, c))
+                    runs[name] = [None, None, fn(xb, wb, g)] if student \
+                        else None
+                    continue
+                fn = conv_route.conv2d if name == "route" else F.conv2d
+                y = fn(xr, wr, None, stride, pad)
+                y.backward(g)
+                runs[name] = [y.detach(), xr.grad,
+                              wr.grad if student else None]
+            if kind == "D" and not student:
+                continue
+            n = B * ho * wo
+            for i, p in enumerate(conv_route.PASSES):
+                if runs["route"][i] is None:
+                    continue
+                terms = n if p == "wgrad" else (
+                    wshape[1] * wshape[2] * wshape[3] if p == "fwd"
+                    else wshape[0] * wshape[2] * wshape[3])
+                ref = want[i] if kind == "conv" else want[2]
+                e = _route_errors(runs["route"][i], ref, terms)
+                e0 = _route_errors(runs["im2col"][i], ref, terms)
+                ok = (e["over"] == 0 if p != "wgrad" else
+                      e["over"] <= e0["over"] and e["over_grown"] == 0)
+                label = f"{kind} B{B} {key[1]} {wshape} s{stride}p{pad} {p}"
+                if not ok:
+                    raise AssertionError(
+                        f"conv route {label}: {e} (im2col {e0})")
+                worst[p] = max(worst.get(p, 0.0), e["max_rel"])
+                log(f"conv route {label}: {json.dumps(e)}; im2col "
+                    f"{json.dumps(e0)}")
+            k = (wshape[2], wshape[3])
+            if kind == "conv":
+                want_passes[conv_route.route(
+                    torch.bfloat16, "fwd", k, stride, cin, wshape[0])
+                    + ".fwd"] += 1
+                grads = ("dgrad", "wgrad") if student else ("dgrad",)
+                node = ("cudnn" if all(conv_route.route(
+                    torch.bfloat16, q, k, stride, cin, wshape[0]) == "cudnn"
+                    for q in grads) else "im2col")
+                for q in grads:
+                    want_passes[f"{node}.{q}"] += 1
+            else:
+                want_passes[conv_route.route(
+                    torch.bfloat16, "wgrad", k, 1, cin, wshape[0])
+                    + ".wgrad"] += 1
+            del x, xb, g, x32, w32, y32, want, runs
+        torch.cuda.empty_cache()
+    got = conv_route.passes()
+    if {k: v for k, v in got.items() if v} != dict(want_passes):
+        raise AssertionError(f"conv route counts {got}, want "
+                             f"{dict(want_passes)}")
+    log(f"conv route: {len(shapes)} shapes, passes {got}, the "
+        f"largest difference over the largest magnitude by pass {worst}")
+    return got
+
+
 def main() -> int:
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -5717,6 +5874,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     classifier_launches = timed("phase 17", phase_classifier, dev)
     timed("phase 18", phase_repeat)
+    timed("phase 19", phase_conv_route, dev)
     for name, r in rows.items():
         r["launches"] = (launches[name] + train_launches[name]
                          + distill_launches[name] + bench_launches[name]

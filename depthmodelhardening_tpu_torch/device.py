@@ -52,7 +52,10 @@ def use_f32_numerics() -> None:
     several Monodepth2 shapes (on an H100 80GB HBM3 at 700 W, batch 12
     at 1024x320: 267 ms for the decoder's 256->128 conv at 1/8 scale;
     the whole forward takes 458 ms with cuDNN and 44 ms without), so
-    cuDNN goes off as well.
+    cuDNN goes off as well, for the process: every float32 convolution
+    runs on im2col. bf16 convolutions choose per call
+    (`ops/conv_route.py`): a routed pass turns cuDNN on, on its
+    deterministic algorithms, for itself alone and then off again.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -57,6 +57,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.conv_route import conv2d
 from ..ops.geometry import reproject_coords
 from ..ops.pool import maxpool3x3s2
 from ..ops.sampling import bilinear_sample_pixels
@@ -219,7 +220,7 @@ class ResnetEncoderMatching(nn.Module):
         masked = (cost * confidence[:, None]).to(dtype)
         fused = torch.cat([f1, masked], dim=1)
         w = self.reduce_conv.weight.to(dtype)
-        post = F.conv2d(fused, w, self.reduce_conv.bias.to(dtype), padding=1)
+        post = conv2d(fused, w, self.reduce_conv.bias.to(dtype), padding=1)
         count_conv(fused, w, post)
         post = F.relu(post)
         f2 = run_stage(self.layer2, post, False)

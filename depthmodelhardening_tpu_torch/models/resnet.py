@@ -13,7 +13,8 @@ parameter names are torchvision's, so the reference `encoder.pth` keys
 load with their "encoder." prefix removed (models/convert.py).
 
 The stem's 3x3 / stride 2 max pool is the hand-written kernel of
-ops/pool.py (equality-routed backward).
+ops/pool.py (equality-routed backward). Every convolution goes through
+ops/conv_route.py, which runs each bf16 pass on cuDNN or im2col.
 
 Compute dtype (JAX :28-121, :368-412): parameters, BatchNorm statistics
 and running averages stay float32; the normalised input is cast to the
@@ -37,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.conv_route import conv2d
 from ..ops.pool import maxpool3x3s2
 from ..utils.profiling import count_conv
 
@@ -51,7 +53,7 @@ def _bn(c: int) -> nn.BatchNorm2d:
 def _conv(conv: nn.Conv2d, x):
     """`conv` (no bias) in x's dtype: its float32 weights cast to it."""
     w = conv.weight.to(x.dtype)
-    y = F.conv2d(x, w, None, conv.stride, conv.padding)
+    y = conv2d(x, w, None, conv.stride, conv.padding)
     count_conv(x, w, y)
     return y
 
@@ -62,7 +64,7 @@ def _folded_conv(conv: nn.Conv2d, bn: nn.BatchNorm2d, x):
     mul = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
     add = bn.bias - bn.running_mean * mul
     w = (conv.weight * mul[:, None, None, None]).to(x.dtype)
-    y = F.conv2d(x, w, None, conv.stride, conv.padding)
+    y = conv2d(x, w, None, conv.stride, conv.padding)
     count_conv(x, w, y)
     return y + add.to(x.dtype)[:, None, None]
 

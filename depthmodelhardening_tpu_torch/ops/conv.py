@@ -22,7 +22,9 @@ rounds once. Input, weights and bias share one dtype; any other dtype
 
 `conv3x3_reflect` is the dispatch (`pallas_conv.py:167-188`): a conv
 with at most 64 input and 64 output channels (`small_c`, :175) runs
-kernel D, any other runs `F.conv2d`. The choice is made by shape alone.
+kernel D, any other runs `F.conv2d` (in bf16 each pass on the backend
+`conv_route` gives it, as D's weight gradient is). The choice is made by
+shape alone.
 The TPU-only alignment rule (:176, H % 8 and W % 128) is dropped:
 nothing on the card needs it, and it would exclude the 320-wide attack
 crop. On a CUDA tensor D's wrappers launch the kernels of
@@ -56,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import op_span
+from . import conv_route
 from ._build import (
     INT, POINTER, check_cuda_tensor, check_dtype, on_cuda, register,
     stream_handle,
@@ -175,8 +178,9 @@ def conv3x3_dgrad_reflect_plain(g, w):
 
 
 def weight_grad(xp, w, g):
-    """Gradient with respect to w (an ordinary convolution)."""
-    return torch.nn.grad.conv2d_weight(xp, w.shape, g)
+    """Gradient with respect to w (an ordinary convolution; in bf16 on
+    `conv_route`'s backend)."""
+    return conv_route.weight_grad(xp, w, g)
 
 
 # -- CUDA kernels ------------------------------------------------------------
@@ -351,10 +355,10 @@ class _Conv3x3Reflect(torch.autograd.Function):
 def conv3x3_reflect(x, w, bias=None, elu: bool = False):
     """Reflect-pad(1) + 3x3 conv (+ bias, + ELU), NCHW / OIHW: kernel D
     when `takes_kernel(Cin, Co)` (bf16 with the pad folded in, float32
-    on `reflect_pad1(x)`), else `F.conv2d`."""
+    on `reflect_pad1(x)`), else `F.conv2d` through `conv_route`."""
     if takes_kernel(x.shape[1], w.shape[0]):
         if x.dtype == torch.bfloat16:
             return _Conv3x3Reflect.apply(x.contiguous(), w.contiguous(),
                                          bias, elu)
         return conv3x3_valid(reflect_pad1(x), w, bias, elu)
-    return _epilogue(F.conv2d(reflect_pad1(x), w, bias), elu)
+    return _epilogue(conv_route.conv2d(reflect_pad1(x), w, bias), elu)

@@ -23,7 +23,8 @@ Counterpart of `depthmodelhardening_tpu/utils/profiling.py`:
     backward compute; `flop_record()` reads, `reset_flops()` empties;
   * trace(log_dir) - the operator's profile: everything inside the
     context (the port's spans among it) into <log_dir>/trace.json, a
-    Chrome trace, and the FLOP record and the kernels' launches into
+    Chrome trace, and the FLOP record, the kernels' launches and the
+    bf16 convolution passes by backend (`ops/conv_route.py`) into
     <log_dir>/counters.json;
   * TraceWindow / stepped - the CLI's --trace-dir: steps `first` ..
     `first + count - 1` of a loop under `trace`, each step's wait for
@@ -221,18 +222,20 @@ def trace(log_dir: str) -> Iterator:
     """Profile everything inside the context (CPU, and the card's
     kernels and copies where CUDA is available, with shapes, so the
     spans' args reach the trace) into <log_dir>/trace.json, and the
-    FLOP record and each hand-written kernel's launches of the window
-    into <log_dir>/counters.json; yields the `torch.profiler.profile`
-    (its `key_averages()` sums by kernel)."""
+    FLOP record, each hand-written kernel's launches and the bf16
+    convolution passes by route and pass ("cudnn.fwd", ...) of the
+    window into <log_dir>/counters.json; yields the
+    `torch.profiler.profile` (its `key_averages()` sums by kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ..ops import _build
+    from ..ops import _build, conv_route
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     before = {k.name: k.launches for k in _build.KERNELS}
+    passes_before = conv_route.passes()
     reset_flops()
     with profile(activities=activities, record_shapes=True) as prof:
         yield prof
@@ -241,10 +244,12 @@ def trace(log_dir: str) -> Iterator:
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     launches = {k.name: k.launches - before.get(k.name, 0)
                 for k in _build.KERNELS}
+    conv_passes = {k: n - passes_before[k]
+                   for k, n in conv_route.passes().items()}
     with open(os.path.join(log_dir, "counters.json"), "w") as f:
         json.dump({**flop_summary(record),
-                   "launches": {k: n for k, n in launches.items() if n}},
-                  f, indent=1)
+                   "launches": {k: n for k, n in launches.items() if n},
+                   "conv_passes": conv_passes}, f, indent=1)
 
 
 class TraceWindow:

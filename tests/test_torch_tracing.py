@@ -381,7 +381,8 @@ def test_trace_window_covers_steps_one_and_two(tmp_path):
     assert steps == [1, 2]
     assert sum(e.get("name") == "layer:data.wait" for e in events) == 2
     with open(tmp_path / "tr" / "counters.json") as f:
-        assert set(json.load(f)) == {"flops_by_dtype", "layers", "launches"}
+        assert set(json.load(f)) == {"flops_by_dtype", "layers", "launches",
+                                     "conv_passes"}
 
 
 def test_flop_summary_sums_by_dtype_and_group():
