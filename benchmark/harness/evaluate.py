@@ -93,7 +93,7 @@ class EvalCell(TrainCell):
             raise ValueError("the evaluation cell drives the l_inf attack")
         self.setup_parts, self._t = {}, time.perf_counter()
         self.obj, self.mask = T.car(self._gen(4), *self.tr["car"], self.dev)
-        self.sd, _ = self._weights()
+        self.sd = self._weights()["model"]
         self._mark("weights")
         self.host_gen = torch.Generator().manual_seed(self.seed % (1 << 62))
         self.drawer = self._ref_attack(_OnDevice(self.dev))

@@ -21,7 +21,7 @@ from types import SimpleNamespace
 
 import torch
 
-from . import spans, spec as specs, trace as tracing
+from . import readings, spans, spec as specs, trace as tracing
 from .evaluate import EvalCell
 from .train import TrainCell
 
@@ -74,14 +74,17 @@ def _window(cell, seconds: float, dev) -> SimpleNamespace:
                                        zip(marks, marks[1:])])
 
 
-def _traced(cell, steps: int, dev, port) -> SimpleNamespace:
+def _traced(cell, steps: int, dev, port, shapes: bool = False
+            ) -> SimpleNamespace:
     """Two passes of `steps` whole steps, after as many untimed by the
     profiler (`untraced_s`, its cost on the window). The first under a
     device-only trace, with no range and no host event, so that the profiler's host
     cost stays off the window: the busy time, the window (`seconds`) and
     the model's passes (`model`) that the idle share and mfu read. The
     second under the full trace with the harness's ranges: attribution,
-    the rooflines, the layers' device ms and the breakdown."""
+    the rooflines, the layers' device ms and the breakdown; with
+    `shapes`, the program's op spans' arguments too (a roofline of an op
+    the harness does not wrap reads its calls from them)."""
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(-steps, 0):
@@ -102,7 +105,7 @@ def _traced(cell, steps: int, dev, port) -> SimpleNamespace:
         quiet = tracing.record(quiet_steps, device_only=True)
     port.build.reset_launches()
     with spans.traced(cell.layers()) as rec:
-        tr = tracing.record(ranged_steps)
+        tr = tracing.record(ranged_steps, shapes=shapes)
     counters = {k.name: k.launches for k in port.build.KERNELS}
     return SimpleNamespace(steps=steps, all_steps=2 * steps,
                            seconds=quiet.wall_s, busy_s=quiet.busy_s,
@@ -133,7 +136,9 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, dev, port,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     if trace:
-        w = _traced(cell, tr["trace_steps"], dev, port)
+        w = _traced(cell, tr["trace_steps"], dev, port,
+                    any(readings.span_fed(m["name"])
+                        for m in spec["per_layer"]))
     else:
         w = _window(cell, seconds, dev)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0

@@ -4,9 +4,16 @@ read into a number, or None where the run has nothing to read."""
 from __future__ import annotations
 
 import importlib
-from typing import Optional
+import re
+from typing import Iterator, Optional, Tuple
+
+from .spans import OPS
 
 GIB = 2 ** 30
+ROOFLINE = "_roofline"
+# the ops whose calls the harness's own wrappers record
+WRAPPED = frozenset(name[3:].split(".")[0] for name in OPS)
+_TENSOR = re.compile(r"^\(([\d, ]*)\) (\w+)$")
 
 
 def traced(run, kind: str):
@@ -39,21 +46,57 @@ def range_ms_per_step(run, kind: str, layer: str) -> Optional[float]:
     return w.trace.inside_s(layer) * 1e3 / w.steps
 
 
+def span_fed(metric: str) -> bool:
+    """Whether `metric` is the roofline of an op that the harness does
+    not wrap (`<op>_roofline`, `<op>_roofline.<kind>`): its calls are
+    read from the program's own spans, which a traced run then records
+    with their arguments."""
+    base = metric.split(".")[0]
+    return base.endswith(ROOFLINE) and base[:-len(ROOFLINE)] not in WRAPPED
+
+
+def _described(value):
+    """A span argument as `counts/` takes it: a tensor's "(shape) dtype"
+    as (shape, dtype), anything else as it is."""
+    m = _TENSOR.match(value) if isinstance(value, str) else None
+    if m is None:
+        return value
+    return (tuple(int(d) for d in m.group(1).replace(",", " ").split()),
+            m.group(2))
+
+
+def op_calls(w, op: str) -> Iterator[Tuple[str, object]]:
+    """(pass, args) of each recorded call of `op` in a traced window: an
+    op the harness wraps (`spans.OPS`) from its wrappers' record, args
+    the call's positional arguments described; any other op from the
+    program's own "op:<op>.<pass>" spans, args a dict by parameter name
+    (tensors as (shape, dtype))."""
+    prefix = f"op:{op}."
+    if op in WRAPPED:
+        for name, descs in w.recorder.ops.items():
+            if name.startswith(prefix):
+                for args in descs:
+                    yield name[len(prefix):], args
+        return
+    for name, args in w.trace.op_args:
+        if name.startswith(prefix):
+            yield name[len(prefix):], {k: _described(v)
+                                       for k, v in args.items()}
+
+
 def op_roofline(run, kind: str, op: str) -> Optional[float]:
     """% of the op's roofline: the least time of its recorded calls
-    (`counts/<op>.py`) over the device time attributed to its ranges."""
+    (`op_calls`, each counted by `counts/<op>.py`) over the device time
+    attributed to its ranges."""
     w = traced(run, kind)
     if w is None:
         return None
     count = importlib.import_module(f"counts.{op}")
     least, calls = 0.0, 0
     from counts.peaks import least_seconds
-    for name, descs in w.recorder.ops.items():
-        if name.startswith(f"op:{op}."):
-            for args in descs:
-                least += least_seconds(*count.work(name.split(".", 1)[1],
-                                                   args))
-                calls += 1
+    for pass_, args in op_calls(w, op):
+        least += least_seconds(*count.work(pass_, args))
+        calls += 1
     took = w.trace.range_s(f"op:{op}.")
     if not calls or took <= 0:
         return None

@@ -1,9 +1,10 @@
 """Spans and shape records around the program's layers, from outside it.
 
-The program has no spans of its own. In a traced run the harness wraps,
-for the length of the traced window only, the calls into each layer in
-`torch.profiler.record_function` ranges (as `chip_smoke.py:
-recording_shapes` wraps a kernel's launch):
+In a traced run the harness wraps, for the length of the traced window
+only, the calls into each layer in `torch.profiler.record_function`
+ranges (as `chip_smoke.py:recording_shapes` wraps a kernel's launch);
+the program's own spans nest inside them, and feed the rooflines of the
+ops these wrappers leave out (`readings.op_calls`):
 
 - "layer:<name>": a method of the object a cell drives (the trainer's
   texture refresh, synthesis and update; the evaluation's attack call

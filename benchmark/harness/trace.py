@@ -35,6 +35,9 @@ class Trace:
     by_range: Dict[str, float] = field(default_factory=dict)  # device us
     kernels_in: Dict[str, Dict[str, int]] = field(default_factory=dict)
     unattributed: int = 0
+    # the program's "op:" spans that carry their call's arguments (a
+    # trace recorded with `shapes`): name, {parameter: description}
+    op_args: List[Tuple[str, dict]] = field(default_factory=list)
 
     @property
     def busy_s(self) -> float:
@@ -71,22 +74,26 @@ def _is_range(name: str) -> bool:
     return name.startswith(RANGE_PREFIXES)
 
 
-def record(fn: Callable[[], None], device_only: bool = False) -> Trace:
+def record(fn: Callable[[], None], device_only: bool = False,
+           shapes: bool = False) -> Trace:
     """Run fn under torch.profiler (host and device) and read the trace;
     the window ends at the synchronize after fn. `device_only`: the
     device's activities alone, with no host events (the profiler's host
-    cost off the window), and no attribution."""
+    cost off the window), and no attribution. `shapes`: the profiler
+    keeps the arguments of the ranges that carry them (the program's
+    "op:" spans describe their call's tensors so, `Trace.op_args`), at
+    the host cost of recording every operator's input shapes too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA] if device_only else \
         [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    device, launches, ranges = [], {}, []
+    device, launches, ranges, op_args = [], {}, [], []
     cuda = torch.autograd.DeviceType.CUDA
     for e in prof.profiler.kineto_results.events():
         name = e.name()
@@ -99,11 +106,14 @@ def record(fn: Callable[[], None], device_only: bool = False) -> Trace:
         elif _is_range(name):
             start = e.start_ns() / 1e3
             ranges.append((name, start, start + e.duration_ns() / 1e3))
+            args = e.kwinputs() if shapes and name.startswith("op:") else None
+            if args:
+                op_args.append((name, dict(args)))
         elif name.startswith("cu") and e.correlation_id():
             launches[e.correlation_id()] = e.start_ns() / 1e3
     if not device:
         raise RuntimeError("the profiler saw no device activity")
-    tr = Trace(wall, device, launches, ranges)
+    tr = Trace(wall, device, launches, ranges, op_args=op_args)
     if not device_only:
         attribute(tr)
     return tr

@@ -6,7 +6,10 @@ recipe of the program's `data/synthetic.py:make_scene`: a sky gradient,
 a road wedge and an 8x8-block texture), the 300x200 car (the recipe of
 `make_car_object`), seeded flax-style weights with BatchNorm statistics
 calibrated on seeded scenes, and the attack's and the synthesis' draws.
-The same inputs go to the program and to the reference.
+The frames around a scene are made from it with no draw of their own:
+the stereo frame by a column shift, the temporal frames by a zoom about
+the centre (the camera's forward motion). The same inputs go to the
+program and to the reference.
 """
 
 from __future__ import annotations
@@ -96,19 +99,22 @@ def seeded_init_(module: torch.nn.Module, gen: torch.Generator):
 
 
 @torch.no_grad()
-def calibrate_(model, images) -> None:
+def calibrate_(model, images, forward=None) -> None:
     """Every BatchNorm2d's running statistics set to its batch statistics
     on `images` (B, H, W, 3) at the model's size, in one train-mode
     forward, as a trained model's match its data (the recipe of
     `chip_smoke.py:calibrated_teacher`: identity statistics drive deep
-    features to O(100), where bf16 keeps no digit after the point)."""
+    features to O(100), where bf16 keeps no digit after the point).
+    `forward(images)`: that pass, where it is not
+    `model.features_and_disps` (the statistics then average over the
+    batches of each BatchNorm's calls in it)."""
     was = model.training
     model.train()
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.reset_running_stats()
             m.momentum = None  # a cumulative average: this one batch
-    model.features_and_disps(images)
+    (forward or model.features_and_disps)(images)
     for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = 0.1
@@ -119,6 +125,35 @@ def stereo_frames(f0: torch.Tensor, shift: int):
     """Frames {"0", "s"}: "s" is "0" shifted by `shift` columns, so the
     stereo warp has real signal."""
     return {"0": f0, "s": torch.roll(f0, shift, dims=2)}
+
+
+def zoom(f0: torch.Tensor, scale: float) -> torch.Tensor:
+    """f0 (B, H, W, 3) magnified by `scale` about the image centre, as a
+    camera moving along its axis sees a scene: each output pixel
+    bilinearly resampled from the centre plus its offset over `scale`,
+    rows then columns, at the border's value outside the image."""
+    def taps(n: int):
+        c = (n - 1) / 2.0
+        x = ((torch.arange(n, device=f0.device, dtype=torch.float64) - c)
+             / scale + c).clamp(0.0, n - 1.0)
+        lo = x.floor().to(torch.int64)
+        hi = (lo + 1).clamp(max=n - 1)
+        return lo, hi, (x - lo).to(torch.float32)
+
+    lo, hi, w = taps(f0.shape[1])
+    rows = (f0[:, lo] * (1.0 - w)[None, :, None, None]
+            + f0[:, hi] * w[None, :, None, None])
+    lo, hi, w = taps(f0.shape[2])
+    return (rows[:, :, lo] * (1.0 - w)[None, None, :, None]
+            + rows[:, :, hi] * w[None, None, :, None]).contiguous()
+
+
+def temporal_frames(f0: torch.Tensor, fids, zoom_step: float):
+    """The temporal frames `fids` ("-1", "1", ...) around "0": frame k is
+    "0" zoomed by 1 + k * `zoom_step` (a steady forward ego-motion, so
+    the previous frame sees the scene smaller and the next larger); no
+    random draw."""
+    return {fid: zoom(f0, 1.0 + int(fid) * zoom_step) for fid in fids}
 
 
 def sides_and_flips(batch: int, device):

@@ -1,8 +1,10 @@
 """Training cells: the hardening step and the plain self-supervised step.
 
 Set-up builds one trainer and one state from the benchmark's seeded
-weights and drives them through `RECORDED` steps on pool batches 0, 1
-and 2 (rows that all differ), through the window's own call and feed:
+weights (the student's, the SimSiam head's and, where the frame ids hold
+temporal frames, the pose networks') and drives them through `RECORDED`
+steps on pool batches 0, 1 and 2 (rows that all differ), through the
+window's own call and feed:
 the step method of the program's `HardeningTrainer` with the
 benchmark's inputs and draws. Those steps are also the warm-up of every
 shape the window uses. The window then steps the same state on, batch
@@ -15,8 +17,10 @@ itself, and `readings` compares the two.
 
 from __future__ import annotations
 
+import functools
 import statistics
 import time
+from types import SimpleNamespace
 from typing import Dict, List
 
 import torch
@@ -26,6 +30,10 @@ from .faults import start_texture
 
 RECORDED = 3
 ADAM_BETA1 = 0.9
+# the float32 rounding of one texture composited twice (clamp(obj + pp +
+# pn) in the program and again in the reference): a judged texture within
+# it of the attack's start is the start
+STAYED = 1e-6
 
 
 def _tuples(d: dict) -> dict:
@@ -90,25 +98,64 @@ class TrainCell:
     def _gen(self, stream: int):
         return T.generator(self.seed, stream, self.dev)
 
-    def _weights(self):
-        """The student's (and teacher's) weights and the SimSiam head's,
-        made on the card from the seed with the reference's modules, the
-        model's BatchNorm statistics calibrated on 4 seeded scenes."""
+    def _weights(self) -> Dict[str, dict]:
+        """The state dicts of the trained modules, by the state's names:
+        the student's (and teacher's) "model", the SimSiam head's and,
+        with temporal frames, "pose_encoder" and "pose_decoder", made on
+        the card from the seed with the reference's modules. The model's
+        BatchNorm statistics are calibrated on 4 seeded scenes; with
+        temporal frames the pose encoder's too, on those scenes' pairs
+        with their temporal frames, and with a real lookup the model's
+        through the multi-frame forward on the lookup frame and the pose
+        networks' transform of it."""
         R, cfg = self.R, self.ref_cfg
         model = R.make_family_model(cfg).to(self.dev)
         T.seeded_init_(model, self._gen(1))
         ss = cfg.selfsup
         h, w = self.tr["scene"]
-        calib = R.bilinear_resize(T.scenes(self._gen(2), 4, h, w, self.dev),
-                                  ss.height, ss.width)
-        T.calibrate_(model, calib)
-        sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
-        sim = None
+        scenes = T.scenes(self._gen(2), 4, h, w, self.dev)
+        calib = R.bilinear_resize(scenes, ss.height, ss.width)
+        modules, pose, forward = {"model": model}, {}, None
+        if ss.use_pose_net:
+            pose["pose_encoder"], pose["pose_decoder"], forward = self._poses(
+                model, scenes, calib)
+        T.calibrate_(model, calib, forward)
         if cfg.contrastive_learning:
             head = R.SimSiam(in_dim=R.encoder_channels(cfg.num_layers)[-1])
             T.seeded_init_(head.to(self.dev), self._gen(3))
-            sim = {k: v.detach().clone() for k, v in head.state_dict().items()}
-        return sd, sim
+            modules["simsiam"] = head
+        return {k: {n: v.detach().clone() for n, v in m.state_dict().items()}
+                for k, m in {**modules, **pose}.items()}
+
+    def _poses(self, model, scenes, calib):
+        """(pose encoder, pose decoder, the model's calibration pass): the
+        pose networks seeded on their own stream, the encoder's BatchNorm
+        statistics calibrated as the step's `predict_poses` runs it on the
+        calibration scenes and their temporal frames; with a real lookup,
+        the multi-frame forward on the first temporal source and the
+        calibrated networks' transform of it, else None."""
+        R, cfg, ss = self.R, self.ref_cfg, self.ref_cfg.selfsup
+        enc, dec = (m.to(self.dev) for m in R.make_pose_nets())
+        T.seeded_init_(torch.nn.ModuleList([enc, dec]), self._gen(6))
+        color = {"0": calib, **{
+            fid: R.bilinear_resize(f, ss.height, ss.width)
+            for fid, f in T.temporal_frames(
+                scenes, ss.temporal_source_ids,
+                self.tr["temporal_zoom"]).items()}}
+        predict = functools.partial(
+            R.HardeningTrainer.predict_poses, SimpleNamespace(cfg=cfg),
+            SimpleNamespace(pose_encoder=enc, pose_decoder=dec))
+        T.calibrate_(enc, color, predict)
+        if not cfg.manydepth_real_lookup:
+            return enc, dec, None
+        enc.eval()
+        with torch.no_grad():
+            poses = predict(color)
+        enc.train()
+        fid = ss.temporal_source_ids[0]
+        return enc, dec, functools.partial(
+            model.features_and_disps_multi, lookup_frames=color[fid][:, None],
+            rel_poses=poses[fid][:, None])
 
     def _inputs(self, k: int):
         """Pool batch k: frames, sides, flips (and the attack's scene)."""
@@ -116,6 +163,10 @@ class TrainCell:
         gen = self._gen(100 + k)
         f0 = T.scenes(gen, self.batch, h, w, self.dev)
         frames = T.stereo_frames(f0, self.tr["stereo_shift"])
+        if self.cfg.selfsup.use_pose_net:
+            frames.update(T.temporal_frames(
+                f0, self.cfg.selfsup.temporal_source_ids,
+                self.tr["temporal_zoom"]))
         if self.cfg.use_depth_hints:
             ss = self.cfg.selfsup
             frames["depth_hint"], frames["depth_hint_mask"] = T.depth_hints(
@@ -138,7 +189,8 @@ class TrainCell:
         return d
 
     # -- the program ----------------------------------------------------------
-    def _trainer(self, mod, cfg, sd, sim):
+    def _trainer(self, mod, cfg):
+        sd = self.weights["model"]
         teacher = None
         if cfg.supervised_adv:
             t = mod.make_family_model(cfg)
@@ -148,10 +200,8 @@ class TrainCell:
             cfg, torch.Generator().manual_seed(self.seed % (1 << 62) + 7),
             self.obj, self.mask, teacher, device=self.dev,
             init_state_dict=sd)
-        resume = {"model": sd, "step": 0}
-        if sim is not None:
-            resume["simsiam"] = sim
-        resume["adam"] = {k: {} for k in resume if k != "step"}
+        resume = {**self.weights, "step": 0,
+                  "adam": {k: {} for k in self.weights}}
         return trainer, trainer.make_state(resume=resume)
 
     def _call(self, trainer, state, inputs, draws):
@@ -171,7 +221,8 @@ class TrainCell:
     def setup(self) -> None:
         self.setup_parts, self._t = {}, time.perf_counter()
         self.obj, self.mask = T.car(self._gen(4), *self.tr["car"], self.dev)
-        self.sd, self.sim = self._weights()
+        self.weights = self._weights()
+        self.sd = self.weights["model"]
         self._mark("weights")
         self.host_gen = torch.Generator().manual_seed(self.seed % (1 << 62))
         self.noise_gen = self._gen(5)
@@ -181,8 +232,7 @@ class TrainCell:
             init_state_dict=self.sd)
         self.pool = [self._inputs(k) for k in range(self.tr["pool"])]
         self._mark("inputs")
-        self.trainer, self.state = self._trainer(self.P, self.cfg, self.sd,
-                                                 self.sim)
+        self.trainer, self.state = self._trainer(self.P, self.cfg)
         self._mark("trainer")
         self.recorded_draws = [self._draws() for _ in range(RECORDED)]
         self.record = self._drive(self.trainer, self.state,
@@ -196,8 +246,8 @@ class TrainCell:
         as Adam holds it after step 1 and each parameter's change after
         the last. `follow`: textures that stand in for the attack's, one a
         step (the reference judging a record's steps)."""
-        init = {**{f"model.{k}": v for k, v in self.sd.items()},
-                **{f"simsiam.{k}": v for k, v in (self.sim or {}).items()}}
+        init = {f"{key}.{n}": v for key, sd in self.weights.items()
+                for n, v in sd.items()}
         textures, iters, losses = [], [], []
         if self.harden:
             refresh = trainer.refresh_texture
@@ -260,7 +310,7 @@ class TrainCell:
 
     # -- the reference --------------------------------------------------------
     def _reference(self):
-        return self._trainer(self.R, self.ref_cfg, self.sd, self.sim)
+        return self._trainer(self.R, self.ref_cfg)
 
     def reference_record(self, judged: dict = None) -> dict:
         """The reference following the recorded steps of `judged` (default:
@@ -290,10 +340,12 @@ class TrainCell:
         scenes = atk._replicate(scene, self.cfg.adv.attack_batch_size)
         z, a = draws.attack.z0s[0], draws.attack.alphas[0]
         start = start_texture(atk, draws.attack)
+        texture = judged["textures"][0]
         with torch.no_grad():
             cost = [float(atk._objective(scenes, t, z, a))
-                    for t in (judged["textures"][0], own, start)]
+                    for t in (texture, own, start)]
         return {"attack_cost": cost,
+                "attack_moved": float((texture - start).abs().max()),
                 "attack_iterations": trainer.attack.last_iterations}
 
     def control_record(self, control) -> dict:
@@ -384,8 +436,12 @@ def train_readings(rec: dict, ref: dict) -> Dict[str, float]:
     attack's starting texture, what an attack that hands back its start
     reads; `attack_gain_gap` the same gap over what the reference's own
     attack gained on its start, which such an attack reads as 1 on every
-    seed), the first step's iterations against the reference's own, and
-    the textures' range."""
+    seed, and a sound one above 1 on a seed where the reference's attack
+    gains little), the judged first texture's largest distance from the
+    attack's start (`attack_moved`) and whether it is the start
+    (`attack_stayed`, 1 or 0: an attack that hands back its start reads 1
+    on every seed), the first step's iterations against the reference's
+    own, and the textures' range."""
     out = {}
     for name in ref["losses"][0]:
         gaps = [abs(p.get(name, float("nan")) - r[name])
@@ -419,6 +475,8 @@ def train_readings(rec: dict, ref: dict) -> Dict[str, float]:
         out["attack_start_gap"] = abs(start - own) / max(abs(own), 1e-30)
         out["attack_gain_gap"] = abs(judged - own) / max(abs(start - own),
                                                           1e-30)
+        out["attack_moved"] = ref["attack_moved"]
+        out["attack_stayed"] = float(ref["attack_moved"] <= STAYED)
         out["iterations_gap"] = float(abs(rec["iterations"][0]
                                           - ref["attack_iterations"]))
         out["texture_range"] = max(

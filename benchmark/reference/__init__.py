@@ -6,6 +6,7 @@ imports neither jax nor the JAX package nor anything of the program."""
 from .numerics import bf16, float32, fp8, tf32  # noqa: F401
 from .plain.attacks.base import PhysObjAttackConfig  # noqa: F401
 from .plain.attacks.pgd_object import PGDObjectAttack  # noqa: F401
+from .plain.models.pose import make_pose_nets  # noqa: F401
 from .plain.models.resnet import encoder_channels  # noqa: F401
 from .plain.models.simsiam import SimSiam  # noqa: F401
 from .plain.models.wrappers import make_monodepth2, predictor_from  # noqa

@@ -1,5 +1,5 @@
-"""Model assembly: Monodepth2 (encoder + decoder) and the frozen
-predictor (the benchmark's cells drive no ManyDepth model).
+"""Model assembly: Monodepth2 (encoder + decoder), ManyDepth's training
+model (the cost-volume encoder + decoder) and the frozen predictor.
 
 Counterpart of `depthmodelhardening_tpu/models/wrappers.py:27-302`
 (reference depth_model.py:10-134). Public calls take and return NHWC
@@ -10,6 +10,10 @@ parameters and BatchNorm statistics stay float32) and whether its
 eval-mode passes fold BatchNorm into the convs (`fold_bn`, JAX
 `models/resnet.py:_BNFold`), as the JAX module does; the predictors
 read those of the model they wrap.
+
+Departures from the program's module: no `ManyDepthModel` (the
+evaluation wrapper of a reference checkpoint) and no `init_monodepth2`,
+which no cell drives.
 """
 
 from __future__ import annotations
@@ -17,10 +21,14 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 
 from .depth_decoder import DepthDecoder
+from .matching_encoder import (
+    MAX_DEPTH_BIN, MIN_DEPTH_BIN, ResnetEncoderMatching,
+)
 from .resnet import ResnetEncoder, encoder_channels
 
 LECUN_TRUNC_STD = 0.87962566103423978
@@ -137,6 +145,107 @@ class EvalView:
                                               (images, self.head))
         finally:
             model.train(was_training)
+
+
+MANYDEPTH_SCALE = 8.6437
+
+
+def manydepth_rescale(disp):
+    """ManyDepth's output rescale (depth_model.py:58)."""
+    return disp / MANYDEPTH_SCALE
+
+
+def _stack_nchw(frames):
+    """(B, F, H, W, 3) -> (B, F, 3, H, W)."""
+    return frames.permute(0, 1, 4, 2, 3)
+
+
+class ManyDepthTrainModel(nn.Module):
+    """ManyDepth with the hardening trainer's interface (JAX :192-290;
+    `MonodepthModel`'s calls): the cost-volume encoder with fixed bins in
+    the reference's single-frame mode (zero lookups, through
+    `skip_cost_volume`: manydepth2/trainer.py:345-386), the bins fixed at
+    min_depth_bin .. max_depth_bin (a checkpoint's; by default the
+    reference's MIN_DEPTH_BIN .. MAX_DEPTH_BIN), every disparity
+    divided by 8.6437; `encode_multi` / `features_and_disps_multi` build
+    the volume from real lookup frames and poses
+    (`manydepth_real_lookup`). The intrinsics are Monodepth2's at a
+    quarter of the static input size. No BatchNorm fold (the JAX matching
+    encoder has none)."""
+
+    def __init__(self, num_layers: int = 18,
+                 scales: Sequence[int] = (0, 1, 2, 3),
+                 input_height: int = 320, input_width: int = 1024,
+                 num_depth_bins: int = 96, dtype=torch.float32,
+                 min_depth_bin: float = MIN_DEPTH_BIN,
+                 max_depth_bin: float = MAX_DEPTH_BIN):
+        super().__init__()
+        self.dtype = compute_dtype(dtype)
+        self.encoder = ResnetEncoderMatching(
+            num_layers=num_layers, input_height=input_height,
+            input_width=input_width, num_depth_bins=num_depth_bins,
+            adaptive_bins=False, min_depth_bin=min_depth_bin,
+            max_depth_bin=max_depth_bin)
+        self.decoder = DepthDecoder(scales=scales,
+                                    num_ch_enc=encoder_channels(num_layers))
+        K, invK = quarter_intrinsics(MONODEPTH2_K, input_height, input_width,
+                                     np.float32)
+        self.register_buffer("K", K, persistent=False)
+        self.register_buffer("invK", invK, persistent=False)
+
+    def _K(self, B: int):
+        return self.K.expand(B, 4, 4), self.invK.expand(B, 4, 4)
+
+    def encode(self, images):
+        """The features (NCHW) of images (B, H, W, 3) in the single-frame
+        mode."""
+        K, invK = self._K(images.shape[0])
+        return self.encoder(images.permute(0, 3, 1, 2), None, None, K, invK,
+                            dtype=self.dtype, skip_cost_volume=True)[0]
+
+    def encode_multi(self, images, lookup_frames, rel_poses):
+        """The features with the volume built from lookup frames (B, F, H,
+        W, 3) and current -> lookup transforms rel_poses (B, F, 4, 4)."""
+        K, invK = self._K(images.shape[0])
+        return self.encoder(images.permute(0, 3, 1, 2),
+                            _stack_nchw(lookup_frames), rel_poses, K, invK,
+                            dtype=self.dtype)[0]
+
+    def _disps(self, features, scales):
+        outs = self.decoder(features, scales, self.dtype)
+        return features, {k: manydepth_rescale(v) for k, v in outs.items()}
+
+    def features_and_disps(self, images, scales=None):
+        """(features, {("disp", s): NCHW float32 / 8.6437}), single-frame."""
+        return self._disps(self.encode(images), scales)
+
+    def features_and_disps_multi(self, images, lookup_frames, rel_poses,
+                                 scales=None):
+        return self._disps(self.encode_multi(images, lookup_frames,
+                                             rel_poses), scales)
+
+    def forward(self, images, head: int = 0):
+        """disp at scale `head` (B, H / 2^head, W / 2^head, 1)."""
+        _, disps = self.features_and_disps(images, (head,))
+        return disps[("disp", head)].permute(0, 2, 3, 1)
+
+
+# Monodepth2's normalised KITTI intrinsics (kitti_dataset.py:27-30)
+MONODEPTH2_K = np.array([[0.58, 0, 0.5, 0], [0, 1.92, 0.5, 0],
+                         [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+
+
+def quarter_intrinsics(K_norm, height: int, width: int, dtype=np.float64):
+    """Normalised 4x4 intrinsics -> the 1/4-size unnormalised (K, invK),
+    float32, scaled and pseudo-inverted in `dtype`: float64 as the
+    reference's evaluation loads them (depth_model.py:60-75
+    load_and_preprocess_intrinsics), float32 as JAX
+    `ManyDepthTrainModel._quarter_K` computes them."""
+    K = np.asarray(K_norm, dtype).copy()
+    K[0, :] *= width // 4
+    K[1, :] *= height // 4
+    return (torch.from_numpy(K.astype(np.float32)),
+            torch.from_numpy(np.linalg.pinv(K).astype(np.float32)))
 
 
 def make_monodepth2(num_layers: int = 18,

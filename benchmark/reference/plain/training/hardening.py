@@ -23,8 +23,13 @@ Counterpart of `depthmodelhardening_tpu/training/hardening.py:55-517`
                 updated after the forward's, in JAX's order);
        photo  = min-reprojection + automask + smoothness over 4 scales
                 (`training/selfsup.py`, the fused SSIM + L1 kernel);
-  4. backward, then Adam over the student and the SimSiam head with the
-     StepLR-equivalent staircase (trainer.py:140-142).
+     with temporal frame ids (mono or mono+stereo, e.g. ("0", "-1", "1",
+     "s")), the pose networks in train mode give each temporal source's
+     transform (`predict_poses`; trainer.py:377-433, "separate_resnet"),
+     and its warp's gradient reaches them through the sampling
+     coordinates;
+  4. backward, then Adam over the student, the SimSiam head and the pose
+     networks with the StepLR-equivalent staircase (trainer.py:140-142).
 
 The non-adversarial step (`selfsup_step`, `selfsup_frames_step`, the
 CLI's --no-adv-train) is steps 2-4 on a plain batch.
@@ -34,15 +39,21 @@ The model families (BASELINE config 5; JAX hardening.py:85-148):
 takes the DepthHints loss (`training/depth_hints.py`: the hint's planes
 "depth_hint" and "depth_hint_mask", (B, H, W, 1) at model resolution
 and already flipped with their items, ride in the frames and join the
-batch; the automask noise has one channel).
+batch; the automask noise has one channel); `model_family="manydepth"`
+trains `ManyDepthTrainModel` in the reference's single-frame mode, and
+with `manydepth_real_lookup` builds its cost volume from the first
+temporal source frame and the pose networks' transform (poses first,
+then the student's forward and the benign encode on that lookup). The
+ManyDepth student's attack view folds nothing (the JAX matching encoder
+has no fold).
 
-This copy keeps only what the benchmark's cells drive: the Monodepth2
-family on the stereo frames ("0", "s"), on one device. It refuses
-temporal frame ids (the pose networks), other families (ManyDepth) and
-data parallelism, which the program has and no cell runs yet.
+Departures from the program's trainer: one device only (no `mesh=`,
+no data parallelism, which no cell runs), no spans, no periodic
+robustness evaluation (`evaluate_attacks`), and every op in its plain
+version (`ops/_build.py`'s stand-in).
 
-The state is a model, the SimSiam head and their optimizer, updated in
-place; the step methods also return it, as the JAX
+The state is a model, the SimSiam head, the pose networks and their
+optimizer, updated in place; the step methods also return it, as the JAX
 package's do (`training/checkpoints.py` saves and restores it). Random
 draws come from the trainer's CPU generator (the automask noise from a
 device generator seeded from it), or are injected (`StepDraws`).
@@ -50,9 +61,9 @@ device generator seeded from it), or are injected (`StepDraws`).
 Compute dtype (`cfg.compute_dtype`, JAX hardening.py:88-115): the
 student computes in it, and so does its attack view; parameters and
 statistics stay float32, the disparities come out of the heads in
-float32 (so kernels C and A see float32) and SimSiam casts the features
-to float32, as the JAX trainer builds them. The teacher is whatever the
-caller built.
+float32 (so kernels C and A see float32), SimSiam casts the features to
+float32, and the pose networks are float32, as the JAX trainer builds
+them. The teacher is whatever the caller built.
 
 BatchNorm: torch's BatchNorm2d / 1d (the reference's) update the running
 variance with the unbiased batch variance, flax with the biased one, so
@@ -73,12 +84,14 @@ from ..attacks.base import PhysObjAttackConfig
 from ..attacks.l0_object import L0Draws, L0ObjectAttack
 from ..attacks.pgd_object import PGDDraws, PGDObjectAttack
 from ..device import resolve_device
-from ..models.resnet import encoder_channels
+from ..models.pose import PoseDecoder, init_pose_nets, make_pose_nets
+from ..models.resnet import ResnetEncoder, encoder_channels
 from ..models.simsiam import SimSiam, init_simsiam
 from ..models.wrappers import (
-    EvalView, MonodepthModel, flax_init_, make_monodepth2,
+    EvalView, ManyDepthTrainModel, MonodepthModel, flax_init_,
+    make_monodepth2,
 )
-from ..ops.geometry import disp_to_depth
+from ..ops.geometry import disp_to_depth, transformation_from_parameters
 from ..physics.eot import TRAIN_DIST_RANGE, monodepth2_K
 from .adv_synth import (
     SynthDraws, build_plain_batch, draw_jitter, draw_synth,
@@ -88,30 +101,44 @@ from . import depth_hints
 from .config import HardeningConfig
 from .selfsup import compute_selfsup_losses, identity_noise_shape
 
+FAMILIES = ("monodepth2", "manydepth")
+
 def make_family_model(cfg: HardeningConfig, dtype="float32",
                       fold_bn: bool = False):
-    """A new Monodepth2 of cfg's depth and scales, in `dtype` (folding its
-    eval-mode BatchNorm when `fold_bn`). The student and, in the caller's
-    hands, the teacher."""
-    _check_family(cfg)
-    return make_monodepth2(cfg.num_layers, cfg.selfsup.scales, dtype=dtype,
+    """A new model of cfg's family and depth, at cfg's size (ManyDepth's
+    intrinsics) and scales, in `dtype`: a ManyDepthTrainModel or a
+    Monodepth2 (folding its eval-mode BatchNorm when `fold_bn`). The
+    student and, in the caller's hands, the teacher."""
+    ss = cfg.selfsup
+    if cfg.model_family == "manydepth":
+        return ManyDepthTrainModel(
+            num_layers=cfg.num_layers, scales=ss.scales,
+            input_height=ss.height, input_width=ss.width,
+            num_depth_bins=cfg.manydepth_num_depth_bins, dtype=dtype)
+    return make_monodepth2(cfg.num_layers, ss.scales, dtype=dtype,
                            fold_bn=fold_bn)
 
 
 @dataclasses.dataclass
 class TrainState:
     """The student (train mode), the SimSiam head (with the contrastive
-    branch), their one Adam optimizer, and the number of steps taken."""
+    branch), the pose encoder and decoder (with temporal frame ids), their
+    one Adam optimizer, and the number of steps taken."""
 
-    model: MonodepthModel
+    model: Union[MonodepthModel, ManyDepthTrainModel]
     optimizer: torch.optim.Adam
     step: int = 0
     simsiam: Optional[SimSiam] = None
+    pose_encoder: Optional[ResnetEncoder] = None
+    pose_decoder: Optional[PoseDecoder] = None
 
     def modules(self) -> Dict[str, torch.nn.Module]:
         """The trained modules present, by name, in the optimizer's
-        parameter order: "model", "simsiam"."""
-        named = {"model": self.model, "simsiam": self.simsiam}
+        parameter order: "model", "simsiam", "pose_encoder",
+        "pose_decoder"."""
+        named = {"model": self.model, "simsiam": self.simsiam,
+                 "pose_encoder": self.pose_encoder,
+                 "pose_decoder": self.pose_decoder}
         return {k: m for k, m in named.items() if m is not None}
 
 
@@ -134,13 +161,18 @@ def _scaled_K(height: int, width: int):
 
 
 def _check_family(cfg: HardeningConfig) -> None:
-    """What this copy drives: Monodepth2 on stereo frames alone."""
-    if cfg.model_family != "monodepth2" or cfg.manydepth_real_lookup:
-        raise ValueError(f"the reference drives monodepth2 alone, got "
+    """JAX's refusals (hardening.py:89-97), and an unknown family."""
+    if cfg.model_family not in FAMILIES:
+        raise ValueError(f"model_family must be one of {FAMILIES}, got "
                          f"{cfg.model_family!r}")
-    if cfg.selfsup.use_pose_net:
-        raise ValueError("the reference has no pose networks: frame ids "
-                         f"{cfg.selfsup.frame_ids} hold temporal frames")
+    if cfg.manydepth_real_lookup:
+        if cfg.model_family != "manydepth":
+            raise ValueError("manydepth_real_lookup requires "
+                             "model_family='manydepth'")
+        if not cfg.selfsup.use_pose_net:
+            raise ValueError(
+                "manydepth_real_lookup needs monocular frame_ids (a "
+                "previous frame + pose net supply the lookup)")
 
 
 class HardeningTrainer:
@@ -148,7 +180,7 @@ class HardeningTrainer:
 
     generator: CPU `torch.Generator` of the from-scratch initialisation
       (flax's: truncated lecun-normal kernels, identity BatchNorm), of the
-      SimSiam head's, of the host draws (attack,
+      SimSiam head's and the pose networks', of the host draws (attack,
       synthesis, jitter) and of the seed of the device generator that
       draws the automask noise.
     obj_img (1, h, w, 3), obj_mask (1, h, w, 1): the attacked texture.
@@ -158,9 +190,9 @@ class HardeningTrainer:
       CUDA card (`device.require_cuda`, which raises without one). Tests
       pass "cpu" to run the plain versions of the kernels.
     init_state_dict: the student's weights instead (e.g. converted with
-      `models/convert.py`), as --fine-tune does; the head starts from
-      the generator's draws all the same, as the JAX trainer's does
-      under --fine-tune.
+      `models/convert.py`), as --fine-tune does; the head and the pose
+      networks start from the generator's draws all the same, as the
+      JAX trainer's do under --fine-tune.
     """
 
     def __init__(self, cfg: HardeningConfig, generator: torch.Generator,
@@ -185,6 +217,10 @@ class HardeningTrainer:
         if cfg.contrastive_learning:
             self._init_simsiam = _cpu_copy(init_simsiam(
                 generator, in_dim=self._feature_dim()).state_dict())
+        self._init_pose = None
+        if ss.use_pose_net:
+            self._init_pose = tuple(_cpu_copy(m.state_dict())
+                                    for m in init_pose_nets(generator))
         K, inv_K = _scaled_K(ss.height, ss.width)
         self._K = torch.from_numpy(K).to(self.device)
         self._inv_K = torch.from_numpy(inv_K).to(self.device)
@@ -250,16 +286,20 @@ class HardeningTrainer:
                                  self.cfg.fold_bn)
 
     def make_state(self, resume: Optional[Mapping] = None) -> TrainState:
-        """A fresh student (and SimSiam head) from the initial weights, in
-        train mode, with a new Adam over all of them (b1 0.9, b2 0.999,
-        eps 1e-8 outside the square root: optax.adam's); or, with `resume`
-        (`models/convert.py:from_jax_hardening_state`), those modules, the
-        Adam state and the step."""
+        """A fresh student (and SimSiam head, and pose networks) from the
+        initial weights, in train mode, with a new Adam over all of them
+        (b1 0.9, b2 0.999, eps 1e-8 outside the square root: optax.adam's);
+        or, with `resume` (`models/convert.py:from_jax_hardening_state`),
+        those modules, the Adam state and the step."""
         modules = {"model": self.make_student()}
         init = {"model": self._init_state_dict}
         if self._init_simsiam is not None:
             modules["simsiam"] = SimSiam(in_dim=self._feature_dim())
             init["simsiam"] = self._init_simsiam
+        if self._init_pose is not None:
+            modules["pose_encoder"], modules["pose_decoder"] = \
+                make_pose_nets()
+            init["pose_encoder"], init["pose_decoder"] = self._init_pose
         for key, module in modules.items():
             module.load_state_dict(init[key] if resume is None
                                    else resume[key])
@@ -366,10 +406,13 @@ class HardeningTrainer:
         batch["color_aug"]["0"]."""
         return self._features_and_disps(model, batch)[1]
 
-    def _features_and_disps(self, model, batch):
+    def _features_and_disps(self, model, batch, lookup=None):
         """The student's features and disparities {scale: NHWC} of
-        batch["color_aug"]["0"]."""
-        feats, outs = model.features_and_disps(batch["color_aug"]["0"])
+        batch["color_aug"]["0"]; `lookup`: (frames, poses) of a ManyDepth
+        student's real-lookup volume."""
+        x = batch["color_aug"]["0"]
+        feats, outs = (model.features_and_disps(x) if lookup is None
+                       else model.features_and_disps_multi(x, *lookup))
         return feats, {s: outs[("disp", s)].permute(0, 2, 3, 1)
                        for s in self.cfg.selfsup.scales}
 
@@ -378,15 +421,44 @@ class HardeningTrainer:
         with torch.no_grad():
             return self.teacher(images)
 
+    def predict_poses(self, state: TrainState, color_aug
+                      ) -> Dict[str, torch.Tensor]:
+        """{fid: (B, 4, 4)} for each temporal source frame: the pose
+        networks in the modules' mode (train mode in a step, their
+        encoder's statistics updated once a source, in
+        `temporal_source_ids` order; JAX `_predict_poses_mutable`,
+        hardening.py:367-389). The pair is [f, "0"] for f < 0 with the
+        transform inverted, ["0", f] otherwise, so each maps target-frame
+        points into the source camera."""
+        poses = {}
+        for fid in self.cfg.selfsup.temporal_source_ids:
+            f = int(fid)
+            pair = ((color_aug[fid], color_aug["0"]) if f < 0
+                    else (color_aug["0"], color_aug[fid]))
+            feats = state.pose_encoder(torch.cat(pair, dim=-1)
+                                       .permute(0, 3, 1, 2))
+            axisangle, translation = state.pose_decoder([feats])
+            poses[fid] = transformation_from_parameters(
+                axisangle[:, 0], translation[:, 0], invert=f < 0)
+        return poses
+
     def _losses(self, state: TrainState, batch, identity_noise
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The weighted sum of the configured branches and each of them
         (JAX `_losses`, hardening.py:265-365); the train-mode passes
         update the BatchNorm statistics in JAX's order (the student's,
-        then the head's)."""
+        the head's, then the pose encoder's; with the real lookup the
+        pose encoder's first)."""
         cfg, ss = self.cfg, self.cfg.selfsup
         model = state.model
-        feats_aug, disps = self._features_and_disps(model, batch)
+        poses = lookup = None
+        if cfg.manydepth_real_lookup:
+            # the poses first, so the student's volume can use them; the
+            # attack stays single-frame (JAX hardening.py:275-290)
+            poses = self.predict_poses(state, batch["color_aug"])
+            fid = ss.temporal_source_ids[0]
+            lookup = (batch["color_aug"][fid][:, None], poses[fid][:, None])
+        feats_aug, disps = self._features_and_disps(model, batch, lookup)
         metrics = {}
         total = 0.0
         if cfg.supervised_adv:
@@ -406,13 +478,16 @@ class HardeningTrainer:
             metrics["sup_loss"] = loss_sup
             total = total + loss_sup
         if cfg.contrastive_learning:
-            feats_ben = model.encode(batch["color_ben"])
+            feats_ben = (model.encode(batch["color_ben"]) if lookup is None
+                         else model.encode_multi(batch["color_ben"], *lookup))
             contras = cfg.contras_loss_wt * state.simsiam(feats_aug,
                                                           feats_ben)
             metrics["contras_loss"] = contras
             total = total + contras
         if not cfg.no_original_train:
-            poses = {}  # stereo frames alone: no temporal source
+            if poses is None:
+                poses = (self.predict_poses(state, batch["color_aug"])
+                         if ss.use_pose_net else {})
             if cfg.use_depth_hints:
                 selfsup, _ = depth_hints.compute_depth_hints_losses(
                     disps, batch, poses, identity_noise, ss)
